@@ -1,0 +1,102 @@
+"""Carry parameters and state across from the JAX package.
+
+The JAX package's ``UCGLDParams`` / ``TableBank`` / ``UCGTypeParams`` /
+``ChebBank`` and ``SimState`` are dataclasses of arrays.  ``as_numpy_dict``
+turns any such object into nested dicts of numpy arrays and Python scalars
+(it reads fields only and needs no JAX import); ``params_from_numpy`` and
+``state_from_numpy`` build this package's counterparts from those dicts, so
+both packages can compute on identical inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from lammps_ucg_dev_tpu_torch.core.state import Box, SimState
+from lammps_ucg_dev_tpu_torch.models.pair_ucgld import UCGLDParams
+from lammps_ucg_dev_tpu_torch.models.typemap import UCGTypeParams
+from lammps_ucg_dev_tpu_torch.ops.chebtab import ChebBank
+from lammps_ucg_dev_tpu_torch.ops.table import LINEAR, TableBank
+
+
+def as_numpy_dict(obj):
+    """Dataclass → dict of numpy arrays / Python scalars, recursively."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: as_numpy_dict(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if obj is None or isinstance(obj, (bool, int, float, str, tuple)):
+        return obj
+    return np.asarray(obj)
+
+
+def _t(a, dtype, device):
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def _float_dtype(a) -> torch.dtype:
+    return torch.float64 if np.asarray(a).dtype == np.float64 else torch.float32
+
+
+def bank_from_numpy(d: dict, device="cpu") -> TableBank:
+    if d["style"] != LINEAR:
+        raise NotImplementedError(f"table style {d['style']!r} is not ported")
+    dt = _float_dtype(d["e"])
+    return TableBank(
+        style=d["style"], nbins=int(d["nbins"]),
+        **{k: _t(d[k], dt, device) for k in ("innersq", "invdelta", "delta",
+                                             "cutsq", "e", "f", "de", "df")},
+        uniform=bool(d["uniform"]))
+
+
+def typeparams_from_numpy(d: dict, device="cpu") -> UCGTypeParams:
+    dt = _float_dtype(d["cutsq"])
+    return UCGTypeParams(
+        n_states=_t(d["n_states"], torch.int32, device),
+        formal=_t(d["formal"], torch.int32, device),
+        mu=_t(d["mu"], dt, device), mu_diff=_t(d["mu_diff"], dt, device),
+        tab4=_t(d["tab4"], torch.int64, device),
+        cutsq=_t(d["cutsq"], dt, device))
+
+
+def cheb_from_numpy(d: dict, device="cpu") -> ChebBank:
+    dt = _float_dtype(d["coeffs"])
+    return ChebBank(**{k: _t(d[k], dt, device)
+                       for k in ("coeffs", "lo", "hi", "max_abs_err",
+                                 "max_rel_err")},
+                    degree=int(d["degree"]))
+
+
+def params_from_numpy(d: dict, device="cpu") -> UCGLDParams:
+    """``d`` = as_numpy_dict(JAX UCGLDParams)."""
+    bank = bank_from_numpy(d["bank"], device)
+    return UCGLDParams(
+        bank=bank, tp=typeparams_from_numpy(d["tp"], device),
+        kT=_t(d["kT"], bank.e.dtype, device), chunk=int(d.get("chunk", 0)),
+        cheb=(cheb_from_numpy(d["cheb"], device) if d.get("cheb") is not None
+              else None))
+
+
+def state_from_numpy(d: dict, device="cpu") -> SimState:
+    """``d`` = as_numpy_dict(JAX SimState) of a global (unsharded) state;
+    orthogonal boxes only."""
+    box = d["box"]
+    if box.get("tilt") is not None:
+        raise NotImplementedError("triclinic boxes are not ported yet")
+    if d.get("n_total", 0) not in (0, len(d["x"])):
+        raise NotImplementedError("sharded (local-view) states are not ported")
+    dt = _float_dtype(d["x"])
+    i32 = torch.int32
+    return SimState(
+        step=int(d["step"]),
+        x=_t(d["x"], dt, device), v=_t(d["v"], dt, device),
+        tag=_t(d["tag"], i32, device), typ=_t(d["typ"], i32, device),
+        mol=_t(d["mol"], i32, device), q=_t(d["q"], dt, device),
+        image=_t(d["image"], i32, device),
+        ucgstate=_t(d["ucgstate"], i32, device),
+        ucgl=_t(d["ucgl"], dt, device), ucgvl=_t(d["ucgvl"], dt, device),
+        ucgml=_t(d["ucgml"], dt, device), ucgp=_t(d["ucgp"], dt, device),
+        box=Box(lo=_t(box["lo"], dt, device), hi=_t(box["hi"], dt, device),
+                periodic=tuple(bool(p) for p in box["periodic"])))

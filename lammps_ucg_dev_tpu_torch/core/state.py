@@ -1,0 +1,159 @@
+"""Core simulation state: dataclasses of tensors (port of
+``lammps_ucg_dev_tpu/core/state.py``).
+
+All per-atom state lives in one structure-of-arrays :class:`SimState` whose
+rows are tag-stable (``tag`` carries atom identity).  The UCG fields mirror
+the reference's ``atom_style ucg`` (``UCG/atom_vec_ucg.cpp:48-90``):
+``ucgstate`` (discrete state), ``ucgl`` (λ), ``ucgvl`` (λ velocity),
+``ucgml`` (λ pseudo-mass) and ``ucgp`` (posterior, -1 = unassigned).
+``ucgforce`` and the softmax scores are force-like outputs of the force pass
+(:class:`ForceOut`).
+
+Differences from the JAX counterpart:
+  * the step counter is a host ``int`` (the block loop runs on the host);
+  * there is no PRNG key: the ``Simulation`` owns a ``torch.Generator``;
+  * boxes are orthogonal only (triclinic boxes are not ported yet).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Box:
+    """Orthogonal periodic simulation box."""
+
+    lo: torch.Tensor   # (3,)
+    hi: torch.Tensor   # (3,)
+    periodic: tuple = (True, True, True)
+
+    @property
+    def lengths(self) -> torch.Tensor:
+        return self.hi - self.lo
+
+    @property
+    def is_triclinic(self) -> bool:
+        return False
+
+    def min_image(self, dr: torch.Tensor) -> torch.Tensor:
+        """Minimum-image displacement.  A fully periodic box skips the
+        per-axis mask (multiplying by 1.0 changes no bit)."""
+        L = self.lengths
+        if all(self.periodic):
+            return dr - L * torch.round(dr / L)
+        per = torch.tensor(self.periodic, dtype=dr.dtype, device=dr.device)
+        return dr - per * L * torch.round(dr / L)
+
+    def wrap(self, x: torch.Tensor, image: torch.Tensor | None = None):
+        """Wrap positions into the primary cell; update image flags."""
+        L = self.lengths
+        shift = torch.floor((x - self.lo) / L)
+        if not all(self.periodic):
+            per = torch.tensor(self.periodic, device=x.device)
+            shift = torch.where(per[None, :], shift, torch.zeros_like(shift))
+        x_w = x - shift * L
+        if image is None:
+            return x_w
+        return x_w, image + shift.to(image.dtype)
+
+    @staticmethod
+    def create(lo, hi, periodic=(True, True, True), dtype=torch.float32,
+               device="cpu") -> "Box":
+        return Box(lo=torch.as_tensor(np.asarray(lo, np.float64), dtype=dtype,
+                                      device=device),
+                   hi=torch.as_tensor(np.asarray(hi, np.float64), dtype=dtype,
+                                      device=device),
+                   periodic=tuple(bool(p) for p in periodic))
+
+
+@dataclasses.dataclass(frozen=True)
+class SimState:
+    """Dynamic per-atom state + the step counter."""
+
+    step: int
+    x: torch.Tensor          # (N, 3)
+    v: torch.Tensor          # (N, 3)
+    tag: torch.Tensor        # (N,) int32 atom ids (stable under reordering)
+    typ: torch.Tensor        # (N,) int32, 1-based LAMMPS "actual" types
+    mol: torch.Tensor        # (N,) int32
+    q: torch.Tensor          # (N,)
+    image: torch.Tensor      # (N, 3) int32
+    ucgstate: torch.Tensor   # (N,) int32
+    ucgl: torch.Tensor       # (N,)
+    ucgvl: torch.Tensor      # (N,)
+    ucgml: torch.Tensor      # (N,)
+    ucgp: torch.Tensor       # (N,)
+    box: Box
+
+    @property
+    def n_atoms(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def rng_n(self) -> int:
+        """Length of tag-keyed per-atom random streams (the atom count)."""
+        return self.x.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    @staticmethod
+    def create(x, v=None, typ=None, tag=None, mol=None, q=None,
+               ucgstate=None, ucgl=None, ucgvl=None, ucgml=None, ucgp=None,
+               box: Box | None = None, dtype=torch.float32,
+               device="cpu") -> "SimState":
+        x = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+        n = x.shape[0]
+
+        def arr(a, default, dt=dtype):
+            if a is None:
+                return torch.full((n,), default, dtype=dt, device=device)
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+        i32 = torch.int32
+        v = (torch.zeros_like(x) if v is None
+             else torch.as_tensor(np.asarray(v), dtype=dtype, device=device))
+        if box is None:
+            box = Box(lo=x.min(0).values, hi=x.max(0).values)
+        tag = (torch.arange(1, n + 1, dtype=i32, device=device) if tag is None
+               else arr(tag, 0, i32))
+        return SimState(
+            step=0, x=x, v=v, tag=tag,
+            typ=arr(typ, 1, i32), mol=arr(mol, 0, i32), q=arr(q, 0.0),
+            image=torch.zeros((n, 3), dtype=i32, device=device),
+            # data_atom_post defaults: state clamped to {0,1}, λ to [0,1],
+            # ucgp = -1 sentinel (atom_vec_ucg.cpp:145-170)
+            ucgstate=torch.clamp(arr(ucgstate, 0, i32), 0, 1),
+            ucgl=torch.clamp(arr(ucgl, 0.0), 0.0, 1.0),
+            ucgvl=arr(ucgvl, 0.0), ucgml=arr(ucgml, 1.0), ucgp=arr(ucgp, -1.0),
+            box=box)
+
+
+@dataclasses.dataclass(frozen=True)
+class ForceOut:
+    """Per-step force-pass outputs (force-like quantities, cleared each step)."""
+
+    f: torch.Tensor          # (N, 3)
+    ucgforce: torch.Tensor   # (N,) λ-forces (-dU/dλ)
+    scores: torch.Tensor     # (N, 2) softmax scores
+    pe: torch.Tensor         # () potential energy
+    virial: torch.Tensor     # (6,) xx yy zz xy xz yz
+    oob_low: torch.Tensor | None = None    # pairs below the table inner cutoff
+    oob_high: torch.Tensor | None = None   # pairs beyond the table outer end
+
+
+@dataclasses.dataclass(frozen=True)
+class System:
+    """Static system description."""
+
+    n_atoms: int
+    ntypes: int
+    masses: Any            # np.ndarray (ntypes+1,), index 0 unused
+    units: str = "lj"
+    dim: int = 3

@@ -1,0 +1,49 @@
+"""Shared per-pair machinery for the UCG pair styles (port of
+``lammps_ucg_dev_tpu/models/common.py``).
+
+The per-atom-owned (newton-off) formulation means each directed pair (i, j)
+contributes only to atom i's tallies; summing over the full list reproduces
+the reference's half-list + reverse-comm totals.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lammps_ucg_dev_tpu_torch.models.typemap import UCGTypeParams
+
+
+def lambda_weights(tp: UCGTypeParams, typ: torch.Tensor,
+                   lam: torch.Tensor) -> torch.Tensor:
+    """Per-atom state weights: [1-λ, λ] for UCG atoms, [1, 0] otherwise
+    (unifies the reference's four per-pair scenarios,
+    pair_table_ucgld.cpp:219-519)."""
+    w1 = torch.where(tp.n_states[typ] > 1, lam, torch.zeros_like(lam))
+    return torch.stack([1.0 - w1, w1], dim=-1)           # (N, 2)
+
+
+def mix(e4: torch.Tensor, wi: torch.Tensor, wj: torch.Tensor) -> torch.Tensor:
+    """Σ_{si,sj} wi[si] wj[sj] e4[..., si, sj] → (N, K)."""
+    return torch.einsum("ns,nkt,nkst->nk", wi, wj, e4)
+
+
+def pair_virial(fmix: torch.Tensor, dr: torch.Tensor) -> torch.Tensor:
+    """Per-pair virial components, full-list double counting halved.
+    Order: xx yy zz xy xz yz (LAMMPS convention)."""
+    w = 0.5 * fmix
+    pairs = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
+    return torch.stack([torch.sum(w * dr[..., a] * dr[..., b])
+                        for a, b in pairs])
+
+
+def softmax_posterior(scores: torch.Tensor, is_ucg: torch.Tensor,
+                      clip_lo: float = 1e-6) -> torch.Tensor:
+    """ucgp = clamp(softmax(scores)[1]) as in FixUCGState::post_force
+    (fix_ucgstate.cpp:105-111): exp clamp at 700, result clamped to
+    [1e-6, 1-1e-6]; 1 for non-UCG atoms."""
+    s = torch.clamp(scores, max=700.0)
+    s = s - torch.max(s, dim=-1, keepdim=True).values
+    ex = torch.exp(s)
+    p1 = ex[..., 1] / torch.sum(ex, dim=-1)
+    p1 = torch.clamp(p1, clip_lo, 1.0 - clip_lo)
+    return torch.where(is_ucg, p1, torch.ones_like(p1))

@@ -1,0 +1,107 @@
+"""``pair_style table_ucgld`` — λ-dynamics UCG tabulated pair style, the
+reference pair path (port of ``lammps_ucg_dev_tpu/models/pair_ucgld.py``).
+
+Physics (PairTable_UCGLD::compute, ``UCG/pair_table_ucgld.cpp:111-541``):
+
+* mixed pair energy/force over state combinations with λ weights
+  ``w_i = [1-λ_i, λ_i]``: E_ij = Σ_{s,s'} w_i[s] w_j[s'] u_ss'(r)
+* λ-forces (−dU/dλ): ucgf_i -= λ_j (u11-u01) + (1-λ_j)(u10-u00)
+* pseudolikelihood scores at the partner's CURRENT discrete state:
+  score_i[s] -= u_{s, state_j}(r) / kT
+* chemical-potential term per UCG atom: ucgf_i -= μ1-μ0 ;
+  score_i[1] -= (μ1-μ0)/kT
+
+Full neighbor list, per-atom-owned tallies, evaluated in row chunks
+(``params.chunk``) so the (rows, K, 2, 2) working set stays bounded.  This
+path is the CPU default and the float64 oracle of the hand-written kernel
+path (ops/hopper_pair.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from lammps_ucg_dev_tpu_torch.core.state import ForceOut, SimState
+from lammps_ucg_dev_tpu_torch.models import common
+from lammps_ucg_dev_tpu_torch.models.typemap import UCGTypeParams
+from lammps_ucg_dev_tpu_torch.ops.neighbor import NeighborList
+from lammps_ucg_dev_tpu_torch.ops.table import TableBank
+
+
+@dataclasses.dataclass(frozen=True)
+class UCGLDParams:
+    bank: TableBank
+    tp: UCGTypeParams
+    kT: torch.Tensor   # scalar; pulled from the thermostat fix at init time
+    chunk: int = 0     # row-chunk size for the pair loop (0 = unchunked)
+    cheb: "object | None" = None   # ChebBank for the kernel path
+
+
+def _rows(state: SimState, idx, xi, ti, wi, wi_all, bank, tp):
+    """Pair tallies of one row block; everything per-atom-owned."""
+    n = state.n_atoms
+    valid = idx < n
+    jc = torch.where(valid, idx, torch.zeros_like(idx))
+    dr = state.box.min_image(xi[:, None, :] - state.x[jc])
+    rsq = torch.sum(dr * dr, dim=-1)
+    tj = state.typ[jc]
+    tic = ti[:, None].expand_as(tj)
+    within = valid & (rsq < tp.cutsq[tic, tj])
+
+    t4 = tp.tab4[tic, tj]                                   # (rows, K, 2, 2)
+    e4, fp4, lo, hi = bank.interp(t4, rsq[..., None, None])
+    w4 = within[..., None, None]
+    zero = torch.zeros((), dtype=e4.dtype, device=e4.device)
+    e4 = torch.where(w4, e4, zero)
+    fp4 = torch.where(w4, fp4, zero)
+    if bank.uniform:
+        # shared binning: the range flags are the same for all four
+        # combinations, so count each pair once
+        lo, hi, wc = lo[..., 0, 0], hi[..., 0, 0], within
+    else:
+        wc = w4
+    oob_lo = torch.sum(wc & lo)
+    oob_hi = torch.sum(wc & hi)
+    wj = wi_all[jc]                                         # (rows, K, 2)
+    jstate = within & (state.ucgstate[jc] > 0)
+
+    fmix = common.mix(fp4, wi, wj)
+    emix = common.mix(e4, wi, wj)
+    f_r = torch.sum(fmix[..., None] * dr, dim=1)
+    pe_r = 0.5 * torch.sum(emix)
+    vir_r = common.pair_virial(fmix, dr)
+    du = e4[..., 1, :] - e4[..., 0, :]                      # (rows, K, 2)
+    lamf_r = -torch.einsum("nkt,nkt->n", wj, du)
+    u_at_js = torch.where(jstate[..., None], e4[..., :, 1], e4[..., :, 0])
+    scores_r = -torch.sum(u_at_js, dim=1)
+    return f_r, lamf_r, scores_r, pe_r, vir_r, oob_lo, oob_hi
+
+
+def compute(state: SimState, nbr: NeighborList,
+            params: UCGLDParams) -> ForceOut:
+    bank, tp = params.bank, params.tp
+    x, typ = state.x, state.typ
+    n = state.n_atoms
+    kT = params.kT
+    wi_all = common.lambda_weights(tp, typ, state.ucgl)     # (N, 2)
+    is_ucg = tp.n_states[typ] > 1
+
+    chunk = params.chunk if params.chunk and n > params.chunk else n
+    parts = [_rows(state, nbr.idx[r0:r0 + chunk], x[r0:r0 + chunk],
+                   typ[r0:r0 + chunk], wi_all[r0:r0 + chunk], wi_all, bank,
+                   tp)
+             for r0 in range(0, n, chunk)]
+    f, lamf, scores = (torch.cat([p[k] for p in parts]) for k in range(3))
+    pe, virial, oob_lo, oob_hi = (sum(p[k] for p in parts)
+                                  for k in range(3, 7))
+    scores = scores / kT
+
+    mu = tp.mu_diff[typ]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    ucgforce = torch.where(is_ucg, lamf - mu, zero)
+    scores = torch.stack([scores[:, 0], scores[:, 1] - mu / kT], dim=1)
+    scores = torch.where(is_ucg[:, None], scores, zero)
+    return ForceOut(f=f, ucgforce=ucgforce, scores=scores, pe=pe,
+                    virial=virial, oob_low=oob_lo, oob_high=oob_hi)

@@ -1,0 +1,294 @@
+"""Column-packed pair candidates for the hand-written pair kernel (port of
+``lammps_ucg_dev_tpu/ops/colpack.py``).
+
+* Atoms are binned into **x-y columns** of side >= cutoff+skin and sorted by
+  z within each column, so consecutive slots are spatially adjacent.
+* z-periodicity is handled by **ghost slots**: copies of each column's top
+  (bottom) atoms are placed below (above) it with z shifted by -+Lz, so a
+  z-range query never wraps.  x/y periodicity is an image shift per stencil
+  column (the column grid has >= 3 columns per side).
+* For each 8-slot i-cluster and each of the 9 stencil columns, all partners
+  within cutoff+skin lie in ONE contiguous span ``[z0, z0+L)`` of that
+  column's extended slots.  The kernel loops over those spans directly.
+
+Extended slot space: column c owns rows [c*czp, (c+1)*czp) =
+[gz ghost-bottom | count real | <= gzt ghost-top copies | pads].  The real
+slot space (kernel i-side and outputs) is the (ncol*cz,) region at offsets
+[gz, gz+cz) of each column.
+
+Left out from the JAX structure: the overlapped z-pages, the (G, S) page
+geometry, the packed destination lane and NV sizing, the window metadata and
+the slot-major ghost-refresh index sets.  They exist only for the TPU's
+data movement.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from lammps_ucg_dev_tpu_torch.core.state import Box
+
+CL = 8          # atoms per i-cluster (the span granularity)
+NSTEN = 9       # 3x3 x-y column stencil
+_PAD_POISON = 1.0e17   # pad-slot coordinate: far enough that dx² overflows
+                       # any cutoff, small enough that dx² stays finite in f32
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnList:
+    """Per-reneighbor candidate structure (fixed shapes)."""
+
+    slot_atom_ext: torch.Tensor  # (ncol*czp,) int64 atom id; N = padding
+    zshift: torch.Tensor         # (ncol*czp,) int8 in {-1, 0, +1} (units of Lz)
+    atom_slot: torch.Tensor      # (N,) int64 -> real slot index
+    i_valid: torch.Tensor        # (ncol*cz,) bool — real slot holds a real atom
+    z0: torch.Tensor             # (ncol, cz/8, 9) int32 span start slot
+    L: torch.Tensor              # (ncol, cz/8, 9) int32 span length
+    x0: torch.Tensor             # (N, 3) build-time positions
+    overflow: torch.Tensor       # () bool — column or ghost capacity exceeded
+    max_occupancy: torch.Tensor  # () int — most candidates of one cluster
+    mx: int
+    my: int
+    cz: int                      # real slots per column (multiple of 8)
+    gz: int                      # bottom ghost-zone slots per column
+    gzt: int                     # top ghost-copy capacity per column
+    czp: int                     # total slots per column
+
+    @property
+    def ncol(self) -> int:
+        return self.mx * self.my
+
+    @property
+    def n_slots(self) -> int:
+        return self.ncol * self.cz
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnSpec:
+    cutoff: float
+    skin: float
+    mx: int
+    my: int
+    cz: int
+    gz: int
+    gzt: int
+    czp: int
+
+    @property
+    def rc(self) -> float:
+        return self.cutoff + self.skin
+
+    @property
+    def ncol(self) -> int:
+        return self.mx * self.my
+
+
+def _grid_dims(box_lengths, rc):
+    L = np.asarray(box_lengths, np.float64)
+    mx, my = (max(int(L[d] / rc), 1) for d in (0, 1))
+    if mx < 3 or my < 3:
+        raise ValueError(f"column grid needs >= 3 columns per side "
+                         f"(got {mx}x{my}); box too small for the kernel path")
+    if L[2] < 2.0 * rc:
+        raise ValueError("Lz must be >= 2*(cutoff+skin) for ghost-based "
+                         "z-periodicity")
+    return L, mx, my
+
+
+def stencil(mx: int, my: int):
+    """(ncol, 9) stencil columns and (ncol, 9) x/y image shifts (units of
+    Lx/Ly) in x-row-major order: s = (dx+1)*3 + (dy+1).  The shift moves a
+    partner's position next to the center column across the periodic
+    boundary; the kernel derives the same values by grid arithmetic."""
+    cx, cy = np.divmod(np.arange(mx * my, dtype=np.int64), my)
+    cols, sx, sy = [], [], []
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            cols.append(((cx + dx) % mx) * my + (cy + dy) % my)
+            sx.append((cx + dx) // mx)
+            sy.append((cy + dy) // my)
+    return (np.stack(cols, 1).astype(np.int64), np.stack(sx, 1),
+            np.stack(sy, 1))
+
+
+def measure_spec(x, box_lengths, cutoff: float,
+                 skin: float = 0.4) -> ColumnSpec:
+    """Data-driven spec from one (N, 3) configuration already normalized to
+    [0, L) per axis (host numpy): column capacity ``cz`` and ghost
+    capacities ``gz``/``gzt`` with Poisson margins, as the JAX package sizes
+    them.  The runtime overflow flag is the backstop as atoms move."""
+    rc = cutoff + skin
+    L, mx, my = _grid_dims(box_lengths, rc)
+    ncol = mx * my
+    Lz = L[2]
+    xn = np.asarray(x, np.float64)
+    ccx = np.clip((xn[:, 0] / L[0] * mx).astype(np.int64), 0, mx - 1)
+    ccy = np.clip((xn[:, 1] / L[1] * my).astype(np.int64), 0, my - 1)
+    col = ccx * my + ccy
+    z = np.mod(xn[:, 2], Lz)
+    counts = np.bincount(col, minlength=ncol)
+    mean_col = max(xn.shape[0] / ncol, 1.0)
+    cap = int(counts.max()) + 4.0 * math.sqrt(mean_col) + 8
+    cz = int(-(-cap // CL) * CL)
+    need_b = int(np.bincount(col[z > Lz - rc], minlength=ncol).max())
+    need_t = int(np.bincount(col[z < rc], minlength=ncol).max())
+
+    def margin(need):
+        return int(-(-(need + 4.0 * math.sqrt(max(need, 1.0)) + 4) // CL) * CL)
+
+    gz, gzt = margin(need_b), margin(need_t)
+    # round the column stride to 32 slots (128-byte rows)
+    czp = int(-(-(gz + cz + gzt) // 32) * 32)
+    return ColumnSpec(cutoff=cutoff, skin=skin, mx=mx, my=my, cz=cz, gz=gz,
+                      gzt=gzt, czp=czp)
+
+
+def build(x: torch.Tensor, box: Box, spec: ColumnSpec) -> ColumnList:
+    """Bin, z-sort, lay out the extended columns and find every cluster's
+    nine candidate spans.  ``x`` must be wrapped into the box."""
+    if box.is_triclinic:
+        raise ValueError("the column kernel path requires an orthogonal box")
+    dev = x.device
+    n = x.shape[0]
+    mx, my, cz, gz, gzt, czp = (spec.mx, spec.my, spec.cz, spec.gz, spec.gzt,
+                                spec.czp)
+    ncol = mx * my
+    rc = spec.rc
+    L = box.lengths
+    Lz = L[2]
+    dtype = x.dtype
+    i64 = torch.int64
+
+    # ---- bin into columns, z-sort within ------------------------------------
+    fx = (x[:, 0] - box.lo[0]) / L[0]
+    fy = (x[:, 1] - box.lo[1]) / L[1]
+    ccx = torch.clamp((fx * mx).to(i64), 0, mx - 1)
+    ccy = torch.clamp((fy * my).to(i64), 0, my - 1)
+    col = ccx * my + ccy
+    z = x[:, 2] - box.lo[2]
+    # lexsort (z, col): stable sort by z, then stable sort by column
+    oz = torch.sort(z, stable=True).indices
+    order = oz[torch.sort(col[oz], stable=True).indices]
+    sorted_col = col[order]
+    count = torch.bincount(col, minlength=ncol)                # (ncol,)
+    # rank within the column = sorted position - the column's first position
+    first = torch.cumsum(count, 0) - count
+    rank = torch.arange(n, device=dev) - first[sorted_col]
+    col_overflow = rank.max() >= cz
+    rank_c = torch.clamp(rank, 0, cz - 1)
+    rslot_sorted = sorted_col * cz + rank_c
+
+    atom_slot = torch.empty(n, dtype=i64, device=dev)
+    atom_slot[order] = rslot_sorted
+    z_sorted = z[order]
+    # real-region z values; pads take z = Lz so every column row is ascending
+    z_real = Lz.expand(ncol * cz).clone()
+    z_real[rslot_sorted] = z_sorted
+    z_real = z_real.reshape(ncol, cz)
+
+    # ---- extended column layout ---------------------------------------------
+    # [gz ghost-bottom | count real | <= gzt ghost-top copies | pads]; each
+    # sorted atom is scattered to its up-to-three extended rows; invalid
+    # copies go to the dump row past the end and are dropped
+    cnt_s = count[sorted_col]
+    ebase = sorted_col * czp
+    dump = ncol * czp
+    t_real = ebase + gz + rank_c
+    qb_at = rank - cnt_s + gz                       # bottom row of this atom
+    t_bot = torch.where((qb_at >= 0) & (qb_at < gz), ebase + qb_at, dump)
+    qt_at = gz + cnt_s + rank                       # top-copy row
+    t_top = torch.where((rank < gzt) & (qt_at < czp), ebase + qt_at, dump)
+
+    sa = torch.full((dump + 1,), n, dtype=i64, device=dev)
+    sa[t_real] = order
+    sa[t_bot] = order
+    sa[t_top] = order
+    # pads: bottom-zone pads sit below every query (-Lz), all others above
+    q = torch.arange(czp, device=dev)
+    zext = torch.where(q < gz, -Lz, 3 * Lz).expand(ncol, czp).reshape(-1)
+    zext = torch.cat([zext, zext[:1]])
+    zext[t_real] = z_sorted
+    zext[t_bot] = z_sorted - Lz
+    zext[t_top] = z_sorted + Lz
+    shift = torch.zeros(dump + 1, dtype=torch.int8, device=dev)
+    shift[t_bot] = -1
+    shift[t_top] = 1
+    slot_atom_ext, zext, zshift = sa[:dump], zext[:dump], shift[:dump]
+    zext = zext.reshape(ncol, czp)
+    # ghost-top copies inside the real region are not i-atoms
+    i_valid = (torch.arange(cz, device=dev)[None, :]
+               < count[:, None]).reshape(-1)
+
+    # ghost capacity: every atom within rc of a z face must have a copy
+    need_top = count - torch.sum(z_real < (Lz - rc), dim=1)
+    need_bot = torch.sum(z_real < rc, dim=1)
+    ghost_overflow = ((need_top.max() > gz)
+                      | ((count + need_bot).max() > (czp - gz))
+                      | (need_bot.max() > gzt))
+
+    # ---- per-(cluster, stencil column) candidate spans ----------------------
+    # cluster b of a column covers real slots [8b, 8b+8); its partners lie
+    # in z ∈ [z_first - rc, z_last + rc] of each stencil column.  z0 counts
+    # extended rows with z < lo (searchsorted left), z1 those with z <= hi
+    # (searchsorted right) — the JAX package's compare-and-count bounds
+    cpc = cz // CL
+    ci = torch.arange(cpc, device=dev)[None, :]
+    cnt = count[:, None]
+    has = cnt > ci * CL
+    lo_i = torch.minimum(ci * CL, torch.clamp(cnt - 1, min=0))
+    hi_i = torch.minimum(torch.maximum(cnt - 1, ci * CL), ci * CL + CL - 1)
+    far = 4 * Lz                                   # past every extended row
+    zlo = torch.where(has, torch.gather(z_real, 1, lo_i) - rc, far)
+    zhi = torch.where(has, torch.gather(z_real, 1, hi_i) + rc, far)
+    sten = torch.as_tensor(stencil(mx, my)[0], device=dev)      # (ncol, 9)
+    zs = zext[sten]                                            # (ncol, 9, czp)
+    qlo = zlo[:, None, :].expand(ncol, NSTEN, cpc).contiguous()
+    qhi = zhi[:, None, :].expand(ncol, NSTEN, cpc).contiguous()
+    z0 = torch.searchsorted(zs, qlo, right=False)
+    z1 = torch.searchsorted(zs, qhi, right=True)
+    span = torch.clamp(z1 - z0, min=0)
+    z0 = z0.transpose(1, 2).contiguous().to(torch.int32)   # (ncol, cpc, 9)
+    span = span.transpose(1, 2).contiguous().to(torch.int32)
+
+    return ColumnList(
+        slot_atom_ext=slot_atom_ext, zshift=zshift, atom_slot=atom_slot,
+        i_valid=i_valid, z0=z0, L=span, x0=x,
+        overflow=col_overflow | ghost_overflow,
+        max_occupancy=span.sum(dim=2).max(),
+        mx=mx, my=my, cz=cz, gz=gz, gzt=gzt, czp=czp)
+
+
+def pack(cl: ColumnList, box: Box, x: torch.Tensor, lam: torch.Tensor,
+         ucgstate: torch.Tensor, dtype=torch.float32,
+         typ: torch.Tensor | None = None):
+    """Per-step attribute packing (positions/λ/state change every step; the
+    slot mapping persists for the reneighbor block).
+
+    Returns (ipack, cols):
+      ipack (ncol*cz, 8) real slots, rows = [x y z λ state valid 0 typ]
+            (valid is 0 for pads and for ghost-top copies in the region)
+      cols  (ncol, 8, czp) the extended slots, attribute-major
+    """
+    n = x.shape[0]
+    dev = x.device
+    ones = torch.ones((n, 1), dtype=dtype, device=dev)
+    attrs = torch.cat([
+        x.to(dtype), lam.to(dtype)[:, None], ucgstate.to(dtype)[:, None],
+        ones, torch.zeros_like(ones),
+        (torch.zeros_like(ones) if typ is None else typ.to(dtype)[:, None]),
+    ], dim=1)
+    # pad row: positions poisoned far outside the box so pad slots fail the
+    # rsq < cutsq test geometrically (valid flag 0 as well)
+    pad_row = torch.zeros((1, 8), dtype=dtype, device=dev)
+    pad_row[0, :3] = _PAD_POISON
+    attrs = torch.cat([attrs, pad_row])
+    ext = attrs[cl.slot_atom_ext]                               # (ncol*czp, 8)
+    ext[:, 2] += cl.zshift.to(dtype) * box.lengths[2].to(dtype)
+    ext3 = ext.reshape(cl.ncol, cl.czp, 8)
+    ipack = ext3[:, cl.gz:cl.gz + cl.cz, :].reshape(cl.n_slots, 8).clone()
+    ipack[:, 5] *= cl.i_valid.to(dtype)
+    return ipack, ext3.transpose(1, 2).contiguous()

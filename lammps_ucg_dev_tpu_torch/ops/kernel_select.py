@@ -1,0 +1,52 @@
+"""Auto-selection of the hand-written pair kernel path (port of
+``lammps_ucg_dev_tpu/ops/kernel_select.py``, ``table_ucgld`` only).
+
+Eligibility (all must hold; otherwise the reference pair path
+models/pair_ucgld.py on an nsq neighbor list stays in force):
+
+* a CUDA device — the JAX package selects its kernel only on a TPU;
+  ``force=True`` skips this check (tests, where the wrapper then runs the
+  kernel's plain twin on CPU tensors);
+* float32 state (the kernel computes in f32);
+* ``hopper_pair.supports``;
+* an orthogonal box with at least 3x3 columns (``colpack.measure_spec``);
+* a Chebyshev fit of the table bank with ``max_rel_err < rel_tol``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def select_pair_kernel(params, state, cutoff: float, skin: float,
+                       rel_tol: float = 1e-4, force: "bool | None" = None):
+    """Returns (pair_fn, spec, params) for the kernel path, or None.
+    ``force=True`` skips the device check; ``force=False`` disables
+    selection outright."""
+    from lammps_ucg_dev_tpu_torch.models.pair_ucgld import UCGLDParams
+    from lammps_ucg_dev_tpu_torch.ops import chebtab, colpack
+    from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+
+    if force is False or not isinstance(params, UCGLDParams):
+        return None
+    if state.x.dtype != torch.float32:
+        return None
+    if force is None and not state.x.is_cuda:
+        return None
+    if state.box.is_triclinic or not hp.supports(params):
+        return None
+    L = state.box.lengths.cpu().numpy().astype(np.float64)
+    lo = state.box.lo.cpu().numpy().astype(np.float64)
+    x = state.x.cpu().numpy().astype(np.float64)
+    try:
+        spec = colpack.measure_spec(np.mod(x - lo, L), L, cutoff, skin)
+    except ValueError:
+        return None
+    cheb = chebtab.fit_bank(params.bank)
+    if float(cheb.max_rel_err.max()) >= rel_tol:
+        return None
+    return (hp.compute_style, spec,
+            dataclasses.replace(params, cheb=cheb, chunk=0))

@@ -1,0 +1,133 @@
+"""K1 on the card: the hand-written CUDA kernel against its plain PyTorch
+twin on the same CUDA tensors.  Needs an NVIDIA GPU and nvcc; without them
+every test here skips.  The file imports nothing of JAX, so it also runs
+where JAX is absent (skip the JAX test configuration there):
+``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``.
+
+Tolerance: both sides compute in f32 with the same algorithm and differ
+only by FMA contraction and summation order, so every field is held within
+2e-5 of its largest magnitude (pe within 2e-5 relative)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from lammps_ucg_dev_tpu_torch import flagship
+from lammps_ucg_dev_tpu_torch.core.state import Box, SimState
+from lammps_ucg_dev_tpu_torch.io.state_settings import parse_state_settings
+from lammps_ucg_dev_tpu_torch.io.table_io import RLINEAR, RawTable
+from lammps_ucg_dev_tpu_torch.models.pair_ucgld import UCGLDParams
+from lammps_ucg_dev_tpu_torch.models.typemap import TablePairBuilder
+from lammps_ucg_dev_tpu_torch.ops import colpack
+from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+from lammps_ucg_dev_tpu_torch.ops.kernel_select import select_pair_kernel
+
+pytestmark = pytest.mark.cuda
+TOL = 2e-5
+VARIANTS = [("full", True, True), ("fast", False, True),
+            ("noscores", False, False)]
+
+
+# 2 actual types: type 1 plain, type 2 UCG with formal types (2, 3)
+MIXED_SETTINGS = "2 3 2\n1 1\n2 2\n2 3\n0.0 0.4\n"
+
+
+def soft_table(eps, rc=2.5, n=1500, rlo=1e-3):
+    r = np.linspace(rlo, rc, n)
+    return RawTable(r=r, e=eps * (1.0 + np.cos(np.pi * r / rc)),
+                    f=eps * np.pi / rc * np.sin(np.pi * r / rc),
+                    rflag=RLINEAR, rlo=rlo, rhi=rc)
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return "cuda"
+
+
+def kernel_vs_twin(state, cl, params, observe, scores):
+    args, kw = hp.kernel_inputs(state, cl, params, params.cheb, observe,
+                                scores)
+    before = hp.ucgld_pair.launches[hp.variant(observe, scores)]
+    out_k, part_k = hp.ucgld_pair(*args, **kw)
+    assert hp.ucgld_pair.launches[hp.variant(observe, scores)] == before + 1
+    out_t, part_t = hp.ucgld_pair_reference(*args, **kw)
+    torch.cuda.synchronize()
+    fk = hp.force_out(out_k, part_k, state, cl, params, observe, scores)
+    ft = hp.force_out(out_t, part_t, state, cl, params, observe, scores)
+    for name in ("f", "ucgforce", "scores"):
+        a, b = getattr(fk, name).cpu(), getattr(ft, name).cpu()
+        scale = max(float(b.abs().max()), 1e-30)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=TOL * scale, err_msg=name)
+    if observe:
+        np.testing.assert_allclose(float(fk.pe), float(ft.pe), rtol=TOL)
+        vs = float(ft.virial.abs().max())
+        np.testing.assert_allclose(fk.virial.cpu().numpy(),
+                                   ft.virial.cpu().numpy(), rtol=0,
+                                   atol=TOL * vs)
+        assert int(fk.oob_low) == int(ft.oob_low)
+
+
+@pytest.mark.parametrize("name,observe,scores", VARIANTS)
+def test_k1_matches_twin_on_flagship(device, name, observe, scores):
+    sim = flagship.build_sim(n=32768, device=device)
+    assert sim.pair_compute is hp.compute_style
+    cl = colpack.build(sim.state.x, sim.state.box, sim.nbr_spec)
+    kernel_vs_twin(sim.state, cl, sim.pair_params, observe, scores)
+
+
+@pytest.mark.parametrize("name,observe,scores", VARIANTS)
+def test_k1_matches_twin_multitype(device, name, observe, scores):
+    rng = np.random.default_rng(5)
+    st = parse_state_settings(MIXED_SETTINGS, "ucgld")
+    b = TablePairBuilder("linear", 1200, st)
+    b.pair_coeff(1, 1, 1, 1, [(soft_table(1.0), 2.5)])
+    b.pair_coeff(1, 2, 1, 2, [(soft_table(e), 2.5) for e in (0.8, 0.5)])
+    b.pair_coeff(2, 2, 2, 2, [(soft_table(e), 2.5)
+                              for e in (0.9, 0.55, 0.55, 0.3)])
+    bank, tp = b.build(device=device)
+    n = 8192
+    L = (n / 0.6) ** (1 / 3)
+    state = SimState.create(
+        x=rng.uniform(0, L, (n, 3)), typ=rng.integers(1, 3, n),
+        ucgl=rng.uniform(0.2, 0.8, n), ucgstate=rng.integers(0, 2, n),
+        box=Box.create([0, 0, 0], [L] * 3, device=device), device=device)
+    params = UCGLDParams(bank=bank, tp=tp,
+                         kT=torch.tensor(0.8, device=device))
+    sel = select_pair_kernel(params, state, 2.5, 0.4)
+    assert sel is not None
+    _, spec, params = sel
+    cl = colpack.build(state.x, state.box, spec)
+    kernel_vs_twin(state, cl, params, observe, scores)
+
+
+def test_k1_rejects_wrong_inputs(device):
+    sim = flagship.build_sim(n=32768, device=device)
+    cl = colpack.build(sim.state.x, sim.state.box, sim.nbr_spec)
+    args, kw = hp.kernel_inputs(sim.state, cl, sim.pair_params,
+                                sim.pair_params.cheb, True, True)
+    bad = list(args)
+    bad[3] = args[3].double()                       # ipack in f64
+    with pytest.raises(TypeError):
+        hp.ucgld_pair(*bad, **kw)
+    bad = list(args)
+    bad[4] = args[4][:, :, :-1]                     # non-contiguous cols
+    with pytest.raises(ValueError):
+        hp.ucgld_pair(*bad, **kw)
+    with pytest.raises(ValueError):
+        hp.ucgld_pair(*args, **dict(kw, degree=40))
+
+
+def test_flagship_main_path_runs_through_k1(device):
+    sim = flagship.build_sim(n=32768, device=device, reneigh_every=10)
+    launches = dict(hp.ucgld_pair.launches)
+    sim.run_fused(2)
+    row = sim.thermo()
+    assert hp.ucgld_pair.launches["full"] >= launches["full"] + 3
+    assert hp.ucgld_pair.launches["noscores"] >= launches["noscores"] + 18
+    assert row["oob_low"] == 0 and np.isfinite(row["etotal"])
+    assert dataclasses.is_dataclass(sim.state)

@@ -1,0 +1,46 @@
+"""The port imports without JAX and builds nothing at import time."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+PROBE = """
+import importlib, pkgutil, sys
+from pathlib import Path
+import lammps_ucg_dev_tpu_torch as pkg
+build = Path(pkg.__file__).parent / "_build"
+before = sorted(build.iterdir()) if build.exists() else []
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+from lammps_ucg_dev_tpu_torch.ops import cuda_lib
+jax_mods = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+assert not jax_mods, jax_mods
+assert "lammps_ucg_dev_tpu" not in sys.modules
+assert not cuda_lib._LOADED
+after = sorted(build.iterdir()) if build.exists() else []
+assert before == after, (before, after)
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_and_builds_nothing():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 20
+
+
+def test_port_sources_never_name_jax():
+    pkg = ROOT / "lammps_ucg_dev_tpu_torch"
+    for path in pkg.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not (s.startswith(("import jax", "from jax"))
+                        or "import lammps_ucg_dev_tpu." in s
+                        or s.startswith("from lammps_ucg_dev_tpu.")), \
+                f"{path}: {line}"

@@ -11,9 +11,12 @@ Layout idiom:
     (constructors take an explicit ``device``);
   * one ``torch.Generator`` owned by ``runtime.sim.Simulation`` in place of
     the JAX ``SimState.key``;
-  * the pair hot path runs the hand-written Hopper kernel
-    ``csrc/ucgld_pair.cu`` (``ops/hopper_pair.py``), built with ``nvcc`` at
-    its first launch; on CPU tensors the wrapper runs its plain PyTorch twin.
+  * the pair hot paths run hand-written Hopper kernels, built with ``nvcc``
+    at their first launch: ``csrc/ucgld_pair.cu`` for ``table_ucgld``
+    (``ops/hopper_pair.py``) and ``csrc/bethe_pair.cu`` for
+    ``table_ucg_bethe`` (``ops/hopper_bethe.py``), both on the shared span
+    walk of ``csrc/colspan.cuh``; on CPU tensors each wrapper runs its plain
+    PyTorch twin.
 
 Importing the package builds nothing and touches no GPU.
 """

@@ -1,11 +1,12 @@
 """Carry parameters and state across from the JAX package.
 
 The JAX package's ``UCGLDParams`` / ``TableBank`` / ``UCGTypeParams`` /
-``ChebBank`` and ``SimState`` are dataclasses of arrays.  ``as_numpy_dict``
-turns any such object into nested dicts of numpy arrays and Python scalars
-(it reads fields only and needs no JAX import); ``params_from_numpy`` and
-``state_from_numpy`` build this package's counterparts from those dicts, so
-both packages can compute on identical inputs.
+``ChebBank``, ``BetheParams`` and ``SimState`` are dataclasses of arrays.
+``as_numpy_dict`` turns any such object into nested dicts of numpy arrays
+and Python scalars (it reads fields only and needs no JAX import);
+``params_from_numpy``, ``bethe_params_from_numpy`` and ``state_from_numpy``
+build this package's counterparts from those dicts, so both packages can
+compute on identical inputs.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from lammps_ucg_dev_tpu_torch.core.state import Box, SimState
+from lammps_ucg_dev_tpu_torch.models.pair_bethe import BetheParams
 from lammps_ucg_dev_tpu_torch.models.pair_ucgld import UCGLDParams
 from lammps_ucg_dev_tpu_torch.models.typemap import UCGTypeParams
 from lammps_ucg_dev_tpu_torch.ops.chebtab import ChebBank
@@ -75,6 +77,23 @@ def params_from_numpy(d: dict, device="cpu") -> UCGLDParams:
     return UCGLDParams(
         bank=bank, tp=typeparams_from_numpy(d["tp"], device),
         kT=_t(d["kT"], bank.e.dtype, device), chunk=int(d.get("chunk", 0)),
+        cheb=(cheb_from_numpy(d["cheb"], device) if d.get("cheb") is not None
+              else None))
+
+
+def bethe_params_from_numpy(d: dict, device="cpu") -> BetheParams:
+    """``d`` = as_numpy_dict(JAX BetheParams)."""
+    bank = bank_from_numpy(d["bank"], device)
+    dt = bank.e.dtype
+    return BetheParams(
+        bank=bank, tp=typeparams_from_numpy(d["tp"], device),
+        kT=_t(d["kT"], dt, device),
+        prior_ptype=_t(d["prior_ptype"], _float_dtype(d["prior_ptype"]),
+                       device),
+        noise_level=_t(d["noise_level"], _float_dtype(d["noise_level"]),
+                       device),
+        method=str(d["method"]), pseudo=bool(d["pseudo"]),
+        prior_mode=str(d["prior_mode"]), chunk=int(d.get("chunk", 0)),
         cheb=(cheb_from_numpy(d["cheb"], device) if d.get("cheb") is not None
               else None))
 

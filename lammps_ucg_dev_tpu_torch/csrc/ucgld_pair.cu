@@ -4,26 +4,19 @@
 // _kernel_colspan (and its window twin _kernel) with style="ucgld"; the
 // per-candidate physics is that file's _phys_tile.  Its plain PyTorch twin
 // is lammps_ucg_dev_tpu_torch/ops/hopper_pair.py:ucgld_pair_reference, which
-// takes the same arguments and returns the same outputs.
+// takes the same arguments and returns the same outputs.  The span walk,
+// the Chebyshev series and the D-form channels live in colspan.cuh, shared
+// with K2 (bethe_pair.cu).
 //
 // What it computes, for every real i-slot of the column list
-// (ops/colpack.py): the i-slot's 8-slot cluster owns nine candidate spans
-// [z0, z0+L), one per stencil column of the 3x3 x-y column stencil.  For
-// each candidate j with 0 < rsq < cutsq:
+// (ops/colpack.py), over each candidate j with 0 < rsq < cutsq:
 //   u = max(rsq*uscale + uoff, -1)        (lower clamp only)
-//   channel rows by the explicit Chebyshev recurrence
-//     acc = c0 + c1*u;  T_k = 2u*T_{k-1} - T_{k-2};  acc += c_k*T_k
 //   D-form 2x2 state mix: f += (fA + li fB + lj fC + li lj fD) * dr,
 //   λ-force -= eB + lj eD, scores -= eA + sj eC and (eA+eB) + sj (eC+eD);
 //   with OBSERVE also pe, the 6 virial components and the count of pairs
 //   below the table's inner cutoff.
-// Each thread owns one i-slot and writes its own output rows, so there are
-// no atomics and the result is deterministic.  Invalid i-slots (pads and
-// ghost-top copies in the real region) write zero rows.
-//
-// Pad slots hold positions at 1e17 (colpack._PAD_POISON); the cutoff test
-// is a branch, so their never-evaluated series cannot leak inf/NaN into a
-// tally.
+// Invalid i-slots (pads and ghost-top copies in the real region) write zero
+// rows.  Outputs: out [fx fy fz lamf s0 s1 0 0], part (observe).
 //
 // Bound: FMA throughput.  A candidate inside the cutoff costs ~10*degree+60
 // flops against 32 bytes of j attributes, and those bytes are a broadcast:
@@ -38,167 +31,94 @@
 //        -Xcompiler -fPIC (ops/cuda_lib.py).  Plain C entry point, loaded
 // with ctypes; it returns cudaGetLastError() of the launch.
 
-#include <cuda_runtime.h>
+#include "colspan.cuh"
 
 namespace {
 
-constexpr int kNsten = 9;
-constexpr int kMaxRows = 16;   // raw rows of up to 8 tables (multi-type)
-constexpr int kMaxDeg = 24;
-constexpr int kBlock = 128;
+using colspan::kBlock;
+using colspan::kMaxDeg;
+using colspan::kMaxRows;
+using colspan::PairArgs;
 
-template <int NR>
-__device__ __forceinline__ float pick(const float (&acc)[NR], int id) {
-  float v = 0.f;
-#pragma unroll
-  for (int r = 0; r < NR; ++r) v = (r == id) ? acc[r] : v;
-  return v;
-}
-
-// OBSERVE: also tally pe/virial/oob.  SCORES: tally the two score channels.
-// MULTI: raw channel rows + per-(ti, tj) row table `cls` (up to 3 actual
-// types); otherwise the host passes the D-form rows
-// [eA eB eC eD fA fB fC fD] (or [eB eD fA fB fC fD] without scores).
+// The per-candidate physics of one i-slot and its tallies.  OBSERVE: also
+// tally pe/virial/oob.  SCORES: tally the two score channels.  MULTI: raw
+// channel rows + per-(ti, tj) row table `cls` (up to 3 actual types);
+// otherwise the host passes the D-form rows [eA eB eC eD fA fB fC fD] (or
+// [eB eD fA fB fC fD] without scores).
 template <bool OBSERVE, bool SCORES, bool MULTI>
-__global__ void __launch_bounds__(kBlock)
-ucgld_pair_kernel(const float* __restrict__ scal,
-                  const int* __restrict__ span_z0,
-                  const int* __restrict__ span_len,
-                  const float* __restrict__ ipack,
-                  const float* __restrict__ cols,
-                  const float* __restrict__ coef,
-                  const int* __restrict__ cls,
-                  float* __restrict__ out,
-                  float* __restrict__ part,
-                  int n_slots, int mx, int my, int cz, int czp, int degree,
-                  int ntab, int ntypes1) {
-  constexpr int NR = MULTI ? kMaxRows : ((OBSERVE || SCORES) ? 8 : 6);
-  __shared__ float c[NR * kMaxDeg];
-  for (int k = threadIdx.x; k < NR * degree; k += blockDim.x) c[k] = coef[k];
-  __syncthreads();
-
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_slots) return;
-
-  const float4 ia = reinterpret_cast<const float4*>(ipack)[2 * t];
-  const float4 ib = reinterpret_cast<const float4*>(ipack)[2 * t + 1];
+struct UcgldTally {
+  static constexpr int NR = MULTI ? kMaxRows : ((OBSERVE || SCORES) ? 8 : 6);
+  const float* c;      // coefficient rows in shared memory
+  const int* cls;
+  int degree, czp, ntypes1, ntab, ti;
+  float li, uscale, uoff, innersq;
   float fx = 0.f, fy = 0.f, fz = 0.f, lamf = 0.f, s0 = 0.f, s1 = 0.f;
-  float pe = 0.f, v0 = 0.f, v1 = 0.f, v2 = 0.f, v3 = 0.f, v4 = 0.f,
-        v5 = 0.f, oob = 0.f;
+  colspan::Observed obs;
 
-  if (ib.y > 0.5f) {   // i-slot holds a real atom
-    const float xi = ia.x, yi = ia.y, zi = ia.z, li = ia.w;
-    const int ti = static_cast<int>(ib.w);
-    const float Lx = scal[0], Ly = scal[1], cutsq = scal[2];
-    const float innersq = scal[3], uscale = scal[4], uoff = scal[5];
-    const int cpc = cz >> 3;
-    const int col = t / cz;
-    const int b = (t - col * cz) >> 3;
-    const int cx = col / my;
-    const int cy = col - cx * my;
-    const size_t sbase = (static_cast<size_t>(col) * cpc + b) * kNsten;
+  __device__ __forceinline__ void operator()(const float* cj, int j, float dx,
+                                             float dy, float dz, float rsq) {
+    const float lj = cj[3 * czp + j];
+    float acc[NR];
+    colspan::series<NR>(c, degree, fmaxf(rsq * uscale + uoff, -1.f), acc);
+    const int tj = MULTI ? static_cast<int>(cj[7 * czp + j]) : 0;
+    const colspan::Channels ch =
+        colspan::channels<MULTI, NR>(acc, cls, ti, tj, ntypes1, ntab);
 
-    for (int s = 0; s < kNsten; ++s) {
-      const int len = span_len[sbase + s];
-      if (len <= 0) continue;
-      // stencil column and its periodic image shift (colpack.stencil)
-      const int ax = cx + s / 3 - 1 + mx;
-      const int ay = cy + s % 3 - 1 + my;
-      const float shx = static_cast<float>(ax / mx - 1) * Lx;
-      const float shy = static_cast<float>(ay / my - 1) * Ly;
-      const float* cj =
-          cols + static_cast<size_t>((ax % mx) * my + ay % my) * 8 * czp;
-      const int j0 = span_z0[sbase + s];
-      for (int j = j0; j < j0 + len; ++j) {
-        const float dx = xi - (cj[j] + shx);
-        const float dy = yi - (cj[czp + j] + shy);
-        const float dz = zi - cj[2 * czp + j];
-        const float rsq = dx * dx + dy * dy + dz * dz;
-        if (!(rsq < cutsq && rsq > 0.f)) continue;
-        if (OBSERVE && !(cj[5 * czp + j] > 0.5f)) continue;
-        const float lj = cj[3 * czp + j];
-
-        const float u = fmaxf(rsq * uscale + uoff, -1.f);
-        const float u2 = u + u;
-        float acc[NR];
-#pragma unroll
-        for (int r = 0; r < NR; ++r) acc[r] = c[r * degree] + c[r * degree + 1] * u;
-        float tm2 = 1.f, tm1 = u;
-        for (int k = 2; k < degree; ++k) {
-          const float tk = u2 * tm1 - tm2;
-#pragma unroll
-          for (int r = 0; r < NR; ++r) acc[r] += c[r * degree + k] * tk;
-          tm2 = tm1;
-          tm1 = tk;
-        }
-
-        float eA, eB, eC = 0.f, eD, fA, fB, fC, fD;
-        if constexpr (MULTI) {
-          const int tj = static_cast<int>(cj[7 * czp + j]);
-          const int* row = cls + (ti * ntypes1 + tj) * 4;
-          const float e00 = pick(acc, row[0]), e01 = pick(acc, row[1]);
-          const float e10 = pick(acc, row[2]), e11 = pick(acc, row[3]);
-          const float f00 = pick(acc, row[0] < 0 ? -1 : ntab + row[0]);
-          const float f01 = pick(acc, row[1] < 0 ? -1 : ntab + row[1]);
-          const float f10 = pick(acc, row[2] < 0 ? -1 : ntab + row[2]);
-          const float f11 = pick(acc, row[3] < 0 ? -1 : ntab + row[3]);
-          eA = e00; eB = e10 - e00; eC = e01 - e00;
-          eD = (e11 - e01) - (e10 - e00);
-          fA = f00; fB = f10 - f00; fC = f01 - f00;
-          fD = (f11 - f01) - (f10 - f00);
-        } else if constexpr (OBSERVE || SCORES) {
-          eA = acc[0]; eB = acc[1]; eC = acc[2]; eD = acc[3];
-          fA = acc[4]; fB = acc[5]; fC = acc[6]; fD = acc[7];
-        } else {
-          eA = 0.f; eB = acc[0]; eD = acc[1];
-          fA = acc[2]; fB = acc[3]; fC = acc[4]; fD = acc[5];
-        }
-
-        const float wD = li * lj;
-        const float fmix = fA + li * fB + lj * fC + wD * fD;
-        fx += fmix * dx;
-        fy += fmix * dy;
-        fz += fmix * dz;
-        lamf -= eB + lj * eD;
-        if constexpr (OBSERVE) {
-          pe += eA + li * eB + lj * eC + wD * eD;
-          v0 += fmix * dx * dx;
-          v1 += fmix * dy * dy;
-          v2 += fmix * dz * dz;
-          v3 += fmix * dx * dy;
-          v4 += fmix * dx * dz;
-          v5 += fmix * dy * dz;
-          if (rsq < innersq) oob += 1.f;
-        }
-        if constexpr (SCORES) {
-          const float sj = cj[4 * czp + j];
-          s0 -= eA + sj * eC;
-          s1 -= (eA + eB) + sj * (eC + eD);
-        }
-      }
+    const float wD = li * lj;
+    const float fmix = ch.fA + li * ch.fB + lj * ch.fC + wD * ch.fD;
+    fx += fmix * dx;
+    fy += fmix * dy;
+    fz += fmix * dz;
+    lamf -= ch.eB + lj * ch.eD;
+    if constexpr (OBSERVE) {
+      obs.add(ch.eA + li * ch.eB + lj * ch.eC + wD * ch.eD, fmix, dx, dy, dz,
+              rsq < innersq);
+    }
+    if constexpr (SCORES) {
+      const float sj = cj[4 * czp + j];
+      s0 -= ch.eA + sj * ch.eC;
+      s1 -= (ch.eA + ch.eB) + sj * (ch.eC + ch.eD);
     }
   }
+};
 
-  float4* o = reinterpret_cast<float4*>(out) + 2 * t;
-  o[0] = make_float4(fx, fy, fz, lamf);
-  o[1] = make_float4(s0, s1, 0.f, 0.f);
-  if constexpr (OBSERVE) {
-    float4* p = reinterpret_cast<float4*>(part) + 2 * t;
-    p[0] = make_float4(pe, v0, v1, v2);
-    p[1] = make_float4(v3, v4, v5, oob);
+template <bool OBSERVE, bool SCORES, bool MULTI>
+__global__ void __launch_bounds__(kBlock)
+ucgld_pair_kernel(const __grid_constant__ PairArgs a) {
+  using Tally = UcgldTally<OBSERVE, SCORES, MULTI>;
+  __shared__ float c[Tally::NR * kMaxDeg];
+  colspan::stage_coef(c, a.coef, Tally::NR * a.degree);
+
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= a.n_slots) return;
+
+  const float4 ia = reinterpret_cast<const float4*>(a.ipack)[2 * t];
+  const float4 ib = reinterpret_cast<const float4*>(a.ipack)[2 * t + 1];
+  Tally tal;
+  if (ib.y > 0.5f) {   // i-slot holds a real atom
+    tal.c = c;
+    tal.cls = a.cls;
+    tal.degree = a.degree;
+    tal.czp = a.czp;
+    tal.ntypes1 = a.ntypes1;
+    tal.ntab = a.ntab;
+    tal.ti = static_cast<int>(ib.w);
+    tal.li = ia.w;
+    tal.innersq = a.scal[3];
+    tal.uscale = a.scal[4];
+    tal.uoff = a.scal[5];
+    colspan::for_each_pair<OBSERVE>(a, t, ia.x, ia.y, ia.z, tal);
   }
+
+  colspan::store_out(a.out, t, make_float4(tal.fx, tal.fy, tal.fz, tal.lamf),
+                     make_float4(tal.s0, tal.s1, 0.f, 0.f));
+  if constexpr (OBSERVE) tal.obs.store(a.part, t);
 }
 
 template <bool O, bool S, bool M>
-void launch(const float* scal, const int* z0, const int* len,
-            const float* ipack, const float* cols, const float* coef,
-            const int* cls, float* out, float* part, int n_slots, int mx,
-            int my, int cz, int czp, int degree, int ntab, int ntypes1,
-            cudaStream_t stream) {
-  const int grid = (n_slots + kBlock - 1) / kBlock;
-  ucgld_pair_kernel<O, S, M><<<grid, kBlock, 0, stream>>>(
-      scal, z0, len, ipack, cols, coef, cls, out, part, n_slots, mx, my, cz,
-      czp, degree, ntab, ntypes1);
+void launch(const PairArgs& a, cudaStream_t stream) {
+  ucgld_pair_kernel<O, S, M>
+      <<<colspan::grid_of(a.n_slots), kBlock, 0, stream>>>(a);
 }
 
 }  // namespace
@@ -216,19 +136,17 @@ extern "C" int ucgld_pair_launch(
       || (cz & 7) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const PairArgs a{scal, span_z0, span_len, ipack, cols, coef, cls, out,
+                   part, n_slots, mx, my, cz, czp, degree, ntab, ntypes1, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define UCG_LAUNCH(O, S, M)                                                  \
-  launch<O, S, M>(scal, span_z0, span_len, ipack, cols, coef, cls, out,      \
-                  part, n_slots, mx, my, cz, czp, degree, ntab, ntypes1, st)
   if (multi) {
-    if (observe) UCG_LAUNCH(true, true, true);
-    else if (scores) UCG_LAUNCH(false, true, true);
-    else UCG_LAUNCH(false, false, true);
+    if (observe) launch<true, true, true>(a, st);
+    else if (scores) launch<false, true, true>(a, st);
+    else launch<false, false, true>(a, st);
   } else {
-    if (observe) UCG_LAUNCH(true, true, false);
-    else if (scores) UCG_LAUNCH(false, true, false);
-    else UCG_LAUNCH(false, false, false);
+    if (observe) launch<true, true, false>(a, st);
+    else if (scores) launch<false, true, false>(a, st);
+    else launch<false, false, false>(a, st);
   }
-#undef UCG_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,37 @@ from __future__ import annotations
 import torch
 
 from lammps_ucg_dev_tpu_torch.models.typemap import UCGTypeParams
+from lammps_ucg_dev_tpu_torch.ops.table import TableBank
+
+
+def take2d(arr: torch.Tensor, i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """arr[i, j] for a small 2-D-indexed table through one flat-index take."""
+    n1 = arr.shape[1]
+    flat = arr.reshape((arr.shape[0] * n1,) + tuple(arr.shape[2:]))
+    return flat[i * n1 + j]
+
+
+def eval_state_block(bank: TableBank, tp: UCGTypeParams, ti: torch.Tensor,
+                     tj: torch.Tensor, rsq: torch.Tensor,
+                     within: torch.Tensor):
+    """Evaluate the up-to-4 state-combination tables for every pair.
+
+    ti: (N, 1) actual types of i (broadcast), tj: (N, K) of j.
+    Returns (e4, fp4, oob_lo, oob_hi): e4/fp4 have shape (N, K, 2, 2) with
+    axes [..., si, sj], zeroed outside ``within``.  With a uniform bank the
+    range flags are the same for all four combinations, so each pair counts
+    once (the JAX package's gather path); otherwise each combination
+    counts.
+    """
+    t4 = take2d(tp.tab4, ti.expand_as(tj), tj)              # (N, K, 2, 2)
+    e4, fp4, lo, hi = bank.interp(t4, rsq[..., None, None])
+    w4 = within[..., None, None]
+    zero = torch.zeros((), dtype=e4.dtype, device=e4.device)
+    e4 = torch.where(w4, e4, zero)
+    fp4 = torch.where(w4, fp4, zero)
+    if bank.uniform:
+        lo, hi, w4 = lo[..., 0, 0], hi[..., 0, 0], within
+    return e4, fp4, torch.sum(w4 & lo), torch.sum(w4 & hi)
 
 
 def lambda_weights(tp: UCGTypeParams, typ: torch.Tensor,

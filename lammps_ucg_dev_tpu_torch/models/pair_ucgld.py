@@ -47,23 +47,10 @@ def _rows(state: SimState, idx, xi, ti, wi, wi_all, bank, tp):
     dr = state.box.min_image(xi[:, None, :] - state.x[jc])
     rsq = torch.sum(dr * dr, dim=-1)
     tj = state.typ[jc]
-    tic = ti[:, None].expand_as(tj)
-    within = valid & (rsq < tp.cutsq[tic, tj])
-
-    t4 = tp.tab4[tic, tj]                                   # (rows, K, 2, 2)
-    e4, fp4, lo, hi = bank.interp(t4, rsq[..., None, None])
-    w4 = within[..., None, None]
-    zero = torch.zeros((), dtype=e4.dtype, device=e4.device)
-    e4 = torch.where(w4, e4, zero)
-    fp4 = torch.where(w4, fp4, zero)
-    if bank.uniform:
-        # shared binning: the range flags are the same for all four
-        # combinations, so count each pair once
-        lo, hi, wc = lo[..., 0, 0], hi[..., 0, 0], within
-    else:
-        wc = w4
-    oob_lo = torch.sum(wc & lo)
-    oob_hi = torch.sum(wc & hi)
+    ti2 = ti[:, None].expand_as(tj)
+    within = valid & (rsq < common.take2d(tp.cutsq, ti2, tj))
+    e4, fp4, oob_lo, oob_hi = common.eval_state_block(bank, tp, ti2, tj, rsq,
+                                                      within)
     wj = wi_all[jc]                                         # (rows, K, 2)
     jstate = within & (state.ucgstate[jc] > 0)
 

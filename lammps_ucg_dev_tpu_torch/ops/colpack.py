@@ -264,13 +264,16 @@ def build(x: torch.Tensor, box: Box, spec: ColumnSpec) -> ColumnList:
 
 def pack(cl: ColumnList, box: Box, x: torch.Tensor, lam: torch.Tensor,
          ucgstate: torch.Tensor, dtype=torch.float32,
+         aux: torch.Tensor | None = None,
          typ: torch.Tensor | None = None):
     """Per-step attribute packing (positions/λ/state change every step; the
     slot mapping persists for the reneighbor block).
 
     Returns (ipack, cols):
-      ipack (ncol*cz, 8) real slots, rows = [x y z λ state valid 0 typ]
-            (valid is 0 for pads and for ghost-top copies in the region)
+      ipack (ncol*cz, 8) real slots, rows = [x y z λ state valid aux typ]
+            (valid is 0 for pads and for ghost-top copies in the region;
+            aux and typ are 0 when not given — the Bethe kernel carries its
+            i-role prior in aux)
       cols  (ncol, 8, czp) the extended slots, attribute-major
     """
     n = x.shape[0]
@@ -278,7 +281,8 @@ def pack(cl: ColumnList, box: Box, x: torch.Tensor, lam: torch.Tensor,
     ones = torch.ones((n, 1), dtype=dtype, device=dev)
     attrs = torch.cat([
         x.to(dtype), lam.to(dtype)[:, None], ucgstate.to(dtype)[:, None],
-        ones, torch.zeros_like(ones),
+        ones,
+        (torch.zeros_like(ones) if aux is None else aux.to(dtype)[:, None]),
         (torch.zeros_like(ones) if typ is None else typ.to(dtype)[:, None]),
     ], dim=1)
     # pad row: positions poisoned far outside the box so pad slots fail the

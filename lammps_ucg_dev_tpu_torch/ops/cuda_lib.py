@@ -3,9 +3,11 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes`` — no PyTorch headers, so a build takes
 seconds.  Libraries land in ``lammps_ucg_dev_tpu_torch/_build/`` (listed in
-``.gitignore``), keyed by a hash of the source text and the flags, so a
-changed source rebuilds and an unchanged one loads at once.  Nothing here
-runs at import time: the first kernel launch builds.
+``.gitignore``), keyed by a hash of the source text, every shared header
+(``csrc/*.cuh``) and the flags, so a changed source or header rebuilds and
+an unchanged one loads at once.  Nothing here runs at import time: the first
+kernel launch builds.  :func:`build` starts one ``nvcc`` per source, all at
+once, for callers that want every kernel up front.
 """
 
 from __future__ import annotations
@@ -46,33 +48,79 @@ def find_nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+def build_key(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, every ``csrc/*.cuh`` and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 # dlopen is process-wide, so the loaded libraries are too
 _LOADED: dict[str, NativeLib] = {}
 
 
-def load(name: str) -> NativeLib:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
-    if name in _LOADED:
-        return _LOADED[name]
-    src = CSRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{name}-{key}.so"
-    log_path = BUILD_DIR / f"{name}-{key}.log"
-    seconds = 0.0
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f"{name}-{key}.{os.getpid()}.tmp.so"
-        t0 = time.perf_counter()
-        r = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                            str(src)], capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{r.stderr}")
-        log_path.write_text(r.stdout + r.stderr)
-        os.replace(tmp, so)       # atomic: a concurrent loader sees all or none
+def _paths(name: str):
+    key = build_key(name)
+    return BUILD_DIR / f"{name}-{key}.so", BUILD_DIR / f"{name}-{key}.log"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists; returns
+    (process, tmp path, start time) or None."""
+    so, _ = _paths(name)
+    if so.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.Popen(
+        [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+         str(CSRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, time.perf_counter()
+
+
+def _finish(name: str, started) -> float:
+    if started is None:
+        return 0.0
+    proc, tmp, t0 = started
+    out, _ = proc.communicate()
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    so, log_path = _paths(name)
+    log_path.write_text(out)
+    os.replace(tmp, so)       # atomic: a concurrent loader sees all or none
+    return seconds
+
+
+def _open(name: str, seconds: float) -> NativeLib:
+    so, log_path = _paths(name)
     log = log_path.read_text() if log_path.exists() else ""
     nl = NativeLib(lib=ctypes.CDLL(str(so)), path=so, build_seconds=seconds,
                    log=log)
     _LOADED[name] = nl
     return nl
+
+
+def build(names) -> dict[str, NativeLib]:
+    """Build (one nvcc per source, all running together) and load every
+    ``csrc/<name>.cu`` of ``names``."""
+    todo = [n for n in names if n not in _LOADED]
+    started = {n: _start(n) for n in todo}
+    try:
+        seconds = {n: _finish(n, started[n]) for n in todo}
+    finally:
+        for s in started.values():
+            if s is not None and s[0].poll() is None:
+                s[0].kill()
+                s[0].wait()
+    for n in todo:
+        _open(n, seconds[n])
+    return {n: _LOADED[n] for n in names}
+
+
+def load(name: str) -> NativeLib:
+    """Build (if needed) and load ``csrc/<name>.cu``."""
+    return build([name])[name]

@@ -125,36 +125,32 @@ def kernel_scalars(box, params: UCGLDParams, cheb: ChebBank,
 
 # ---- the plain PyTorch twin ------------------------------------------------
 
-def ucgld_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
-                         mx: int, my: int, degree: int, ntab: int,
-                         observe: bool, want_scores: bool):
-    """Plain PyTorch version of the kernel (same arguments, same outputs),
-    computed in the tensors' dtype.  Each cluster's nine spans expand into
-    a padded candidate index; clusters are processed in chunks of at most
-    ``TWIN_CHUNK_ELEMS`` (i-row, candidate) pairs so 2^20-atom systems
-    fit."""
-    variant(observe, want_scores)
+def span_pairs(scal, z0, span_len, ipack, cols, *, mx: int, my: int,
+               observe: bool):
+    """The twins' walk over the column spans (shared by K1's and K2's
+    twins).  Each cluster's nine spans expand into a padded candidate
+    index; clusters go in chunks of at most ``TWIN_CHUNK_ELEMS`` (i-row,
+    candidate) pairs so 2^20-atom systems fit.  Yields, per chunk,
+    ``(rows_slice, irows, jattr, dx, dy, dz, rsq, mask)``: ``irows`` the
+    (C, 8, 8) i-slot rows, ``jattr(a)`` the (C, 1, K) candidate attribute
+    a, and ``mask`` the pairs with 0 < rsq < cutsq from a real i-slot (and,
+    with ``observe``, to a valid j-slot)."""
     dev, dt = ipack.device, ipack.dtype
     ncol, cpc, _ = z0.shape
     czp = cols.shape[2]
-    n_slots = ipack.shape[0]
     nclus = ncol * cpc
-    out = torch.zeros((n_slots, 8), dtype=dt, device=dev)
-    part = torch.zeros((n_slots, 8), dtype=dt, device=dev) if observe else None
     sten_np, sx_np, sy_np = colpack.stencil(mx, my)
     sten = torch.as_tensor(sten_np, device=dev)
     sx = torch.as_tensor(sx_np, dtype=dt, device=dev)
     sy = torch.as_tensor(sy_np, dtype=dt, device=dev)
-    Lx, Ly, cutsq, innersq, uscale, uoff = (scal[k] for k in range(6))
+    Lx, Ly, cutsq = scal[0], scal[1], scal[2]
     flat = cols.reshape(-1)
     starts_all = z0.reshape(nclus, NSTEN).long()
     lens_all = span_len.reshape(nclus, NSTEN).long()
     kmax = int(lens_all.sum(1).max()) if nclus else 0
     if kmax == 0:
-        return out, part
+        return
     chunk = max(1, TWIN_CHUNK_ELEMS // (8 * kmax))
-    nrow = coef.shape[0]
-    zero = torch.zeros((), dtype=dt, device=dev)
     for c0 in range(0, nclus, chunk):
         c1 = min(nclus, c0 + chunk)
         C = c1 - c0
@@ -173,66 +169,101 @@ def ucgld_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
         colc = (torch.arange(c0, c1, device=dev) // cpc)[:, None]
         base = torch.where(live, sten[colc, s_c] * (8 * czp) + jslot, 0)
 
-        def jattr(a):
-            return flat[base + a * czp]                        # (C, K)
+        def jattr(a, _base=base):
+            return flat[_base + a * czp][:, None, :]           # (C, 1, K)
 
-        xj = (jattr(0) + sx[colc, s_c] * Lx)[:, None, :]
-        yj = (jattr(1) + sy[colc, s_c] * Ly)[:, None, :]
-        zj = jattr(2)[:, None, :]
-        lj = jattr(3)[:, None, :]
-        rows = ipack[c0 * 8:c1 * 8].reshape(C, 8, 8)
-        xi, yi, zi, li = (rows[:, :, a:a + 1] for a in range(4))
-        dx, dy, dz = xi - xj, yi - yj, zi - zj
+        xj = jattr(0) + (sx[colc, s_c] * Lx)[:, None, :]
+        yj = jattr(1) + (sy[colc, s_c] * Ly)[:, None, :]
+        irows = ipack[c0 * 8:c1 * 8].reshape(C, 8, 8)
+        dx = irows[:, :, 0:1] - xj
+        dy = irows[:, :, 1:2] - yj
+        dz = irows[:, :, 2:3] - jattr(2)
         rsq = dx * dx + dy * dy + dz * dz
         mask = (live[:, None, :] & (rsq < cutsq) & (rsq > 0.0)
-                & (rows[:, :, 5:6] > 0.5))
+                & (irows[:, :, 5:6] > 0.5))
         if observe:
-            mask = mask & (jattr(5)[:, None, :] > 0.5)
+            mask = mask & (jattr(5) > 0.5)
+        yield slice(c0 * 8, c1 * 8), irows, jattr, dx, dy, dz, rsq, mask
 
+
+def series(coef, u, degree: int):
+    """Chebyshev rows at u by the explicit recurrence (the kernels' form).
+    Past-cutoff lanes may run to inf/NaN; callers select them out with
+    ``torch.where`` (never multiply by the mask)."""
+    u2 = u + u
+    nrow = coef.shape[0]
+    acc = [coef[r, 0] + coef[r, 1] * u for r in range(nrow)]
+    tm2, tm1 = torch.ones_like(u), u
+    for k in range(2, degree):
+        tk = u2 * tm1 - tm2
+        for r in range(nrow):
+            acc[r] = acc[r] + coef[r, k] * tk
+        tm2, tm1 = tm1, tk
+    return acc
+
+
+def channels(acc, cls, irows, jattr, ntab: int):
+    """(eA, eB, eC, eD, fA, fB, fC, fD) in D-form: from the D-form rows
+    (8 rows; eA = eC = None with the 6-row set) or, with ``cls``, from the
+    raw rows through the (T+1, T+1, 4) row-id table."""
+    if cls is None:
+        if len(acc) == 8:
+            return tuple(acc)
+        eB, eD, fA, fB, fC, fD = acc
+        return None, eB, None, eD, fA, fB, fC, fD
+    stack = torch.stack(acc)                                   # (R, C, 8, K)
+    zero = torch.zeros((), dtype=stack.dtype, device=stack.device)
+    ti = irows[:, :, 7:8].long()
+    tj = torch.clamp(jattr(7).long(), 0, cls.shape[0] - 1)
+
+    def channel(q, f_off):
+        ids = cls[ti, tj, q].long()                            # (C, 8, K)
+        v = torch.gather(stack, 0, (ids.clamp(min=0) + f_off)[None])[0]
+        return torch.where(ids >= 0, v, zero)
+
+    e00, e01, e10, e11 = (channel(q, 0) for q in range(4))
+    f00, f01, f10, f11 = (channel(q, ntab) for q in range(4))
+    return (e00, e10 - e00, e01 - e00, (e11 - e01) - (e10 - e00),
+            f00, f10 - f00, f01 - f00, (f11 - f01) - (f10 - f00))
+
+
+def observed(emix, fmix, dx, dy, dz, mask, rsq, innersq):
+    """(C*8, 8) partial rows [pe vxx vyy vzz vxy vxz vyz oob] of a chunk;
+    ``emix`` and ``fmix`` are already zero outside ``mask``."""
+    p = [torch.sum(emix, -1)]
+    for a, b in ((dx, dx), (dy, dy), (dz, dz), (dx, dy), (dx, dz), (dy, dz)):
+        p.append(torch.sum(fmix * a * b, -1))
+    p.append(torch.sum((mask & (rsq < innersq)).to(emix.dtype), -1))
+    return torch.stack(p, -1).reshape(-1, 8)
+
+
+def ucgld_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
+                         mx: int, my: int, degree: int, ntab: int,
+                         observe: bool, want_scores: bool):
+    """Plain PyTorch version of the kernel (same arguments, same outputs),
+    computed in the tensors' dtype."""
+    variant(observe, want_scores)
+    dev, dt = ipack.device, ipack.dtype
+    n_slots = ipack.shape[0]
+    out = torch.zeros((n_slots, 8), dtype=dt, device=dev)
+    part = torch.zeros((n_slots, 8), dtype=dt, device=dev) if observe else None
+    innersq, uscale, uoff = scal[3], scal[4], scal[5]
+    zero = torch.zeros((), dtype=dt, device=dev)
+    for sl, irows, jattr, dx, dy, dz, rsq, mask in span_pairs(
+            scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe):
         # lower clamp only; past-cutoff lanes may run to inf/NaN and are
-        # selected out below (never multiplied by the mask)
+        # selected out below
         u = torch.clamp(rsq * uscale + uoff, min=-1.0)
-        u2 = u + u
-        acc = [coef[r, 0] + coef[r, 1] * u for r in range(nrow)]
-        tm2, tm1 = torch.ones_like(u), u
-        for k in range(2, degree):
-            tk = u2 * tm1 - tm2
-            for r in range(nrow):
-                acc[r] = acc[r] + coef[r, k] * tk
-            tm2, tm1 = tm1, tk
-
-        if cls is not None:
-            stack = torch.stack(acc)                           # (R, C, 8, K)
-            ti = rows[:, :, 7:8].long()
-            tj = jattr(7)[:, None, :].long()
-            nt1 = cls.shape[0]
-            tjc = torch.clamp(tj, 0, nt1 - 1)
-
-            def channel(q, f_off):
-                ids = cls[ti, tjc, q].long()                   # (C, 8, K)
-                v = torch.gather(stack, 0,
-                                 (ids.clamp(min=0) + f_off)[None])[0]
-                return torch.where(ids >= 0, v, zero)
-
-            e00, e01, e10, e11 = (channel(q, 0) for q in range(4))
-            f00, f01, f10, f11 = (channel(q, ntab) for q in range(4))
-            eA, eB, eC = e00, e10 - e00, e01 - e00
-            eD = (e11 - e01) - (e10 - e00)
-            fA, fB, fC = f00, f10 - f00, f01 - f00
-            fD = (f11 - f01) - (f10 - f00)
-        elif nrow == 8:
-            eA, eB, eC, eD, fA, fB, fC, fD = acc
-        else:
-            eB, eD, fA, fB, fC, fD = acc
-            eA = eC = None
-
+        eA, eB, eC, eD, fA, fB, fC, fD = channels(
+            series(coef, u, degree), cls, irows, jattr, ntab)
+        li, lj = irows[:, :, 3:4], jattr(3)
         wD = li * lj
         fmix = torch.where(mask, fA + li * fB + lj * fC + wD * fD, zero)
         cols_out = [torch.sum(fmix * dx, -1), torch.sum(fmix * dy, -1),
                     torch.sum(fmix * dz, -1),
                     -torch.sum(torch.where(mask, eB + lj * eD, zero), -1)]
         if want_scores:
-            sj = jattr(4)[:, None, :]
+            sj = jattr(4)
             cols_out += [
                 -torch.sum(torch.where(mask, eA + sj * eC, zero), -1),
                 -torch.sum(torch.where(mask, (eA + eB) + sj * (eC + eD),
@@ -240,15 +271,10 @@ def ucgld_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
         else:
             cols_out += [torch.zeros_like(cols_out[0])] * 2
         cols_out += [torch.zeros_like(cols_out[0])] * 2
-        out[c0 * 8:c1 * 8] = torch.stack(cols_out, -1).reshape(C * 8, 8)
+        out[sl] = torch.stack(cols_out, -1).reshape(-1, 8)
         if observe:
             emix = torch.where(mask, eA + li * eB + lj * eC + wD * eD, zero)
-            p = [torch.sum(emix, -1)]
-            for a, b in ((dx, dx), (dy, dy), (dz, dz), (dx, dy), (dx, dz),
-                         (dy, dz)):
-                p.append(torch.sum(fmix * a * b, -1))
-            p.append(torch.sum((mask & (rsq < innersq)).to(dt), -1))
-            part[c0 * 8:c1 * 8] = torch.stack(p, -1).reshape(C * 8, 8)
+            part[sl] = observed(emix, fmix, dx, dy, dz, mask, rsq, innersq)
     return out, part
 
 

@@ -1,14 +1,16 @@
 """Auto-selection of the hand-written pair kernel path (port of
-``lammps_ucg_dev_tpu/ops/kernel_select.py``, ``table_ucgld`` only).
+``lammps_ucg_dev_tpu/ops/kernel_select.py``, ``table_ucgld`` through K1 and
+``table_ucg_bethe`` through K2).
 
-Eligibility (all must hold; otherwise the reference pair path
-models/pair_ucgld.py on an nsq neighbor list stays in force):
+Eligibility (all must hold; otherwise the style's reference pair path,
+models/pair_ucgld.py or models/pair_bethe.py, on an nsq neighbor list stays
+in force):
 
 * a CUDA device — the JAX package selects its kernel only on a TPU;
   ``force=True`` skips this check (tests, where the wrapper then runs the
   kernel's plain twin on CPU tensors);
 * float32 state (the kernel computes in f32);
-* ``hopper_pair.supports``;
+* ``hopper_pair.supports`` (K1) or ``hopper_bethe.supports_bethe`` (K2);
 * an orthogonal box with at least 3x3 columns (``colpack.measure_spec``);
 * a Chebyshev fit of the table bank with ``max_rel_err < rel_tol``.
 """
@@ -26,18 +28,28 @@ def select_pair_kernel(params, state, cutoff: float, skin: float,
     """Returns (pair_fn, spec, params) for the kernel path, or None.
     ``force=True`` skips the device check; ``force=False`` disables
     selection outright."""
+    from lammps_ucg_dev_tpu_torch.models.pair_bethe import BetheParams
     from lammps_ucg_dev_tpu_torch.models.pair_ucgld import UCGLDParams
     from lammps_ucg_dev_tpu_torch.ops import chebtab, colpack
+    from lammps_ucg_dev_tpu_torch.ops import hopper_bethe as hb
     from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
 
-    if force is False or not isinstance(params, UCGLDParams):
+    if force is False or not isinstance(params, (UCGLDParams, BetheParams)):
         return None
     if state.x.dtype != torch.float32:
         return None
     if force is None and not state.x.is_cuda:
         return None
-    if state.box.is_triclinic or not hp.supports(params):
+    if state.box.is_triclinic:
         return None
+    if isinstance(params, UCGLDParams):
+        if not hp.supports(params):
+            return None
+        style_fn = hp.compute_style
+    else:
+        if not hb.supports_bethe(params):
+            return None
+        style_fn = hb.compute_style_bethe
     L = state.box.lengths.cpu().numpy().astype(np.float64)
     lo = state.box.lo.cpu().numpy().astype(np.float64)
     x = state.x.cpu().numpy().astype(np.float64)
@@ -48,5 +60,4 @@ def select_pair_kernel(params, state, cutoff: float, skin: float,
     cheb = chebtab.fit_bank(params.bank)
     if float(cheb.max_rel_err.max()) >= rel_tol:
         return None
-    return (hp.compute_style, spec,
-            dataclasses.replace(params, cheb=cheb, chunk=0))
+    return style_fn, spec, dataclasses.replace(params, cheb=cheb, chunk=0)

@@ -65,7 +65,8 @@ class Simulation:
     ``pair_compute(state, nbr, params) -> ForceOut`` is the pair-style
     entry; ``nbr_spec`` is a NeighborSpec (reference pair path) or a
     colpack.ColumnSpec (kernel path).  ``seed`` seeds the generator that
-    draws the Langevin noise."""
+    draws the Langevin noise, the ``ucgstate mc`` uniforms and the noisy
+    Bethe priors."""
 
     def __init__(self, system: System, state: SimState,
                  pair_compute: Callable, pair_params: Any, nbr_spec,
@@ -96,19 +97,28 @@ class Simulation:
     def _is_ucg(self, state: SimState) -> torch.Tensor:
         return self.pair_params.tp.n_states[state.typ] > 1
 
+    def _uniforms(self, state: SimState) -> torch.Tensor:
+        """(rng_n,) uniforms from the generator, indexed by tag - 1."""
+        return torch.rand(state.rng_n, generator=self.generator,
+                          dtype=state.ucgvl.dtype, device=state.device)
+
     def _forces(self, state: SimState, nbr, run_window, pair_fn=None,
                 scores_valid: bool = True):
         cfg = self.cfg
         u = cfg.u
-        fout = (pair_fn or self.pair_compute)(state, nbr, self.pair_params)
+        kw = {}
+        if getattr(self.pair_params, "prior_mode",
+                   None) == "chemical_potential_noise":
+            # table_ucg_bethe's noisy first-step priors, drawn by tag
+            kw["prior_u"] = self._uniforms(state)
+        fout = (pair_fn or self.pair_compute)(state, nbr, self.pair_params,
+                                              **kw)
         ucgforce = fout.ucgforce
         if cfg.langevin is not None:
             tT = fl.t_target(cfg.langevin, state.step, run_window[0],
                              run_window[1])
-            un = torch.rand(state.rng_n, generator=self.generator,
-                            dtype=state.ucgvl.dtype, device=state.device)
-            ucgforce = ucgforce + fl.post_force(un, state, tT, cfg.dt, u,
-                                                cfg.langevin)
+            ucgforce = ucgforce + fl.post_force(self._uniforms(state), state,
+                                                tT, cfg.dt, u, cfg.langevin)
         if cfg.integrator.wall and cfg.integrator.bias_potential:
             bf = fi.bias_force(state.ucgl, cfg.integrator.barrier)
             g = fi.group_mask(cfg.integrator, state)
@@ -118,8 +128,10 @@ class Simulation:
         if cfg.ucgstate is not None and scores_valid:
             # score-free interior steps skip the update (ucgp refreshes on
             # the block's full-kernel step)
+            mc_u = (self._uniforms(state) if cfg.ucgstate.mode == "mc"
+                    else None)
             state = fs.post_force(state, fout.scores, self._is_ucg(state),
-                                  cfg.ucgstate)
+                                  cfg.ucgstate, mc_u)
         return state, dataclasses.replace(fout, ucgforce=ucgforce)
 
     def _step(self, state: SimState, fout_prev: ForceOut, nbr, run_window,

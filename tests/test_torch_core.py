@@ -128,11 +128,16 @@ def test_ucgstate_modes_match(rng, mode, grouped):
 
 
 def test_ucgstate_mc_not_ported(rng):
+    """mc is ported with its uniforms as an input (tests/test_torch_bethe.py
+    holds it against JAX): without them it raises, as does an unknown
+    mode."""
     _, ts = states(rng)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tfs.post_force(ts, torch.zeros((ts.n_atoms, 2), dtype=torch.float64),
                        torch.ones(ts.n_atoms, dtype=torch.bool),
                        tfs.UCGStateCfg(mode="mc"))
+    with pytest.raises(ValueError):
+        tfs.UCGStateCfg(mode="gibbs")
 
 
 def test_lambda_temperature(rng):

@@ -1,5 +1,5 @@
-"""K1 on the card: the hand-written CUDA kernel against its plain PyTorch
-twin on the same CUDA tensors.  Needs an NVIDIA GPU and nvcc; without them
+"""K1 and K2 on the card: the hand-written CUDA kernels against their plain
+PyTorch twins on the same CUDA tensors.  Needs an NVIDIA GPU and nvcc; without them
 every test here skips.  The file imports nothing of JAX, so it also runs
 where JAX is absent (skip the JAX test configuration there):
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``.
@@ -18,9 +18,11 @@ from lammps_ucg_dev_tpu_torch import flagship
 from lammps_ucg_dev_tpu_torch.core.state import Box, SimState
 from lammps_ucg_dev_tpu_torch.io.state_settings import parse_state_settings
 from lammps_ucg_dev_tpu_torch.io.table_io import RLINEAR, RawTable
+from lammps_ucg_dev_tpu_torch.models import pair_bethe
 from lammps_ucg_dev_tpu_torch.models.pair_ucgld import UCGLDParams
 from lammps_ucg_dev_tpu_torch.models.typemap import TablePairBuilder
 from lammps_ucg_dev_tpu_torch.ops import colpack
+from lammps_ucg_dev_tpu_torch.ops import hopper_bethe as hb
 from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
 from lammps_ucg_dev_tpu_torch.ops.kernel_select import select_pair_kernel
 
@@ -28,6 +30,8 @@ pytestmark = pytest.mark.cuda
 TOL = 2e-5
 VARIANTS = [("full", True, True), ("fast", False, True),
             ("noscores", False, False)]
+BETHE_VARIANTS = [(m, p, o) for m in ("bethe", "mf") for p in (True, False)
+                  for o in (True, False)]
 
 
 # 2 actual types: type 1 plain, type 2 UCG with formal types (2, 3)
@@ -48,17 +52,8 @@ def device():
     return "cuda"
 
 
-def kernel_vs_twin(state, cl, params, observe, scores):
-    args, kw = hp.kernel_inputs(state, cl, params, params.cheb, observe,
-                                scores)
-    before = hp.ucgld_pair.launches[hp.variant(observe, scores)]
-    out_k, part_k = hp.ucgld_pair(*args, **kw)
-    assert hp.ucgld_pair.launches[hp.variant(observe, scores)] == before + 1
-    out_t, part_t = hp.ucgld_pair_reference(*args, **kw)
-    torch.cuda.synchronize()
-    fk = hp.force_out(out_k, part_k, state, cl, params, observe, scores)
-    ft = hp.force_out(out_t, part_t, state, cl, params, observe, scores)
-    for name in ("f", "ucgforce", "scores"):
+def assert_close_fout(fk, ft, fields, observe):
+    for name in fields:
         a, b = getattr(fk, name).cpu(), getattr(ft, name).cpu()
         scale = max(float(b.abs().max()), 1e-30)
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
@@ -72,6 +67,19 @@ def kernel_vs_twin(state, cl, params, observe, scores):
         assert int(fk.oob_low) == int(ft.oob_low)
 
 
+def kernel_vs_twin(state, cl, params, observe, scores):
+    args, kw = hp.kernel_inputs(state, cl, params, params.cheb, observe,
+                                scores)
+    before = hp.ucgld_pair.launches[hp.variant(observe, scores)]
+    out_k, part_k = hp.ucgld_pair(*args, **kw)
+    assert hp.ucgld_pair.launches[hp.variant(observe, scores)] == before + 1
+    out_t, part_t = hp.ucgld_pair_reference(*args, **kw)
+    torch.cuda.synchronize()
+    fk = hp.force_out(out_k, part_k, state, cl, params, observe, scores)
+    ft = hp.force_out(out_t, part_t, state, cl, params, observe, scores)
+    assert_close_fout(fk, ft, ("f", "ucgforce", "scores"), observe)
+
+
 @pytest.mark.parametrize("name,observe,scores", VARIANTS)
 def test_k1_matches_twin_on_flagship(device, name, observe, scores):
     sim = flagship.build_sim(n=32768, device=device)
@@ -80,8 +88,9 @@ def test_k1_matches_twin_on_flagship(device, name, observe, scores):
     kernel_vs_twin(sim.state, cl, sim.pair_params, observe, scores)
 
 
-@pytest.mark.parametrize("name,observe,scores", VARIANTS)
-def test_k1_matches_twin_multitype(device, name, observe, scores):
+def mixed_system(device, n=8192):
+    """2 actual types (plain type 1, 2-state type 2), random positions at
+    ρ 0.6, assigned priors."""
     rng = np.random.default_rng(5)
     st = parse_state_settings(MIXED_SETTINGS, "ucgld")
     b = TablePairBuilder("linear", 1200, st)
@@ -90,12 +99,18 @@ def test_k1_matches_twin_multitype(device, name, observe, scores):
     b.pair_coeff(2, 2, 2, 2, [(soft_table(e), 2.5)
                               for e in (0.9, 0.55, 0.55, 0.3)])
     bank, tp = b.build(device=device)
-    n = 8192
     L = (n / 0.6) ** (1 / 3)
     state = SimState.create(
         x=rng.uniform(0, L, (n, 3)), typ=rng.integers(1, 3, n),
         ucgl=rng.uniform(0.2, 0.8, n), ucgstate=rng.integers(0, 2, n),
+        ucgp=rng.uniform(0.1, 0.9, n),
         box=Box.create([0, 0, 0], [L] * 3, device=device), device=device)
+    return bank, tp, state
+
+
+@pytest.mark.parametrize("name,observe,scores", VARIANTS)
+def test_k1_matches_twin_multitype(device, name, observe, scores):
+    bank, tp, state = mixed_system(device)
     params = UCGLDParams(bank=bank, tp=tp,
                          kT=torch.tensor(0.8, device=device))
     sel = select_pair_kernel(params, state, 2.5, 0.4)
@@ -131,3 +146,71 @@ def test_flagship_main_path_runs_through_k1(device):
     assert hp.ucgld_pair.launches["noscores"] >= launches["noscores"] + 18
     assert row["oob_low"] == 0 and np.isfinite(row["etotal"])
     assert dataclasses.is_dataclass(sim.state)
+
+
+def k2_vs_twin(state, cl, params, observe):
+    args, kw = hb.kernel_inputs(state, cl, params, params.cheb, observe)
+    before = hb.bethe_pair.launches[hb.variant(observe)]
+    out_k, part_k = hb.bethe_pair(*args, **kw)
+    assert hb.bethe_pair.launches[hb.variant(observe)] == before + 1
+    out_t, part_t = hb.bethe_pair_reference(*args, **kw)
+    torch.cuda.synchronize()
+    fk = hb.force_out(out_k, part_k, state, cl, params, observe)
+    ft = hb.force_out(out_t, part_t, state, cl, params, observe)
+    assert_close_fout(fk, ft, ("f", "scores"), observe)
+
+
+def bethe_with(sim, method, pseudo):
+    params = dataclasses.replace(sim.pair_params, method=method,
+                                 pseudo=pseudo)
+    return params, colpack.build(sim.state.x, sim.state.box, sim.nbr_spec)
+
+
+@pytest.mark.parametrize("method,pseudo,observe", BETHE_VARIANTS)
+def test_k2_matches_twin_on_bethe_system(device, method, pseudo, observe):
+    sim = flagship.build_bethe_sim(n=32768, device=device)
+    assert sim.pair_compute is hb.compute_style_bethe
+    sim.setup((0, 10))          # priors from ucgp, no longer the sentinel
+    params, cl = bethe_with(sim, method, pseudo)
+    k2_vs_twin(sim.state, cl, params, observe)
+
+
+@pytest.mark.parametrize("method,pseudo,observe", BETHE_VARIANTS)
+def test_k2_matches_twin_multitype(device, method, pseudo, observe):
+    bank, tp, state = mixed_system(device)
+    params = pair_bethe.make_params(bank, tp, 0.8, method=method,
+                                    pseudo=pseudo)
+    sel = select_pair_kernel(params, state, 2.5, 0.4)
+    assert sel is not None and sel[0] is hb.compute_style_bethe
+    _, spec, params = sel
+    k2_vs_twin(state, colpack.build(state.x, state.box, spec), params,
+               observe)
+
+
+def test_k2_rejects_wrong_inputs(device):
+    sim = flagship.build_bethe_sim(n=32768, device=device)
+    cl = colpack.build(sim.state.x, sim.state.box, sim.nbr_spec)
+    args, kw = hb.kernel_inputs(sim.state, cl, sim.pair_params,
+                                sim.pair_params.cheb, True)
+    bad = list(args)
+    bad[3] = args[3].double()                       # ipack in f64
+    with pytest.raises(TypeError):
+        hb.bethe_pair(*bad, **kw)
+    bad = list(args)
+    bad[5] = args[5][:6]                            # 6 rows: not D-form 8
+    with pytest.raises(ValueError):
+        hb.bethe_pair(*bad, **kw)
+    with pytest.raises(ValueError):
+        hb.bethe_pair(*args, **dict(kw, degree=40))
+
+
+def test_bethe_main_path_runs_through_k2(device):
+    sim = flagship.build_bethe_sim(n=32768, device=device)
+    launches = dict(hb.bethe_pair.launches)
+    sim.run_fused(2)
+    row = sim.thermo()
+    assert hb.bethe_pair.launches["full"] >= launches["full"] + 3
+    assert hb.bethe_pair.launches["fast"] >= launches["fast"] + 8
+    assert row["oob_low"] == 0 and np.isfinite(row["etotal"])
+    p = sim.state.ucgp
+    assert bool(((p >= 1e-6) & (p <= 1 - 1e-6)).all())

@@ -39,7 +39,7 @@ def jax_run():
 
 
 def port_run(dtype, kernel, loop):
-    sim = flagship.build_sim(n=N, dtype=dtype, kernel=kernel)
+    sim = flagship.build_sim(n=N, dtype=dtype, kernel=kernel, device="cpu")
     sim.cfg = dataclasses.replace(sim.cfg, langevin=None)
     if loop == "run":
         sim.run(NSTEPS, thermo_every=EVERY)

@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths on the card — the flagship 2-state UCG-LD
-fluid (``flagship.build_sim``, kernel K1 ``csrc/ucgld_pair.cu``) and the
+Drives the port's four main paths on the card — the flagship 2-state UCG-LD
+fluid (``flagship.build_sim``, kernel K1 ``csrc/ucgld_pair.cu``), the
 config-3 self-consistent Bethe fluid (``flagship.build_bethe_sim``, kernel
-K2 ``csrc/bethe_pair.cu``), both at 2^20 beads through ``Simulation`` —
-after building both kernels with nvcc (one process per source, started
-together) into ``lammps_ucg_dev_tpu_torch/_build/``.  Phases, each of which
-raises on failure:
+K2 ``csrc/bethe_pair.cu``), the config-4 density-CV system
+(``flagship.build_density_sim``, K5 → K3 → K6) and the config-5 RLE-UCG
+interface system (``flagship.build_rleucg_sim``, K5 → K4 → K6; K3 and K4
+are styles of ``csrc/bethe_pair.cu``, K5 and K6 ``csrc/density_cv.cu``),
+all at 2^20 beads through ``Simulation`` — after building the kernels with
+nvcc (one process per source, started together) into
+``lammps_ucg_dev_tpu_torch/_build/``.  Phases, each of which raises on
+failure:
 
 1. the card's name and power limit, torch and CUDA versions;
 2. the kernels' build;
@@ -25,7 +29,16 @@ raises on failure:
    mixed system of 8,192;
 7. the K2 path against the float64 reference pair path on 4,096;
 8. the Bethe main path: setup, one warm block, twenty timed blocks of 5
-   steps, with K2's launch counts set to 0 just before and read just after.
+   steps, with K2's launch counts set to 0 just before and read just after;
+9. K5, K3 and K6 against their twins on the inputs the P3 path gives them
+   (K3 full, fast and fast without scores; K6 full and fast with the path's
+   g-form, and with the two others off the path) at 32,768 and 2^20; K5,
+   K4 (full and fast, both feedback modes) and K6 likewise on P4;
+10. the K3 path and the K4 path against the port's reference pair path in
+   float32 on the same 4,096-bead inputs, at the JAX package's
+   kernel-vs-XLA gates, with the gap to the float64 reference printed;
+11. the P3 and P4 main paths: setup, one warm block, ten timed blocks of 10
+   steps, with every launch count set to 0 just before and read just after.
 
 The line before the last is a JSON object of the kernels on the main paths
 (times, errors, launches and the bound each kernel's work puts on its time);
@@ -36,6 +49,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -45,7 +59,9 @@ from pathlib import Path
 
 K1_SOURCE = "lammps_ucg_dev_tpu_torch/csrc/ucgld_pair.cu"
 K2_SOURCE = "lammps_ucg_dev_tpu_torch/csrc/bethe_pair.cu"
+CV_SOURCE = "lammps_ucg_dev_tpu_torch/csrc/density_cv.cu"
 REPLACES = "lammps_ucg_dev_tpu/ops/pallas_pair.py:719"
+CV_REPLACES = "lammps_ucg_dev_tpu/ops/pallas_pair.py:944"
 TOL = 2e-5       # kernel vs twin: f32 sums taken in another order (see below)
 DRIFT_MAX = 1e-4
 PEAK_F32 = 67e12        # H100 SXM f32 outside the tensor cores, FLOP/s
@@ -83,11 +99,20 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def kernel_ops(kernel: str, kw: dict, nrow: int) -> tuple[float, float]:
     """(operations per candidate, operations per in-cutoff pair) of one
-    kernel variant: each add, multiply, divide, compare-select, exp or sqrt
-    one operation, an FMA two.  A candidate costs its distance test (10);
-    a pair the u map (2), the Chebyshev rows (2 per row to start, then 2 +
-    2 per row for each further degree), and the style's mixing and tallies
-    as written in the kernel source."""
+    kernel variant: each add, multiply, divide, compare-select, exp, log,
+    tanh or sqrt one operation, an FMA two.  A candidate costs its distance
+    test (10); a pair of the table kernels the u map (2), the Chebyshev rows
+    (2 per row to start, then 2 + 2 per row for each further degree), and
+    the style's mixing and tallies as written in the kernel source."""
+    if kernel == "cv_rho":
+        return 10.0, 9.0           # sqrt, the tanh argument, tanh, 2 sums
+    if kernel == "cv_force":
+        per = 20.0                 # sqrt, tanh, g, fcv, 3 force sums
+        if kw["pertype"]:
+            per += 9.0             # the partner's radius, tanh and g
+        if kw["observe"]:
+            per += 18.0            # 6 virial sums
+        return 10.0, per
     degree = kw["degree"]
     series = 2 + 2 * nrow + (degree - 2) * (2 + 2 * nrow)
     tail = 12                                     # fmix + three force sums
@@ -95,35 +120,80 @@ def kernel_ops(kernel: str, kw: dict, nrow: int) -> tuple[float, float]:
         tail += 26                                # pe, 6 virial sums, oob
     if kernel == "ucgld":
         tail += 4 + (8 if kw["want_scores"] else 0)   # λ-force, scores
+    elif kernel == "rleucg":
+        tail += 1 + (3 if kw["feedback"] else 0)  # p11, the pf0 tally
     else:
         if not kw["mf"]:
             tail += 22                            # xk, exp, Q, D, sqrt, root
-        tail += 21 if kw["sce"] else 8            # conditional or pseudo
+        if kernel == "bethe":
+            tail += 21 if kw["sce"] else 8        # conditional or pseudo
+        else:                                     # dbethe: ln(p11/p01), pf
+            tail += (5 if kw["mf"] else 25) + (8 if kw["want_scores"] else 0)
     return 10.0, float(series + tail)
+
+
+def kernel_io(kernel: str, kw: dict, multi: bool):
+    """(i-slot attributes, candidate attributes, output columns, per-slot
+    columns) that one kernel variant reads and defines.  Attributes index
+    ipack's columns and cols' rows, [x y z a3 state valid a6 typ]; every
+    kernel reads its i-slot's x y z and valid, and its candidates' x y z
+    (and valid when it observes).  ``multi``: the raw rows with the row
+    table (the pair kernels) or the per-type radius (K5/K6), which read
+    typ."""
+    observe = kw.get("observe", False)
+    typ = {7} if multi else set()
+    irows, jrows = {0, 1, 2, 5} | typ, {0, 1, 2} | ({5} if observe else set())
+    if kernel == "cv_rho":
+        return irows, {0, 1, 2}, 2, 0                 # [ρ n_real]
+    if kernel == "cv_force":
+        # [Fx Fy Fz], the virial (pe and oob are 0)
+        return irows | {6}, jrows | {3} | typ, 3, 6 if observe else 0
+    part = 8 if observe else 0                        # pe, virial, oob
+    if kernel == "ucgld":
+        scores = kw["want_scores"]
+        return (irows | {3}, jrows | {3} | typ | ({4} if scores else set()),
+                4 + (2 if scores else 0), part)      # f, λ-force, scores
+    if kernel == "bethe":                             # f, scores
+        return (irows | {6}, jrows | {3} | typ
+                | (set() if kw["sce"] else {4}), 5, part)
+    if kernel == "dbethe":                            # f, pf0, pf1, scores
+        scores = kw["want_scores"]
+        return (irows | {6}, jrows | {3} | typ | ({4} if scores else set()),
+                5 + (2 if scores else 0), part)
+    return (irows | {6}, jrows | {3} | typ,           # rleucg: f, pf0
+            3 + (1 if kw["feedback"] else 0), part)
 
 
 def bound(kernel: str, args, kw, nrow: int) -> dict:
     """Least time of one launch on these inputs: the larger of its
     operations (this data's candidates and in-cutoff pairs, counted by the
-    twins' span walk) over the f32 peak and its bytes (every input read
-    once, every output written once) over the memory rate."""
+    twins' span walk) over the f32 peak and its bytes over the memory
+    rate: every small input (scalars, spans, coefficient rows, row table,
+    radii) read once, the i-slot and candidate attributes it reads
+    (:func:`kernel_io`) read once, the output columns it defines written
+    once."""
     import torch
 
     from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
 
     scal, z0, span_len, ipack, cols = args[:5]
+    observe = kw.get("observe", False)
     pairs = 0
     for *_, mask in hp.span_pairs(scal, z0, span_len, ipack, cols,
-                                  mx=kw["mx"], my=kw["my"],
-                                  observe=kw["observe"]):
+                                  mx=kw["mx"], my=kw["my"], observe=observe):
         pairs += int(mask.sum())
     per_slot = span_len.sum(-1).reshape(-1).repeat_interleave(8)
     cand = int((per_slot * (ipack[:, 5] > 0.5)).sum())
     per_cand, per_pair = kernel_ops(kernel, kw, nrow)
     ops = cand * per_cand + pairs * per_pair
-    nbytes = sum(a.numel() * a.element_size() for a in args
-                 if isinstance(a, torch.Tensor))
-    nbytes += ipack.numel() * 4 * (2 if kw["observe"] else 1)
+    multi = (kw["pertype"] if kernel.startswith("cv_")
+             else args[6] is not None)
+    irows, jrows, out_cols, part_cols = kernel_io(kernel, kw, multi)
+    n_slots, ncol, _, czp = ipack.shape[0], *cols.shape
+    nbytes = sum(a.numel() * a.element_size() for a in (args[1:3] + args[5:])
+                 if isinstance(a, torch.Tensor)) + scal.numel() * 4
+    nbytes += 4 * (n_slots * (len(irows) + out_cols + part_cols)
+                   + ncol * czp * len(jrows))
     t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
     r = {"bound_ms": max(t_ops, t_bytes),
          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -135,47 +205,50 @@ def bound(kernel: str, args, kw, nrow: int) -> dict:
 
 # ---- a kernel against its twin ---------------------------------------------
 
-def hold(label: str, name: str, kernel, twin, to_fout, fields, args, kw,
-         observe: bool, kernel_reps: int, twin_reps: int) -> dict:
+def hold(label: str, name: str, kernel, twin, args, kw, kernel_reps: int,
+         twin_reps: int, exact=()) -> dict:
     """One kernel variant against its twin on the same CUDA tensors.
     Tolerances (both sides f32, the same algorithm; they differ by FMA
-    contraction and summation order): each field within TOL times its
-    largest magnitude, pe within TOL relative, the virial within TOL times
-    its largest component, oob exactly."""
+    contraction and summation order): each output column within TOL times
+    its largest magnitude (the columns in ``exact``, counts, exactly); with
+    an observing variant's per-slot rows summed, pe within TOL relative,
+    the virial within TOL times its largest component and the inner-cutoff
+    count exactly."""
     import torch
+
+    def pair(r):
+        return r if isinstance(r, tuple) else (r, None)
 
     # time the kernel before the twin has run on the card
     ms = cuda_ms(lambda: kernel(*args, **kw), kernel_reps, warmup=3)
-    out_k, part_k = kernel(*args, **kw)
-    out_t, part_t = twin(*args, **kw)
+    out_k, part_k = pair(kernel(*args, **kw))
+    out_t, part_t = pair(twin(*args, **kw))
     torch.cuda.synchronize()
-    fk, ft = to_fout(out_k, part_k), to_fout(out_t, part_t)
-    errs = {}
-    for field in fields:
-        a, b = getattr(fk, field), getattr(ft, field)
-        if not bool(torch.isfinite(a).all()):
-            raise RuntimeError(f"{label} {name}: non-finite {field}")
-        scale = max(float(b.abs().max()), 1e-30)
-        err = float((a - b).abs().max())
-        errs[field] = err / scale
-        if err > TOL * scale:
-            raise RuntimeError(f"{label} {name}: {field} differs by "
-                               f"{err:.3e} (scale {scale:.3e})")
-    if observe:
-        pe_err = abs(float(fk.pe) - float(ft.pe)) / abs(float(ft.pe))
-        vscale = float(ft.virial.abs().max())
-        v_err = float((fk.virial - ft.virial).abs().max()) / vscale
-        errs.update(pe=pe_err, virial=v_err)
-        if pe_err > TOL or v_err > TOL:
-            raise RuntimeError(f"{label} {name}: pe/virial differ "
-                               f"({pe_err:.3e}, {v_err:.3e})")
-        if int(fk.oob_low) != int(ft.oob_low):
-            raise RuntimeError(f"{label} {name}: oob_low differs")
+    errs, bad = {}, []
+
+    def gate(key, diff, ref, is_exact=False):
+        err, scale = float(diff.abs().max()), float(ref.abs().max())
+        errs[key] = err / scale if scale > 0 else err
+        if (err != 0.0) if is_exact else (err > TOL * max(scale, 1e-30)):
+            bad.append(f"{key} differs by {err:.3e} (scale {scale:.3e})")
+
+    for out, what in ((out_k, "output"), (part_k, "per-slot rows")):
+        if out is not None and not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"{label} {name}: non-finite {what}")
+    for c in range(out_k.shape[1]):
+        gate(f"c{c}", out_k[:, c] - out_t[:, c], out_t[:, c], c in exact)
+    if part_k is not None:
+        tk, tt = part_k.double().sum(0), part_t.double().sum(0)
+        gate("pe", tk[0] - tt[0], tt[0])
+        gate("virial", tk[1:7] - tt[1:7], tt[1:7])
+        gate("oob", tk[7] - tt[7], tt[7], is_exact=True)
+    if bad:
+        raise RuntimeError(f"{label} {name}: " + "; ".join(bad))
     max_abs = float((out_k - out_t).abs().max())
     plain_ms = cuda_ms(lambda: twin(*args, **kw), twin_reps)
-    log(f"[{label}] {name:14s} vs twin: max|out diff| {max_abs:.3e}, "
-        f"rel errs {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; "
-        f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+    log(f"[{label}] {name:24s} vs twin: max|out diff| {max_abs:.3e}, rel "
+        f"errs {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}"
+        f"; kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "rel_err": errs}
 
@@ -204,12 +277,9 @@ def compare_k1(sim, label: str, kernel_reps: int, twin_reps: int,
                                   ("fast", False, True),
                                   ("noscores", False, False)):
         args, kw = hp.kernel_inputs(state, cl, params, cheb, observe, scores)
-        res[name] = hold(
-            label, f"K1 {name}", hp.ucgld_pair, hp.ucgld_pair_reference,
-            lambda o, p, _o=observe, _s=scores: hp.force_out(
-                o, p, state, cl, params, _o, _s),
-            ("f", "ucgforce", "scores"), args, kw, observe, kernel_reps,
-            twin_reps)
+        res[name] = hold(label, f"K1 {name}", hp.ucgld_pair,
+                         hp.ucgld_pair_reference, args, kw, kernel_reps,
+                         twin_reps)
         if with_bound:
             res[name].update(bound("ucgld", args, kw, args[5].shape[0]))
     return res
@@ -226,13 +296,100 @@ def compare_k2(state, cl, params, label: str, variants, kernel_reps: int,
         args, kw = hb.kernel_inputs(state, cl, p, p.cheb, observe)
         name = (f"{method}/{'pseudo' if pseudo else 'sce'}/"
                 f"{hb.variant(observe)}")
-        res[name] = hold(
-            label, f"K2 {name}", hb.bethe_pair, hb.bethe_pair_reference,
-            lambda o, q, _p=p, _o=observe: hb.force_out(
-                o, q, state, cl, _p, _o),
-            ("f", "scores"), args, kw, observe, kernel_reps, twin_reps)
+        res[name] = hold(label, f"K2 {name}", hb.bethe_pair,
+                         hb.bethe_pair_reference, args, kw, kernel_reps,
+                         twin_reps)
         if with_bound:
             res[name].update(bound("bethe", args, kw, args[5].shape[0]))
+    return res
+
+
+@contextlib.contextmanager
+def recording(module, name: str, store: dict):
+    """Swap the kernel wrapper ``module.name`` for one that records the
+    arguments of its last call in ``store[name]`` (the launch count stays
+    the wrapper's), so a path's own kernel inputs can be replayed."""
+    fn = getattr(module, name)
+
+    def rec(*args, **kw):
+        store[name] = (args, kw)
+        return fn(*args, **kw)
+
+    rec.launches = fn.launches
+    setattr(module, name, rec)
+    try:
+        yield store
+    finally:
+        setattr(module, name, fn)
+
+
+def path_inputs(sim):
+    """The kernel inputs of one full evaluation of a density path on
+    ``sim``'s current state: {wrapper name: (args, kwargs)}."""
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cv as hcv
+    from lammps_ucg_dev_tpu_torch.ops import hopper_density as hd
+    from lammps_ucg_dev_tpu_torch.ops import hopper_rleucg as hr
+
+    state, cl = column_state(sim)
+    store = {}
+    pair_mod, pair_name = ((hd, "dbethe_pair") if sim.pair_compute
+                           is hd.compute_style_density
+                           else (hr, "rleucg_pair"))
+    with recording(hcv, "cv_rho", store), \
+            recording(hcv, "cv_force", store), \
+            recording(pair_mod, pair_name, store):
+        sim.pair_compute(state, cl, sim.pair_params)
+    return store
+
+
+def compare_density(sim, label: str, kernel_reps: int, twin_reps: int,
+                    with_bound: bool = False) -> dict:
+    """K5, the path's pair kernel (K3 or K4) and K6 against their twins on
+    the inputs the path gives them, in every variant."""
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cv as hcv
+    from lammps_ucg_dev_tpu_torch.ops import hopper_density as hd
+    from lammps_ucg_dev_tpu_torch.ops import hopper_rleucg as hr
+
+    inp = path_inputs(sim)
+    res = {}
+
+    def one(key, name, kernel, twin, args, kw, exact=(), kind=None,
+            nrow=0, on_path=True):
+        res[key] = hold(label, name, kernel, twin, args, kw, kernel_reps,
+                        twin_reps, exact)
+        if with_bound and on_path:
+            res[key].update(bound(kind, args, kw, nrow))
+
+    args, kw = inp["cv_rho"]
+    one("cv_rho", "K5 rho", hcv.cv_rho, hcv.cv_rho_reference, args, kw,
+        exact=(1,), kind="cv_rho")
+    args, kw = inp["cv_force"]
+    on_path = kw["gform"]
+    for g in hcv.GFORMS:
+        for observe in (True, False):
+            v = "full" if observe else "fast"
+            key = f"cv_force[{v}]" + ("" if g == on_path else f"/{g}")
+            one(key, f"K6 {v} {g}", hcv.cv_force, hcv.cv_force_reference,
+                args, dict(kw, gform=g, observe=observe), kind="cv_force",
+                on_path=g == on_path)
+    if "dbethe_pair" in inp:
+        args, kw = inp["dbethe_pair"]
+        for observe, scores in ((True, True), (False, True), (False, False)):
+            v = hd.variant(observe, scores)
+            one(f"dbethe_pair[{v}]", f"K3 {v}", hd.dbethe_pair,
+                hd.dbethe_pair_reference, args,
+                dict(kw, observe=observe, want_scores=scores),
+                kind="dbethe", nrow=args[5].shape[0])
+    else:
+        args, kw = inp["rleucg_pair"]
+        for feedback in (True, False):
+            for observe in (True, False):
+                v = hr.variant(observe)
+                key = f"rleucg_pair[{v}]" + ("" if feedback else "/never")
+                one(key, f"K4 {v} feedback {feedback}", hr.rleucg_pair,
+                    hr.rleucg_pair_reference, args,
+                    dict(kw, observe=observe, feedback=feedback),
+                    kind="rleucg", nrow=args[5].shape[0])
     return res
 
 
@@ -308,6 +465,126 @@ def check_k2_oracle(device: str, n: int = 4096) -> None:
             raise RuntimeError("K2 path disagrees with the reference path")
 
 
+def check_density_oracle(device: str, style: str, n: int = 4096) -> None:
+    """The P3 (K5 → K3 → K6) or P4 (K5 → K4 → K6) path on the card against
+    the port's reference pair path in float32 on the same inputs, at the
+    JAX package's kernel-vs-XLA gates (tests/test_pallas_pair.py:317-327,
+    :384-392): f 1e-4 of max|f|, pe 3e-5 relative, virial rtol 1e-4 (+ 1e-2
+    absolute), oob exact; P3 also scores and ucgp 5e-5 absolute.  The gap to
+    the float64 reference path is printed, not gated: P3's prior force has
+    an intrinsic f32 envelope (PARITY.md 3b)."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch import flagship
+    from lammps_ucg_dev_tpu_torch.ops import hopper_density as hd
+    from lammps_ucg_dev_tpu_torch.ops import hopper_rleucg as hr
+
+    build, fn = ((flagship.build_density_sim, hd.compute_style_density)
+                 if style == "P3" else
+                 (flagship.build_rleucg_sim, hr.compute_style_rleucg))
+    ker = build(n=n, device=device)
+    if ker.pair_compute is not fn:
+        raise RuntimeError(f"{style}: kernel path was not selected")
+    ref32 = build(n=n, kernel=False, device=device)
+    ref64 = build(n=n, dtype=torch.float64, kernel=False, device=device)
+    outs = []
+    for s in (ker, ref32, ref64):
+        s.cfg = dataclasses.replace(s.cfg, langevin=None)
+        outs.append(s.setup((0, 10)))
+    fk = outs[0]
+    fields = ("f", "scores", "ucgp") if style == "P3" else ("f",)
+    gates = {"f": 1e-4, "scores": 5e-5, "ucgp": 5e-5}
+    for fr, what in ((outs[1], "f32"), (outs[2], "f64")):
+        errs = {}
+        for name in fields:
+            a, b = getattr(fk, name).double(), getattr(fr, name).double()
+            err = float((a - b).abs().max())
+            errs[name] = err / float(b.abs().max()) if name == "f" else err
+        errs["pe"] = abs(float(fk.pe) - float(fr.pe)) / abs(float(fr.pe))
+        vk, vr = fk.virial.double(), fr.virial.double()
+        errs["virial"] = float((vk - vr).abs().max() / vr.abs().max())
+        v_ok = bool(((vk - vr).abs() <= 1e-4 * vr.abs() + 1e-2).all())
+        oob = (int(fk.oob_low), int(fr.oob_low))
+        log(f"[{style} oracle n={n}] kernel path vs {what} reference path: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f", oob {oob}" + ("" if what == "f32" else " (not gated)"))
+        if what == "f32":
+            bad = [k for k in fields if errs[k] > gates[k]]
+            if errs["pe"] > 3e-5 or not v_ok:
+                bad.append("pe/virial")
+            if bad or oob[0] != oob[1]:
+                raise RuntimeError(f"{style} path disagrees with the f32 "
+                                   f"reference path: {bad}, oob {oob}")
+
+
+def run_density_main(device: str, style: str, card: str, blocks: int = 10,
+                     n: int = 2**20):
+    """One density main path at ``n``: setup, one warm block, ``blocks``
+    timed blocks, every launch count set to 0 just before and read just
+    after.  Returns ({wrapper: launches}, steps/s)."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch import flagship
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cv as hcv
+    from lammps_ucg_dev_tpu_torch.ops import hopper_density as hd
+    from lammps_ucg_dev_tpu_torch.ops import hopper_rleucg as hr
+
+    if style == "P3":
+        sim = flagship.build_density_sim(n=n, device=device)
+        fn, pair, fast = hd.compute_style_density, hd.dbethe_pair, \
+            "fast_noscores"
+    else:
+        sim = flagship.build_rleucg_sim(n=n, device=device)
+        fn, pair, fast = hr.compute_style_rleucg, hr.rleucg_pair, "fast"
+    if sim.pair_compute is not fn:
+        raise RuntimeError(f"select_pair_kernel did not choose the {style} "
+                           f"kernel path at {n}")
+    nre = sim.cfg.reneigh_every
+    window = (0, (blocks + 1) * nre)
+    counters = {"cv_rho": hcv.cv_rho, "cv_force": hcv.cv_force,
+                pair.__name__: pair}
+    for c in counters.values():
+        for k in c.launches:
+            c.launches[k] = 0
+    sim.setup(window)
+    sim.run_fused(1, run_window=window)            # warm block
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run_fused(blocks, run_window=window)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: dict(c.launches) for name, c in counters.items()}
+    row = sim.thermo()
+    steps_s = blocks * nre / wall
+    msg = (f"[{style} main n={n}] {blocks * nre} steps in {wall:.3f} s = "
+           f"{steps_s:.2f} steps/s ({steps_s * n / 1e6:.2f} M "
+           f"atom-steps/s) on {card}; temp {row['temp']:.6f} etotal "
+           f"{row['etotal']:.6f} oob_low {row['oob_low']}; dangerous builds "
+           f"{sim.dangerous_builds}; launches {launches}")
+    nblk = blocks + 1
+    if (launches["cv_rho"]["rho"] < nre * nblk
+            or launches["cv_force"]["full"] < nblk
+            or launches["cv_force"]["fast"] < (nre - 1) * nblk
+            or launches[pair.__name__]["full"] < nblk
+            or launches[pair.__name__][fast] < (nre - 1) * nblk):
+        raise RuntimeError(f"{style} path did not run through its kernels: "
+                           f"{launches}")
+    if not finite_row(row):
+        raise RuntimeError(f"non-finite thermo: {row}")
+    if row["oob_low"] != 0:
+        raise RuntimeError(f"pairs below the table inner cutoff: {row}")
+    if style == "P3":
+        p, ucg = sim.state.ucgp, sim.state.typ == 2
+        p_lo, p_hi = float(p[ucg].min()), float(p[ucg].max())
+        msg += (f"; ucgp of the UCG type in [{p_lo:.6f}, {p_hi:.6f}], of "
+                f"the plain type {float(p[~ucg].min())}")
+        if not (p_lo >= 1e-6 and p_hi <= 1 - 1e-6
+                and bool((p[~ucg] == 1.0).all())):
+            raise RuntimeError(f"ucgp outside [1e-6, 1-1e-6]: {p_lo}, {p_hi}")
+    log(msg)
+    return launches, steps_s
+
+
 def finite_row(row: dict) -> bool:
     return all(v == v and abs(v) != float("inf")
                for v in row.values() if isinstance(v, float))
@@ -335,9 +612,9 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # ---- 2. build K1 and K2 (one nvcc each, together) -------------------
+    # ---- 2. build the kernels (one nvcc per source, together) ----------
     t0 = time.perf_counter()
-    libs = cuda_lib.build(["ucgld_pair", "bethe_pair"])
+    libs = cuda_lib.build(["ucgld_pair", "bethe_pair", "density_cv"])
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for name, nl in libs.items():
         log(f"  {name}: nvcc {nl.build_seconds:.1f} s -> {nl.path.name}")
@@ -472,21 +749,60 @@ def main() -> int:
         raise RuntimeError(f"ucgp outside [1e-6, 1-1e-6]: {p_lo}, {p_hi}")
     del sim
 
+    # ---- 9. K5, K3/K4 and K6 vs their twins --------------------------------
+    from lammps_ucg_dev_tpu_torch import flagship as fs
+
+    dens = {}
+    for style, build in (("P3", fs.build_density_sim),
+                         ("P4", fs.build_rleucg_sim)):
+        small = build(n=32768, device=device)
+        small.setup((0, 10))
+        compare_density(small, f"{style} n=32768", 40, 3)
+        del small
+        sim = build(n=2**20, device=device)
+        sim.setup((0, 10))
+        dens[style] = compare_density(sim, f"{style} n=2^20", 20, 1,
+                                      with_bound=True)
+        del sim
+
+    # ---- 10. the K3 and K4 paths vs the reference path ---------------------
+    for style in ("P3", "P4"):
+        check_density_oracle(device, style)
+
+    # ---- 11. the P3 and P4 main paths -------------------------------------
+    main = {style: run_density_main(device, style, card)
+            for style in ("P3", "P4")}
+
     log(f"K1 fast variant (not on the UCG-LD main path under ucgstate ld): "
         f"{json.dumps(k1['fast'], default=float)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
-    def entry(name, source, launches, r):
+    def entry(name, source, launches, r, replaces=REPLACES):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": REPLACES, "launches": launches,
+                "replaces": replaces, "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None}
 
+    l3, l4 = main["P3"][0], main["P4"][0]
     kernels = ([entry(f"ucgld_pair[{v}]", K1_SOURCE, k1_launches[v], k1[v])
                 for v in ("full", "noscores")]
                + [entry(f"bethe_pair[{v}]", K2_SOURCE, k2_launches[v], k2[v])
-                  for v in ("full", "fast")])
+                  for v in ("full", "fast")]
+               + [entry(f"dbethe_pair[{v}]", K2_SOURCE,
+                        l3["dbethe_pair"][v], dens["P3"][f"dbethe_pair[{v}]"])
+                  for v in ("full", "fast_noscores")]
+               + [entry(f"rleucg_pair[{v}]", K2_SOURCE,
+                        l4["rleucg_pair"][v], dens["P4"][f"rleucg_pair[{v}]"])
+                  for v in ("full", "fast")]
+               # K5 and K6 run on both paths: launches of both, times and
+               # bounds on the P3 path's inputs (P4's are in the log above)
+               + [entry("cv_rho", CV_SOURCE, l3["cv_rho"]["rho"]
+                        + l4["cv_rho"]["rho"], dens["P3"]["cv_rho"],
+                        CV_REPLACES)]
+               + [entry(f"cv_force[{v}]", CV_SOURCE, l3["cv_force"][v]
+                        + l4["cv_force"][v], dens["P3"][f"cv_force[{v}]"],
+                        CV_REPLACES) for v in ("full", "fast")])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,12 @@
 """Carry parameters and state across from the JAX package.
 
 The JAX package's ``UCGLDParams`` / ``TableBank`` / ``UCGTypeParams`` /
-``ChebBank``, ``BetheParams`` and ``SimState`` are dataclasses of arrays.
-``as_numpy_dict`` turns any such object into nested dicts of numpy arrays
-and Python scalars (it reads fields only and needs no JAX import);
-``params_from_numpy``, ``bethe_params_from_numpy`` and ``state_from_numpy``
-build this package's counterparts from those dicts, so both packages can
-compute on identical inputs.
+``ChebBank``, ``BetheParams``, ``BetheDensityParams``, ``RLEUCGParams`` and
+``SimState`` are dataclasses of arrays.  ``as_numpy_dict`` turns any such
+object into nested dicts of numpy arrays and Python scalars (it reads
+fields only and needs no JAX import); the ``*_from_numpy`` functions build
+this package's counterparts from those dicts, so both packages can compute
+on identical inputs.
 """
 
 from __future__ import annotations
@@ -18,6 +18,9 @@ import torch
 
 from lammps_ucg_dev_tpu_torch.core.state import Box, SimState
 from lammps_ucg_dev_tpu_torch.models.pair_bethe import BetheParams
+from lammps_ucg_dev_tpu_torch.models.pair_bethe_density import (
+    BetheDensityParams)
+from lammps_ucg_dev_tpu_torch.models.pair_rleucg import RLEUCGParams
 from lammps_ucg_dev_tpu_torch.models.pair_ucgld import UCGLDParams
 from lammps_ucg_dev_tpu_torch.models.typemap import UCGTypeParams
 from lammps_ucg_dev_tpu_torch.ops.chebtab import ChebBank
@@ -60,7 +63,11 @@ def typeparams_from_numpy(d: dict, device="cpu") -> UCGTypeParams:
         formal=_t(d["formal"], torch.int32, device),
         mu=_t(d["mu"], dt, device), mu_diff=_t(d["mu_diff"], dt, device),
         tab4=_t(d["tab4"], torch.int64, device),
-        cutsq=_t(d["cutsq"], dt, device))
+        cutsq=_t(d["cutsq"], dt, device),
+        use_density=_t(d["use_density"], torch.int32, device),
+        use_entropy=_t(d["use_entropy"], torch.int32, device),
+        cv_threshold=_t(d["cv_threshold"], dt, device),
+        threshold_radius=_t(d["threshold_radius"], dt, device))
 
 
 def cheb_from_numpy(d: dict, device="cpu") -> ChebBank:
@@ -96,6 +103,43 @@ def bethe_params_from_numpy(d: dict, device="cpu") -> BetheParams:
         prior_mode=str(d["prior_mode"]), chunk=int(d.get("chunk", 0)),
         cheb=(cheb_from_numpy(d["cheb"], device) if d.get("cheb") is not None
               else None))
+
+
+def _cheb(d: dict, device):
+    return (cheb_from_numpy(d["cheb"], device) if d.get("cheb") is not None
+            else None)
+
+
+def bethe_density_params_from_numpy(d: dict,
+                                    device="cpu") -> BetheDensityParams:
+    """``d`` = as_numpy_dict(JAX BetheDensityParams)."""
+    bank = bank_from_numpy(d["bank"], device)
+    return BetheDensityParams(
+        bank=bank, tp=typeparams_from_numpy(d["tp"], device),
+        kT=_t(d["kT"], bank.e.dtype, device), method=str(d["method"]),
+        backforce_derivative=bool(d["backforce_derivative"]),
+        pair_cv=str(d["pair_cv"]), chunk=int(d.get("chunk", 0)),
+        cheb=_cheb(d, device))
+
+
+def rleucg_params_from_numpy(d: dict, device="cpu") -> RLEUCGParams:
+    """``d`` = as_numpy_dict(JAX RLEUCGParams)."""
+    bank = bank_from_numpy(d["bank"], device)
+    dt = bank.e.dtype
+    i32 = torch.int32
+    return RLEUCGParams(
+        bank=bank, tabSS=_t(d["tabSS"], torch.int64, device),
+        cutsq=_t(d["cutsq"], dt, device),
+        n_states=_t(d["n_states"], i32, device),
+        actual_from_state=_t(d["actual_from_state"], i32, device),
+        use_entropy=_t(d["use_entropy"], i32, device),
+        mu=_t(d["mu"], dt, device), cv_threshold=_t(d["cv_threshold"], dt,
+                                                    device),
+        threshold_radius=_t(d["threshold_radius"], dt, device),
+        kT=_t(d["kT"], dt, device), max_states=int(d["max_states"]),
+        feedback=str(d["feedback"]),
+        conservative_sign=bool(d["conservative_sign"]),
+        chunk=int(d.get("chunk", 0)), cheb=_cheb(d, device))
 
 
 def state_from_numpy(d: dict, device="cpu") -> SimState:

@@ -146,6 +146,8 @@ class ForceOut:
     virial: torch.Tensor     # (6,) xx yy zz xy xz yz
     oob_low: torch.Tensor | None = None    # pairs below the table inner cutoff
     oob_high: torch.Tensor | None = None   # pairs beyond the table outer end
+    ucgp: torch.Tensor | None = None       # (N,) posterior of a style that
+                                           # computes it in the pass (P3)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,7 @@
 // K2 — the table_ucg_bethe pair kernel over column spans, for Hopper
-// (sm_90a).
+// (sm_90a); with it, as two more styles of the same tally, K3 (the
+// table_ucg_bethe_density pair pass) and K4 (the table_rleucg_interface
+// pair pass).
 //
 // Replaces the TPU kernel in lammps_ucg_dev_tpu/ops/pallas_pair.py:
 // _kernel_colspan (:719, and its window twin _kernel, :430) with
@@ -37,6 +39,27 @@
 // Design as K1: one thread per i-slot, no atomics, plain expf/sqrtf and
 // IEEE division (no fast-math); making it fast is later work.
 //
+// K3 (STYLE kDBethe) replaces the same TPU kernels with style="dbethe",
+// pass 2 of compute_density (:1633; physics :260-316, scores :366-370):
+// K2's closed form on the density priors (attr 6 = pi1, candidates' attr 3
+// = pj1, both the density prior P(state 1)), pseudolikelihood scores when
+// SCORES, and the prior-force tallies of the i-slot:
+//   lr = ln(p11/p01), stable: E = bb (pj1 - pi1) + (1 - pi1 - pj1),
+//        Ds = sqrt(E^2 + 4 bb pi1 (1 - pi1)),
+//        lr = E >= 0 ? xk + ln max(2 pi1, 1e-12) - ln max(E + Ds, 1e-12)
+//                    : ln max(Ds - E, 1e-12) - ln max(2 (1 - pi1), 1e-12)
+//        (MF: ln max(pi1, 1e-12) - ln max(1 - pi1, 1e-12))
+//   UCG partner (ucg_mask bit of its type): pf1 -= (eB + eD) + kT lr
+//   plain partner: pf0 -= eA + kT lp0, pf1 -= (eA + eB) + kT lp1, with
+//        lp0 = ln max(1 - pi1, 1e-12), lp1 = ln max(pi1, 1e-12) per i-slot.
+// Outputs: out [fx fy fz pf0 s0 s1 pf1 0], part (observe).
+// K4 (STYLE kRleucg) replaces them with style="rleucg", pass 2 of
+// compute_rleucg (:1844; :265-268, :317-320): mean-field p11 = pi1 pj1
+// over the substate types (attr 6/3 = P(substate 1), always MULTI with
+// the substate-type row table), and with FEEDBACK pf0 += eB + pj1 eD.
+// Outputs: out [fx fy fz pf0 0 0 0 0], part (observe).  Both bound and
+// built as K2; K3 adds per in-cutoff pair one sqrt and two logs.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (ops/cuda_lib.py).  Plain C entry point, loaded
 // with ctypes; it returns cudaGetLastError() of the launch.
@@ -50,18 +73,25 @@ using colspan::kMaxDeg;
 using colspan::kMaxRows;
 using colspan::PairArgs;
 
+// The pair style a tally computes: K2, K3 or K4.
+enum Style : int { kBethe = 0, kDBethe = 1, kRleucg = 2 };
+
 // The per-candidate physics of one i-slot and its tallies.  OBSERVE: also
 // tally pe/virial/oob.  MF: mean-field p11 = pi1 pj1.  SCE: full-SCE
-// conditional-expectation scores (else pseudolikelihood).  MULTI: raw
-// channel rows + per-(ti, tj) row table `cls`.
-template <bool OBSERVE, bool MF, bool SCE, bool MULTI>
+// conditional-expectation scores (else pseudolikelihood; K2 only).
+// MULTI: raw channel rows + per-(ti, tj) row table `cls`.  STYLE: K2, K3
+// or K4.  SCORES: K3 tallies scores.  FEEDBACK: K4 tallies pf0.
+template <bool OBSERVE, bool MF, bool SCE, bool MULTI, int STYLE = kBethe,
+          bool SCORES = true, bool FEEDBACK = false>
 struct BetheTally {
   static constexpr int NR = MULTI ? kMaxRows : 8;
   const float* c;      // coefficient rows in shared memory
   const int* cls;
   int degree, czp, ntypes1, ntab, ti, ucg_mask;
   float pi1, p0e, p1e, kT, uscale, uoff, innersq;
-  float fx = 0.f, fy = 0.f, fz = 0.f, s0 = 0.f, s1 = 0.f;
+  float lp0, lp1;      // K3: ln max(1 - pi1, 1e-12), ln max(pi1, 1e-12)
+  float fx = 0.f, fy = 0.f, fz = 0.f, s0 = 0.f, s1 = 0.f, pf0 = 0.f,
+        pf1 = 0.f;
   colspan::Observed obs;
 
   __device__ __forceinline__ void operator()(const float* cj, int j, float dx,
@@ -74,13 +104,13 @@ struct BetheTally {
         colspan::channels<MULTI, NR>(acc, cls, ti, tj, ntypes1, ntab);
 
     const float pipj = pi1 * pj1;
-    float p11;
+    float p11, xk = 0.f, bb = 1.f;
     if constexpr (MF) {
       p11 = pipj;
     } else {
       // J = u11 + u00 - u01 - u10 is the D channel
-      const float xk = fminf(-ch.eD / kT, 40.f);
-      const float bb = expf(xk);
+      xk = fminf(-ch.eD / kT, 40.f);
+      bb = expf(xk);
       const float aa = bb - 1.f;
       const float Q = (pi1 + pj1) * aa + 1.f;
       const float D = fmaxf(Q * Q - 4.f * aa * bb * pipj, 0.f);
@@ -102,7 +132,33 @@ struct BetheTally {
       obs.add(ch.eA + pi1 * ch.eB + pj1 * ch.eC + p11 * ch.eD, fmix, dx, dy,
               dz, rsq < innersq);
     }
-    if constexpr (SCE) {
+    if constexpr (STYLE == kDBethe) {
+      float lr;
+      if constexpr (MF) {
+        lr = lp1 - lp0;
+      } else {
+        const float Est = bb * (pj1 - pi1) + (1.f - pi1 - pj1);
+        const float Dst = sqrtf(Est * Est + (4.f * bb) * (pi1 * (1.f - pi1)));
+        lr = Est >= 0.f
+                 ? xk + logf(fmaxf(2.f * pi1, 1e-12f))
+                       - logf(fmaxf(Est + Dst, 1e-12f))
+                 : logf(fmaxf(Dst - Est, 1e-12f))
+                       - logf(fmaxf(2.f * (1.f - pi1), 1e-12f));
+      }
+      if (!MULTI || ((ucg_mask >> tj) & 1)) {
+        pf1 -= (ch.eB + ch.eD) + kT * lr;    // UCG partner
+      } else {
+        pf0 -= ch.eA + kT * lp0;             // plain partner
+        pf1 -= (ch.eA + ch.eB) + kT * lp1;
+      }
+      if constexpr (SCORES) {
+        const float sj = cj[4 * czp + j];
+        s0 -= ch.eA + sj * ch.eC;
+        s1 -= (ch.eA + ch.eB) + sj * (ch.eC + ch.eD);
+      }
+    } else if constexpr (STYLE == kRleucg) {
+      if constexpr (FEEDBACK) pf0 += ch.eB + pj1 * ch.eD;
+    } else if constexpr (SCE) {
       const float p00 = 1.f + p11 - pi1 - pj1;
       const float p01 = pj1 - p11;
       const float p10 = pi1 - p11;
@@ -126,10 +182,12 @@ struct BetheTally {
   }
 };
 
-template <bool OBSERVE, bool MF, bool SCE, bool MULTI>
+template <bool OBSERVE, bool MF, bool SCE, bool MULTI, int STYLE = kBethe,
+          bool SCORES = true, bool FEEDBACK = false>
 __global__ void __launch_bounds__(kBlock)
 bethe_pair_kernel(const __grid_constant__ PairArgs a) {
-  using Tally = BetheTally<OBSERVE, MF, SCE, MULTI>;
+  using Tally =
+      BetheTally<OBSERVE, MF, SCE, MULTI, STYLE, SCORES, FEEDBACK>;
   __shared__ float c[Tally::NR * kMaxDeg];
   colspan::stage_coef(c, a.coef, Tally::NR * a.degree);
 
@@ -155,17 +213,23 @@ bethe_pair_kernel(const __grid_constant__ PairArgs a) {
     tal.innersq = a.scal[3];
     tal.uscale = a.scal[4];
     tal.uoff = a.scal[5];
+    if constexpr (STYLE == kDBethe) {
+      tal.lp0 = logf(fmaxf(1.f - ib.z, 1e-12f));
+      tal.lp1 = logf(fmaxf(ib.z, 1e-12f));
+    }
     colspan::for_each_pair<OBSERVE>(a, t, ia.x, ia.y, ia.z, tal);
   }
 
-  colspan::store_out(a.out, t, make_float4(tal.fx, tal.fy, tal.fz, 0.f),
-                     make_float4(tal.s0, tal.s1, 0.f, 0.f));
+  // K2 leaves pf0 and pf1 at 0, K4 s0, s1 and pf1
+  colspan::store_out(a.out, t, make_float4(tal.fx, tal.fy, tal.fz, tal.pf0),
+                     make_float4(tal.s0, tal.s1, tal.pf1, 0.f));
   if constexpr (OBSERVE) tal.obs.store(a.part, t);
 }
 
-template <bool O, bool F, bool S, bool M>
+template <bool O, bool F, bool S, bool M, int STYLE = kBethe,
+          bool SC = true, bool FB = false>
 void launch(const PairArgs& a, cudaStream_t stream) {
-  bethe_pair_kernel<O, F, S, M>
+  bethe_pair_kernel<O, F, S, M, STYLE, SC, FB>
       <<<colspan::grid_of(a.n_slots), kBlock, 0, stream>>>(a);
 }
 
@@ -186,6 +250,25 @@ void launch_fsm(bool mf, bool sce, bool multi, const PairArgs& a,
                 cudaStream_t st) {
   if (mf) launch_sm<O, true>(sce, multi, a, st);
   else launch_sm<O, false>(sce, multi, a, st);
+}
+
+// K3: scores only with observe (checked by the entry point)
+template <bool O, bool SC>
+void launch_dbethe(bool mf, bool multi, const PairArgs& a, cudaStream_t st) {
+  if (mf) {
+    if (multi) launch<O, true, false, true, kDBethe, SC>(a, st);
+    else launch<O, true, false, false, kDBethe, SC>(a, st);
+  } else {
+    if (multi) launch<O, false, false, true, kDBethe, SC>(a, st);
+    else launch<O, false, false, false, kDBethe, SC>(a, st);
+  }
+}
+
+// K4: mean-field, always MULTI, no scores
+template <bool O>
+void launch_rleucg(bool feedback, const PairArgs& a, cudaStream_t st) {
+  if (feedback) launch<O, true, false, true, kRleucg, false, true>(a, st);
+  else launch<O, true, false, true, kRleucg, false, false>(a, st);
 }
 
 }  // namespace
@@ -210,5 +293,37 @@ extern "C" int bethe_pair_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (observe) launch_fsm<true>(mf, sce, multi, a, st);
   else launch_fsm<false>(mf, sce, multi, a, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 (style 1) and K4 (style 2).  Returns 0 on success, else a cudaError_t
+// code.  K3 variants: observe=1 with scores (full), observe=0 with or
+// without scores (fast, fast without scores), each with mf and multi.  K4:
+// observe=1 (full) or 0 (fast), with or without feedback; multi required.
+extern "C" int density_pair_launch(
+    const float* scal, const int* span_z0, const int* span_len,
+    const float* ipack, const float* cols, const float* coef, const int* cls,
+    float* out, float* part, int n_slots, int mx, int my, int cz, int czp,
+    int degree, int ntab, int ntypes1, int ucg_mask, int style, int observe,
+    int mf, int scores, int feedback, int multi, void* stream) {
+  if (degree < 2 || degree > kMaxDeg || n_slots <= 0 || (cz & 7) != 0
+      || (multi && (cls == nullptr || ntypes1 < 2 || ntypes1 > 31))
+      || (style == kDBethe && observe && !scores)
+      || (style == kRleucg && (!multi || scores))
+      || (style != kDBethe && style != kRleucg)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const PairArgs a{scal, span_z0, span_len, ipack, cols, coef, cls, out,
+                   part, n_slots, mx, my, cz, czp, degree, ntab, ntypes1,
+                   ucg_mask};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (style == kDBethe) {
+    if (observe) launch_dbethe<true, true>(mf, multi, a, st);
+    else if (scores) launch_dbethe<false, true>(mf, multi, a, st);
+    else launch_dbethe<false, false>(mf, multi, a, st);
+  } else {
+    if (observe) launch_rleucg<true>(feedback, a, st);
+    else launch_rleucg<false>(feedback, a, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,195 @@
+// K5 and K6 — the geometry-only density-CV pair kernels over column spans,
+// for Hopper (sm_90a).
+//
+// Replace the TPU kernels in lammps_ucg_dev_tpu/ops/pallas_pair.py:
+// _kernel_cv_colspan (:944, and its window twin _kernel_cv, :795), whose
+// per-candidate physics is _phys_cv_tile (:892-941), as compute_density
+// (:1633) and compute_rleucg (:1844) call them in passes 1 and 3.  Their
+// plain PyTorch twins are lammps_ucg_dev_tpu_torch/ops/hopper_cv.py:
+// cv_rho_reference and cv_force_reference, which take the same arguments
+// and return the same outputs.  The span walk is K1's (colspan.cuh).
+//
+// Inputs as K1's (no coefficient rows): scal [Lx Ly cutsq ...], the spans,
+// ipack rows [x y z c state valid c typ] and the extended columns; c is
+// the per-atom CV weight cvf in pass 3 (attr 3 of the candidates, attr 6
+// of the i-slot), typ (attr 7) the type that indexes `rad`, the proximity
+// radius R per type (PERTYPE) or one radius rad[0] for every atom.
+// For every real i-slot and candidate j with 0 < rsq < cutsq, in f32, with
+// r = sqrt(rsq) and t_a = tanh((r - R_a) / (0.1 R_a)):
+//   K5 (rho): rho += 0.5 (1 - t_i); n += 1            out (n_slots, 2)
+//   K6 (cv):  g_a = -0.5 (1 - t_a^2) / (0.1 R_a)       (GFORM mder, -dw/dr)
+//                   +0.5 (1 - t_a^2) / (0.1 R_a)       (GFORM pder, +dw/dr)
+//                   0.5 (1 - t_a)                      (GFORM w)
+//             fcv = (c_i g_i + c_j g_j) / r;  F += fcv dr   out (n_slots, 4)
+//             [Fx Fy Fz 0]; with OBSERVE also the per-slot virial row in
+//             colspan::Observed's layout (pe and oob 0), valid j only.
+// A plain type's radius is floored at 1e-12, so (r - R)/(0.1 R) ~ 1e13 and
+// tanhf gives exactly 1: w = 0 and g = 0, as on the TPU.  Invalid i-slots
+// write zero rows.
+//
+// Bound: FMA/SFU throughput — per in-cutoff pair one sqrt, one or two tanh
+// and two or three IEEE divisions against 12-20 bytes of broadcast j
+// attributes; ~90% of the candidates fail the cutoff test after 10 flops.
+// Design as K1: one thread per i-slot, no atomics, the cutoff test a
+// branch (pad poison never reaches a tally), plain tanhf/sqrtf and IEEE
+// division (no fast-math).  Making it fast is later work.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+//        -Xcompiler -fPIC (ops/cuda_lib.py).  Plain C entry point, loaded
+// with ctypes; it returns cudaGetLastError() of the launch.
+
+#include "colspan.cuh"
+
+namespace {
+
+using colspan::kBlock;
+using colspan::PairArgs;
+
+enum GForm : int { kMder = 0, kPder = 1, kW = 2 };
+
+struct CvArgs {
+  PairArgs p;          // coef and cls unused; ntypes1 = entries of rad
+  const float* rad;    // (ntypes1,) proximity radius per type
+};
+
+template <bool PERTYPE>
+__device__ __forceinline__ float radius_of(const CvArgs& a, float tv) {
+  if constexpr (PERTYPE) {
+    const int t = min(max(static_cast<int>(tv), 0), a.p.ntypes1 - 1);
+    return a.rad[t];
+  } else {
+    return a.rad[0];
+  }
+}
+
+struct RhoTally {
+  float ri;
+  float rho = 0.f, cnt = 0.f;
+
+  __device__ __forceinline__ void operator()(const float*, int, float, float,
+                                             float, float rsq) {
+    const float r = sqrtf(rsq);
+    const float t = tanhf((r - ri) / (0.1f * ri));
+    rho += 0.5f * (1.f - t);
+    cnt += 1.f;
+  }
+};
+
+template <int GFORM, bool OBSERVE, bool PERTYPE>
+struct CvTally {
+  const CvArgs* a;
+  int czp;
+  float ri, ci;
+  float fx = 0.f, fy = 0.f, fz = 0.f;
+  colspan::Observed obs;
+
+  __device__ __forceinline__ float g(float t, float R) const {
+    if constexpr (GFORM == kW) {
+      return 0.5f * (1.f - t);
+    } else {
+      constexpr float sgn = GFORM == kMder ? -0.5f : 0.5f;
+      return sgn * (1.f - t * t) / (0.1f * R);
+    }
+  }
+
+  __device__ __forceinline__ void operator()(const float* cj, int j, float dx,
+                                             float dy, float dz, float rsq) {
+    const float r = sqrtf(rsq);
+    const float ti = tanhf((r - ri) / (0.1f * ri));
+    float gi = g(ti, ri), gj;
+    if constexpr (PERTYPE) {
+      const float rj = radius_of<true>(*a, cj[7 * czp + j]);
+      gj = g(tanhf((r - rj) / (0.1f * rj)), rj);
+    } else {
+      gj = gi;
+    }
+    const float fcv = (ci * gi + cj[3 * czp + j] * gj) / r;
+    fx += fcv * dx;
+    fy += fcv * dy;
+    fz += fcv * dz;
+    if constexpr (OBSERVE) obs.add(0.f, fcv, dx, dy, dz, false);
+  }
+};
+
+template <bool PERTYPE>
+__global__ void __launch_bounds__(kBlock)
+cv_rho_kernel(const __grid_constant__ CvArgs a) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= a.p.n_slots) return;
+  const float4 ia = reinterpret_cast<const float4*>(a.p.ipack)[2 * t];
+  const float4 ib = reinterpret_cast<const float4*>(a.p.ipack)[2 * t + 1];
+  RhoTally tal;
+  if (ib.y > 0.5f) {   // i-slot holds a real atom
+    tal.ri = radius_of<PERTYPE>(a, ib.w);
+    colspan::for_each_pair<false>(a.p, t, ia.x, ia.y, ia.z, tal);
+  }
+  reinterpret_cast<float2*>(a.p.out)[t] = make_float2(tal.rho, tal.cnt);
+}
+
+template <int GFORM, bool OBSERVE, bool PERTYPE>
+__global__ void __launch_bounds__(kBlock)
+cv_force_kernel(const __grid_constant__ CvArgs a) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= a.p.n_slots) return;
+  const float4 ia = reinterpret_cast<const float4*>(a.p.ipack)[2 * t];
+  const float4 ib = reinterpret_cast<const float4*>(a.p.ipack)[2 * t + 1];
+  CvTally<GFORM, OBSERVE, PERTYPE> tal;
+  if (ib.y > 0.5f) {
+    tal.a = &a;
+    tal.czp = a.p.czp;
+    tal.ri = radius_of<PERTYPE>(a, ib.w);
+    tal.ci = ib.z;
+    colspan::for_each_pair<OBSERVE>(a.p, t, ia.x, ia.y, ia.z, tal);
+  }
+  reinterpret_cast<float4*>(a.p.out)[t] =
+      make_float4(tal.fx, tal.fy, tal.fz, 0.f);
+  if constexpr (OBSERVE) tal.obs.store(a.p.part, t);
+}
+
+template <int G, bool O>
+void launch_cv(bool pertype, const CvArgs& a, cudaStream_t st) {
+  const int grid = colspan::grid_of(a.p.n_slots);
+  if (pertype) cv_force_kernel<G, O, true><<<grid, kBlock, 0, st>>>(a);
+  else cv_force_kernel<G, O, false><<<grid, kBlock, 0, st>>>(a);
+}
+
+template <bool O>
+void launch_cv_g(int gform, bool pertype, const CvArgs& a, cudaStream_t st) {
+  if (gform == kMder) launch_cv<kMder, O>(pertype, a, st);
+  else if (gform == kPder) launch_cv<kPder, O>(pertype, a, st);
+  else launch_cv<kW, O>(pertype, a, st);
+}
+
+}  // namespace
+
+// Returns 0 on success, else a cudaError_t code.  mode 0: K5 (rho; out
+// (n_slots, 2), no part, observe must be 0); mode 1: K6 (cv; out
+// (n_slots, 4), part (n_slots, 8) when observe) with gform 0 mder,
+// 1 pder, 2 w.  pertype: the radius comes from rad[typ] (nrad entries),
+// else rad[0] for every atom.
+extern "C" int density_cv_launch(
+    const float* scal, const int* span_z0, const int* span_len,
+    const float* ipack, const float* cols, const float* rad, float* out,
+    float* part, int n_slots, int mx, int my, int cz, int czp, int nrad,
+    int mode, int gform, int observe, int pertype, void* stream) {
+  if (n_slots <= 0 || (cz & 7) != 0 || nrad < 1 || rad == nullptr
+      || mode < 0 || mode > 1 || gform < 0 || gform > 2
+      || (mode == 0 && observe) || (observe && part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const CvArgs a{PairArgs{scal, span_z0, span_len, ipack, cols, nullptr,
+                          nullptr, out, part, n_slots, mx, my, cz, czp, 0, 0,
+                          nrad, 0},
+                 rad};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int grid = colspan::grid_of(n_slots);
+  if (mode == 0) {
+    if (pertype) cv_rho_kernel<true><<<grid, kBlock, 0, st>>>(a);
+    else cv_rho_kernel<false><<<grid, kBlock, 0, st>>>(a);
+  } else if (observe) {
+    launch_cv_g<true>(gform, pertype, a, st);
+  } else {
+    launch_cv_g<false>(gform, pertype, a, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -16,8 +16,22 @@ built from the same arrays.
   ``fix nve/ucgld``, ``fix ucgld/langevin 0.8 0.8 0.5`` and
   ``fix ucgstate`` in its default mode; its arrays come from
   :func:`bethe_arrays`.
+* :func:`build_density_sim` — the config-4 density-CV system of
+  ``examples/make_deck.py:write_bethe_density_deck`` at its published
+  settings (P3): plain type 1 and the 2-state density-CV type 2 (70%),
+  ``table_ucg_bethe_density linear 1200`` over 7 tables, ρ 0.5, T 0.8,
+  ``fix nve/ucgld`` and ``ucgld/langevin 0.8 0.8 0.5``, dt 0.002, skin
+  0.4, reneighbour every 10; the deck's ``fix cluster_switch`` is left
+  out.  Its arrays come from :func:`density_arrays`.
+* :func:`build_rleucg_sim` — the config-5 interface system of
+  ``write_rleucg_deck`` (P4): substate types 1/2 (one 2-state density
+  actual type, 70% drawn as type 1) and 3 (plain),
+  ``table_rleucg_interface linear 1200`` over 6 tables, ρ 0.5, T 0.8,
+  ``fix nve/ucgld/wall/hard bias_potential 0.1`` and ``ucgld/langevin
+  0.8 0.8 0.5``, dt 0.002, skin 0.4, reneighbour every 10.  Its arrays
+  come from :func:`rleucg_arrays`.
 
-Both build on the CUDA device unless the caller asks for the CPU
+All build on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); without CUDA they raise.
 """
 
@@ -34,8 +48,10 @@ from lammps_ucg_dev_tpu_torch.fixes import langevin as fl
 from lammps_ucg_dev_tpu_torch.fixes import ucgstate as fs
 from lammps_ucg_dev_tpu_torch.io.state_settings import parse_state_settings
 from lammps_ucg_dev_tpu_torch.io.table_io import RLINEAR, RawTable
-from lammps_ucg_dev_tpu_torch.models import pair_bethe, pair_ucgld
-from lammps_ucg_dev_tpu_torch.models.typemap import TablePairBuilder
+from lammps_ucg_dev_tpu_torch.models import (pair_bethe, pair_bethe_density,
+                                             pair_rleucg, pair_ucgld)
+from lammps_ucg_dev_tpu_torch.models.typemap import (RLEUCGBuilder,
+                                                     TablePairBuilder)
 from lammps_ucg_dev_tpu_torch.ops import neighbor as nb
 from lammps_ucg_dev_tpu_torch.ops.kernel_select import select_pair_kernel
 from lammps_ucg_dev_tpu_torch.runtime.sim import SimConfig, Simulation
@@ -43,6 +59,12 @@ from lammps_ucg_dev_tpu_torch.runtime.sim import SimConfig, Simulation
 RC = 2.5
 TWO_STATE_SETTINGS = "1 2 2\n1 2\n1 2\n0.0 0.3\n"
 EPS = (1.0, 0.6, 0.6, 0.25)         # e00, e01, e10, e11
+# config 4: plain type 1; type 2 with formal types 2/3, density CV and
+# entropy, ρ* 6.0, R 1.5, μ (0.0, 0.2)
+DENSITY_SETTINGS = "2 3 2\n1 1\n2 2\n2 3 density entropy\n6.0 1.5\n0.0 0.2\n"
+# config 5: actual type 1 = substates 1/2 (density, entropy, ρ* 5.0, R 1.5,
+# μ 0.4), actual type 2 = substate 3
+RLEUCG_SETTINGS = "2 3\n2 density use_entropy\n5.0 1.5\n0.4\n1 density no_entropy\n"
 
 
 def _device(device) -> torch.device:
@@ -119,20 +141,66 @@ def bethe_arrays(n: int, seed: int = 11) -> dict:
     state = (λ > 0.5), and velocities N(0, T) per component with the net
     momentum removed.  λ-mass 5, λ-velocity 0; ucgp stays at the -1
     sentinel."""
-    rho, T = 0.5, 0.8
-    L = (n / rho) ** (1 / 3)
+    L, x = _lattice(n, seed)
+    rng = np.random.default_rng(seed)
+    lam = rng.uniform(0.3, 0.7, n)
+    return {"L": L, "x": x, "v": _velocities(rng, n), "ucgl": lam,
+            "ucgstate": (lam > 0.5).astype(np.int32),
+            "ucgml": np.full(n, 5.0), "typ": np.ones(n, np.int32)}
+
+
+DECK_RHO, DECK_T = 0.5, 0.8      # configs 3-5
+
+
+def _lattice(n: int, seed: int):
+    """(L, x): the decks' ``lattice_positions`` — a jittered simple-cubic
+    lattice of ceil(n^(1/3))^3 sites truncated to n, in a cube of side
+    (n/ρ)^(1/3), with its own ``default_rng(seed)`` — wrapped into the
+    box."""
+    L = (n / DECK_RHO) ** (1 / 3)
     m = int(np.ceil(n ** (1 / 3)))
     grid = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
                     axis=-1).reshape(-1, 3)[:n]
     jitter = np.random.default_rng(seed).normal(0, 0.05, (n, 3))
-    x = np.mod((grid + 0.5) * (L / m) + jitter, L)
+    return L, np.mod((grid + 0.5) * (L / m) + jitter, L)
+
+
+def _velocities(rng, n: int):
+    """N(0, T) per component with the net momentum removed."""
+    v = rng.normal(0.0, np.sqrt(DECK_T), (n, 3))
+    return v - v.mean(axis=0)
+
+
+def _deck_arrays(n: int, seed: int, first: int, other: int) -> dict:
+    """Configs 4 and 5: the lattice, then from ``default_rng(seed)`` the
+    types (``first`` with probability 0.7, else ``other``) as the deck
+    draws them, then the velocities; state 0, λ 0.5, λ-mass 5 as in the
+    decks' data files; ucgp stays at the -1 sentinel."""
+    L, x = _lattice(n, seed)
     rng = np.random.default_rng(seed)
-    lam = rng.uniform(0.3, 0.7, n)
-    v = rng.normal(0.0, np.sqrt(T), (n, 3))
-    v -= v.mean(axis=0)
-    return {"L": L, "x": x, "v": v, "ucgl": lam,
-            "ucgstate": (lam > 0.5).astype(np.int32),
-            "ucgml": np.full(n, 5.0), "typ": np.ones(n, np.int32)}
+    typ = np.where(rng.uniform(size=n) < 0.7, first, other).astype(np.int32)
+    return {"L": L, "x": x, "v": _velocities(rng, n),
+            "ucgl": np.full(n, 0.5), "ucgstate": np.zeros(n, np.int32),
+            "ucgml": np.full(n, 5.0), "typ": typ}
+
+
+def density_arrays(n: int, seed: int = 13) -> dict:
+    """The config-4 system's numpy draws (``write_bethe_density_deck``)."""
+    return _deck_arrays(n, seed, 2, 1)
+
+
+def rleucg_arrays(n: int, seed: int = 17) -> dict:
+    """The config-5 system's numpy draws (``write_rleucg_deck``)."""
+    return _deck_arrays(n, seed, 1, 3)
+
+
+def _state(a: dict, dtype, device) -> SimState:
+    L = a["L"]
+    return SimState.create(
+        x=a["x"], v=a["v"], typ=a["typ"], ucgl=a["ucgl"],
+        ucgstate=a["ucgstate"], ucgml=a["ucgml"],
+        box=Box.create([0, 0, 0], [L, L, L], dtype=dtype, device=device),
+        dtype=dtype, device=device)
 
 
 def build_bethe_sim(n: int = 512, dtype=torch.float32, device="cuda",
@@ -148,11 +216,7 @@ def build_bethe_sim(n: int = 512, dtype=torch.float32, device="cuda",
     b = TablePairBuilder("linear", 1200, st)
     b.pair_coeff(1, 1, 2, 2, [(soft_table(e, 2000), RC) for e in EPS])
     bank, tp = b.build(dtype=dtype, device=device)
-    state = SimState.create(
-        x=a["x"], v=a["v"], typ=a["typ"], ucgl=a["ucgl"],
-        ucgstate=a["ucgstate"], ucgml=a["ucgml"],
-        box=Box.create([0, 0, 0], [L, L, L], dtype=dtype, device=device),
-        dtype=dtype, device=device)
+    state = _state(a, dtype, device)
     params = pair_bethe.make_params(bank, tp, 0.8,
                                     prior_mode="chemical_potential",
                                     dtype=dtype)
@@ -163,4 +227,64 @@ def build_bethe_sim(n: int = 512, dtype=torch.float32, device="cuda",
         dt=0.002, units="lj", integrator=fi.IntegratorCfg("nve/ucgld"),
         langevin=fl.LangevinCfg(t_start=0.8, t_stop=0.8, t_period=0.5),
         ucgstate=fs.UCGStateCfg(mode="default"), reneigh_every=reneigh_every)
+    return Simulation(system, state, pair_fn, params, spec, cfg)
+
+
+def _deck_cfg(integrator: fi.IntegratorCfg,
+              reneigh_every: int) -> SimConfig:
+    return SimConfig(
+        dt=0.002, units="lj", integrator=integrator,
+        langevin=fl.LangevinCfg(t_start=DECK_T, t_stop=DECK_T, t_period=0.5),
+        reneigh_every=reneigh_every)
+
+
+def build_density_sim(n: int = 512, dtype=torch.float32, device="cuda",
+                      reneigh_every: int = 10,
+                      kernel: bool | None = None) -> Simulation:
+    """The config-4 density-CV system (P3) without ``fix cluster_switch``.
+    ``kernel`` as in :func:`build_sim`, selecting K5, K3 and K6
+    (ops/hopper_density.py)."""
+    device = _device(device)
+    a = density_arrays(n)
+    st = parse_state_settings(DENSITY_SETTINGS, "bethe_density")
+    b = TablePairBuilder("linear", 1200, st)
+
+    def tab(e):
+        return (soft_table(e, 2000), RC)
+
+    b.pair_coeff(1, 1, 1, 1, [tab(1.0)])
+    b.pair_coeff(1, 2, 1, 2, [tab(0.8), tab(0.5)])
+    b.pair_coeff(2, 2, 2, 2, [tab(0.9), tab(0.55), tab(0.55), tab(0.3)])
+    bank, tp = b.build(dtype=dtype, device=device)
+    state = _state(a, dtype, device)
+    params = pair_bethe_density.make_params(bank, tp, DECK_T, dtype=dtype)
+    pair_fn, spec, params = _pair_path(params, state, n, a["L"], 0.4, kernel,
+                                       pair_bethe_density.compute)
+    system = System(n_atoms=n, ntypes=2, masses=np.array([0.0, 1.0, 1.0]))
+    cfg = _deck_cfg(fi.IntegratorCfg("nve/ucgld"), reneigh_every)
+    return Simulation(system, state, pair_fn, params, spec, cfg)
+
+
+def build_rleucg_sim(n: int = 512, dtype=torch.float32, device="cuda",
+                     reneigh_every: int = 10,
+                     kernel: bool | None = None) -> Simulation:
+    """The config-5 RLE-UCG interface system (P4).  ``kernel`` as in
+    :func:`build_sim`, selecting K5, K4 and K6 (ops/hopper_rleucg.py)."""
+    device = _device(device)
+    a = rleucg_arrays(n)
+    st = parse_state_settings(RLEUCG_SETTINGS, "rleucg")
+    b = RLEUCGBuilder("linear", 1200, st)
+    for i, j, e in ((1, 1, 1.0), (1, 2, 0.7), (1, 3, 0.8), (2, 2, 0.4),
+                    (2, 3, 0.5), (3, 3, 0.9)):
+        b.pair_coeff(i, j, soft_table(e, 2000), RC)
+    params = pair_rleucg.make_params(b, st, DECK_T, dtype=dtype,
+                                     device=device)
+    state = _state(a, dtype, device)
+    pair_fn, spec, params = _pair_path(params, state, n, a["L"], 0.4, kernel,
+                                       pair_rleucg.compute)
+    system = System(n_atoms=n, ntypes=3,
+                    masses=np.array([0.0, 1.0, 1.0, 1.0]))
+    cfg = _deck_cfg(fi.IntegratorCfg("nve/ucgld/wall/hard",
+                                     bias_potential=True, barrier=0.1),
+                    reneigh_every)
     return Simulation(system, state, pair_fn, params, spec, cfg)

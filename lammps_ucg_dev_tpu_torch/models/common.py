@@ -14,6 +14,31 @@ from lammps_ucg_dev_tpu_torch.models.typemap import UCGTypeParams
 from lammps_ucg_dev_tpu_torch.ops.table import TableBank
 
 
+def row_slices(n: int, chunk: int):
+    """Row blocks of a per-atom-owned pair pass: ``chunk`` rows each (the
+    last may be shorter), or one block when ``chunk`` is 0 or >= n.  Every
+    tally is per-atom-owned, so chunking is exact; it bounds the (rows, K)
+    working set."""
+    step = chunk if chunk and n > chunk else max(n, 1)
+    return [slice(r0, min(n, r0 + step)) for r0 in range(0, n, step)]
+
+
+def pair_rows(state, nbr, rows: slice, cutsq: torch.Tensor,
+              typ: torch.Tensor):
+    """Geometry of one row block of a full neighbor list: (jc, tj, within,
+    dr, rsq) with ``within`` the real pairs inside ``cutsq[ti, tj]``
+    (``typ`` indexes ``cutsq``)."""
+    n = state.n_atoms
+    idx = nbr.idx[rows]
+    valid = idx < n
+    jc = torch.where(valid, idx, torch.zeros_like(idx))
+    dr = state.box.min_image(state.x[rows][:, None, :] - state.x[jc])
+    rsq = torch.sum(dr * dr, dim=-1)
+    tj = typ[jc]
+    within = valid & (rsq < take2d(cutsq, typ[rows][:, None], tj))
+    return jc, tj, within, dr, rsq
+
+
 def take2d(arr: torch.Tensor, i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
     """arr[i, j] for a small 2-D-indexed table through one flat-index take."""
     n1 = arr.shape[1]

@@ -248,11 +248,9 @@ def compute(state: SimState, nbr: NeighborList, params: BetheParams,
     pi1_all, pj1_all = _priors(state, params, prior_u)
     is_ucg = tp.n_states[typ] > 1
 
-    chunk = params.chunk if params.chunk and n > params.chunk else n
-    parts = [_rows(state, nbr.idx[r0:r0 + chunk], x[r0:r0 + chunk],
-                   typ[r0:r0 + chunk], pi1_all[r0:r0 + chunk], pj1_all,
-                   params)
-             for r0 in range(0, n, chunk)]
+    parts = [_rows(state, nbr.idx[rows], x[rows], typ[rows], pi1_all[rows],
+                   pj1_all, params)
+             for rows in common.row_slices(n, params.chunk)]
     f, scores = (torch.cat([p[k] for p in parts]) for k in range(2))
     pe, virial, oob_lo, oob_hi = (sum(p[k] for p in parts)
                                   for k in range(2, 6))

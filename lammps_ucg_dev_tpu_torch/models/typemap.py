@@ -8,6 +8,9 @@ whole mapping is precompiled into dense tensors:
 
     tab4[itype, jtype, si, sj] -> table id
     cutsq[itype, jtype]        -> interaction gate (the (0,0)-state cutoff)
+
+``RLEUCGBuilder`` is the single-table assembly of ``table_rleucg_interface``,
+whose atom types are substates: ``tabSS[i, j, si, sj]`` plays tab4's role.
 """
 
 from __future__ import annotations
@@ -32,6 +35,10 @@ class UCGTypeParams:
     mu_diff: torch.Tensor     # (T+1,) mu[formal1] - mu[formal0] (0 for 1-state)
     tab4: torch.Tensor        # (T+1, T+1, 2, 2) int64 table ids
     cutsq: torch.Tensor       # (T+1, T+1) pair gate
+    use_density: torch.Tensor       # (T+1,) int32 (bethe_density dialect)
+    use_entropy: torch.Tensor       # (T+1,) int32
+    cv_threshold: torch.Tensor      # (T+1,) density threshold ρ*
+    threshold_radius: torch.Tensor  # (T+1,) proximity radius R
 
     @property
     def ntypes(self) -> int:
@@ -161,8 +168,76 @@ class TablePairBuilder:
             n_states=t(np.asarray(ns), torch.int32),
             formal=t(formal, torch.int32), mu=t(mu, dtype),
             mu_diff=t(mu_diff, dtype), tab4=t(tab4, torch.int64),
-            cutsq=t(cutsq, dtype))
+            cutsq=t(cutsq, dtype),
+            use_density=t(st.use_density, torch.int32),
+            use_entropy=t(st.use_entropy, torch.int32),
+            cv_threshold=t(st.cv_thresholds, dtype),
+            threshold_radius=t(st.threshold_radii, dtype))
         return bank, tp
+
+    @property
+    def max_cutoff(self) -> float:
+        return max(t.cut for t in self.tables)
+
+
+@dataclasses.dataclass
+class RLEUCGBuilder:
+    """Single-table ``pair_coeff`` assembly over SUBSTATE types for
+    ``table_rleucg_interface`` (P4), where atom types enumerate substates
+    (``PairTable_RLEUCG_INTERFACE::coeff``,
+    UCG/pair_table_rleucg_interface.cpp:672-744)."""
+
+    tabstyle: str
+    tablength: int
+    settings: StateSettings   # rleucg dialect
+
+    def __post_init__(self):
+        S = self.settings.n_formal_types       # total substate types
+        self.tables: list[BuiltTable] = []
+        self.tabindex = np.full((S + 1, S + 1), -1, dtype=np.int64)
+
+    def pair_coeff(self, ispec, jspec, table, cut: float):
+        S = self.settings.n_formal_types
+        ilo, ihi = _parse_bounds(ispec, S)
+        jlo, jhi = _parse_bounds(jspec, S)
+        if isinstance(table, tuple):
+            table = read_table_file(*table)
+        built = build_table(table, self.tabstyle, self.tablength, float(cut))
+        tid = len(self.tables)
+        self.tables.append(built)
+        count = 0
+        for i in range(ilo, ihi + 1):
+            for j in range(max(jlo, i), jhi + 1):
+                self.tabindex[i, j] = tid
+                self.tabindex[j, i] = tid
+                count += 1
+        if count == 0:
+            raise ValueError("Illegal pair_coeff command")
+
+    def build(self, dtype=torch.float32, device="cpu"):
+        """(bank, tabSS, cutsq): tabSS[i, j, si, sj] is the table of
+        substate types (i + si, j + sj), clipped to the last type."""
+        st = self.settings
+        S = st.n_formal_types
+        Smax = int(st.max_states)
+        if np.any(self.tabindex[1:, 1:] < 0):
+            missing = np.argwhere(self.tabindex[1:, 1:] < 0)[0] + 1
+            raise ValueError(f"All pair coeffs are not set: pair "
+                             f"{tuple(int(v) for v in missing)}")
+        tabSS = np.zeros((S + 1, S + 1, Smax, Smax), dtype=np.int64)
+        for i in range(1, S + 1):
+            for j in range(1, S + 1):
+                for si in range(Smax):
+                    for sj in range(Smax):
+                        tabSS[i, j, si, sj] = self.tabindex[min(i + si, S),
+                                                            min(j + sj, S)]
+        cuts = np.array([t.cut for t in self.tables])
+        cutsq = np.zeros((S + 1, S + 1))
+        cutsq[1:, 1:] = cuts[self.tabindex[1:, 1:]] ** 2
+        bank = TableBank.from_built(self.tables, self.tabstyle, dtype=dtype,
+                                    device=device)
+        return (bank, torch.as_tensor(tabSS, dtype=torch.int64, device=device),
+                torch.as_tensor(cutsq, dtype=dtype, device=device))
 
     @property
     def max_cutoff(self) -> float:

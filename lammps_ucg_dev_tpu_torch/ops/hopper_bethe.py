@@ -86,6 +86,36 @@ def kernel_scalars(box, params: BetheParams, cheb: ChebBank,
 
 # ---- the plain PyTorch twin ------------------------------------------------
 
+def closed_form(eD, pi1, pj1, kT, mf: bool):
+    """(p11, xk, bb) of the kernels' f32 closed form: xk = min(-eD/kT, 40),
+    bb = exp(xk), the root picked by the sign of Q, pi1·pj1 when
+    |bb - 1| < 1e-5 or with ``mf`` (then xk and bb are None)."""
+    pipj = pi1 * pj1
+    if mf:
+        return pipj, None, None
+    xk = torch.clamp(-eD / kT, max=XK_MAX)
+    bb = torch.exp(xk)
+    aa = bb - 1.0
+    Q = (pi1 + pj1) * aa + 1.0
+    D = torch.clamp(Q * Q - 4.0 * aa * bb * pipj, min=0.0)
+    sqD = torch.sqrt(D)
+    small = torch.abs(aa) < SMALL_A
+    root_pos = 2.0 * bb * pipj / (Q + sqD)
+    root_neg = (Q - sqD) / (2.0 * torch.where(small, torch.ones_like(aa), aa))
+    p11 = torch.where(small, pipj, torch.where(Q < 0.0, root_neg, root_pos))
+    return p11, xk, bb
+
+
+def partner_is_ucg(cls, jattr, ucg_mask: int):
+    """(C, 1, K) bool: the candidate's type has two states (its bit in
+    ``ucg_mask``); every partner with one actual type (``cls`` None)."""
+    if cls is None:
+        return True
+    ucg_t = torch.tensor([(ucg_mask >> t) & 1 > 0
+                          for t in range(cls.shape[0])], device=cls.device)
+    return ucg_t[jattr(7).long().clamp(0, cls.shape[0] - 1)]
+
+
 def bethe_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
                          mx: int, my: int, degree: int, ntab: int,
                          ucg_mask: int, observe: bool, mf: bool, sce: bool):
@@ -98,28 +128,13 @@ def bethe_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
     part = torch.zeros((n_slots, 8), dtype=dt, device=dev) if observe else None
     innersq, uscale, uoff, kT = scal[3], scal[4], scal[5], scal[6]
     zero = torch.zeros((), dtype=dt, device=dev)
-    one = torch.ones((), dtype=dt, device=dev)
     for sl, irows, jattr, dx, dy, dz, rsq, mask in hp.span_pairs(
             scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe):
         u = torch.clamp(rsq * uscale + uoff, min=-1.0)
         eA, eB, eC, eD, fA, fB, fC, fD = hp.channels(
             hp.series(coef, u, degree), cls, irows, jattr, ntab)
         pi1, pj1 = irows[:, :, 6:7], jattr(3)
-        pipj = pi1 * pj1
-        if mf:
-            p11 = pipj
-        else:
-            xk = torch.clamp(-eD / kT, max=XK_MAX)
-            bb = torch.exp(xk)
-            aa = bb - 1.0
-            Q = (pi1 + pj1) * aa + 1.0
-            D = torch.clamp(Q * Q - 4.0 * aa * bb * pipj, min=0.0)
-            sqD = torch.sqrt(D)
-            small = torch.abs(aa) < SMALL_A
-            root_pos = 2.0 * bb * pipj / (Q + sqD)
-            root_neg = (Q - sqD) / (2.0 * torch.where(small, one, aa))
-            p11 = torch.where(small, pipj,
-                              torch.where(Q < 0.0, root_neg, root_pos))
+        p11 = closed_form(eD, pi1, pj1, kT, mf)[0]
         fmix = torch.where(mask, fA + pi1 * fB + pj1 * fC + p11 * fD, zero)
         if sce:
             p0e = torch.clamp(1.0 - pi1, min=P_FLOOR)
@@ -130,10 +145,7 @@ def bethe_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
             sc0 = c00 * eA + c01 * (eA + eC)
             sc1 = c10 * (eA + eB) + c11 * ((eA + eB) + (eC + eD))
             if cls is not None:
-                ucg_t = torch.tensor([(ucg_mask >> t) & 1 > 0
-                                      for t in range(cls.shape[0])],
-                                     device=dev)
-                jug = ucg_t[jattr(7).long().clamp(0, cls.shape[0] - 1)]
+                jug = partner_is_ucg(cls, jattr, ucg_mask)
                 sc0 = torch.where(jug, sc0, eA)
                 sc1 = torch.where(jug, sc1, eA + eB)
         else:

@@ -1,0 +1,350 @@
+"""K3 — the ``table_ucg_bethe_density`` pair pass over column spans, its
+wrappers, and the three-pass kernel path of the style (port of
+``compute_density`` and the ``style="dbethe"`` path of
+``lammps_ucg_dev_tpu/ops/pallas_pair.py``).
+
+* :func:`dbethe_pair` is K3's wrapper.  On CUDA tensors it launches the
+  hand-written Hopper kernel (the ``kDBethe`` style of ``csrc/bethe_pair.cu``,
+  built at its first launch, ops/cuda_lib.py) or raises; on CPU tensors it
+  runs :func:`dbethe_pair_reference`, the kernel's plain PyTorch twin.
+  ``dbethe_pair.launches`` counts kernel launches per variant.
+* :func:`compute_density` is the ForceOut-compatible evaluation on a column
+  list, the reference's three loops (pair_table_ucg_bethe_density.cpp
+  :219-255, 528-658, 698-733): K5 (ρ, n_real) → priors and one-body terms →
+  K3 (Bethe mixing, prior-force tallies, scores) → the posterior and the CV
+  weights → K6 (the CV back-force).
+* :func:`compute_style_density` (+ ``.fast_variant`` /
+  ``.fast_variant_noscores``) is the ``Simulation`` pair entry.  The
+  score-free variant returns ``ucgp=None``, so the driver keeps the carried
+  posterior.
+
+K3's contract (the CUDA kernel and the twin) — K2's (ops/hopper_bethe.py)
+with ipack attr 6 and the candidates' attr 3 both the density prior
+P(state 1) (0 for plain types), and
+  out    (n_slots, 8) [fx fy fz pf0 s0 s1 pf1 0] (scores 0 without them)
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from lammps_ucg_dev_tpu_torch.core.state import ForceOut, SimState
+from lammps_ucg_dev_tpu_torch.models import common
+from lammps_ucg_dev_tpu_torch.models import pair_bethe_density as pbd
+from lammps_ucg_dev_tpu_torch.models.pair_bethe_density import (
+    BetheDensityParams)
+from lammps_ucg_dev_tpu_torch.ops import colpack
+from lammps_ucg_dev_tpu_torch.ops import hopper_bethe as hb
+from lammps_ucg_dev_tpu_torch.ops import hopper_cv as hcv
+from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+from lammps_ucg_dev_tpu_torch.ops.chebtab import ChebBank, fittable
+
+P_LOG_FLOOR = 1e-12
+STYLE_DBETHE, STYLE_RLEUCG = 1, 2      # csrc/bethe_pair.cu Style
+
+
+def supports_density(params) -> bool:
+    """Static eligibility (``pallas_pair.supports_density``): K2's scope
+    (a fittable bank, plain or 2-state types with at least one UCG type,
+    one shared cutoff, at most 8 tables and 3 actual types) and the
+    conservative pair-CV mode ("reference" runs on the reference path)."""
+    if not isinstance(params, BetheDensityParams):
+        return False
+    if params.pair_cv != "conservative":
+        return False
+    tp = params.tp
+    if not fittable(params.bank) or tp.ntypes < 1:
+        return False
+    ns = tp.n_states.cpu().numpy()[1:]
+    if not np.all((ns == 1) | (ns == 2)) or not np.any(ns == 2):
+        return False
+    cuts = tp.cutsq.cpu().numpy()[1:, 1:]
+    if not np.allclose(cuts, cuts[0, 0]):
+        return False
+    return params.bank.n_tables <= 8 and tp.ntypes <= 3
+
+
+def variant(observe: bool, want_scores: bool) -> str:
+    if observe:
+        if not want_scores:
+            raise ValueError("the observing variant always tallies scores")
+        return "full"
+    return "fast" if want_scores else "fast_noscores"
+
+
+# ---- the plain PyTorch twin ------------------------------------------------
+
+def dbethe_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
+                          mx: int, my: int, degree: int, ntab: int,
+                          ucg_mask: int, observe: bool, mf: bool,
+                          want_scores: bool):
+    """Plain PyTorch version of K3 (same arguments, same outputs), computed
+    in the tensors' dtype; the span walk, series and channels are K1's twin's
+    (ops/hopper_pair.py), the closed form K2's (ops/hopper_bethe.py)."""
+    variant(observe, want_scores)
+    dev, dt = ipack.device, ipack.dtype
+    n_slots = ipack.shape[0]
+    out = torch.zeros((n_slots, 8), dtype=dt, device=dev)
+    part = torch.zeros((n_slots, 8), dtype=dt, device=dev) if observe else None
+    innersq, uscale, uoff, kT = scal[3], scal[4], scal[5], scal[6]
+    zero = torch.zeros((), dtype=dt, device=dev)
+
+    def log_floor(v):
+        return torch.log(torch.clamp(v, min=P_LOG_FLOOR))
+
+    for sl, irows, jattr, dx, dy, dz, rsq, mask in hp.span_pairs(
+            scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe):
+        u = torch.clamp(rsq * uscale + uoff, min=-1.0)
+        eA, eB, eC, eD, fA, fB, fC, fD = hp.channels(
+            hp.series(coef, u, degree), cls, irows, jattr, ntab)
+        pi1, pj1 = irows[:, :, 6:7], jattr(3)
+        p11, xk, bb = hb.closed_form(eD, pi1, pj1, kT, mf)
+        fmix = torch.where(mask, fA + pi1 * fB + pj1 * fC + p11 * fD, zero)
+        lp0, lp1 = log_floor(1.0 - pi1), log_floor(pi1)
+        if mf:
+            lr = lp1 - lp0
+        else:
+            # stable ln(p11/p01) (pallas_pair.py:293-300)
+            est = bb * (pj1 - pi1) + (1.0 - pi1 - pj1)
+            dst = torch.sqrt(est * est + (4.0 * bb) * (pi1 * (1.0 - pi1)))
+            lr = torch.where(est >= 0.0,
+                             xk + log_floor(2.0 * pi1) - log_floor(est + dst),
+                             log_floor(dst - est)
+                             - log_floor(2.0 * (1.0 - pi1)))
+        jug = hb.partner_is_ucg(cls, jattr, ucg_mask)
+        pf0 = torch.where(jug, zero, eA + kT * lp0)
+        pf1 = torch.where(jug, (eB + eD) + kT * lr, (eA + eB) + kT * lp1)
+        cols_out = [torch.sum(fmix * dx, -1), torch.sum(fmix * dy, -1),
+                    torch.sum(fmix * dz, -1),
+                    -torch.sum(torch.where(mask, pf0, zero), -1)]
+        if want_scores:
+            sj = jattr(4)
+            cols_out += [
+                -torch.sum(torch.where(mask, eA + sj * eC, zero), -1),
+                -torch.sum(torch.where(mask, (eA + eB) + sj * (eC + eD),
+                                       zero), -1)]
+        else:
+            cols_out += [torch.zeros_like(cols_out[0])] * 2
+        cols_out += [-torch.sum(torch.where(mask, pf1, zero), -1),
+                     torch.zeros_like(cols_out[0])]
+        out[sl] = torch.stack(cols_out, -1).reshape(-1, 8)
+        if observe:
+            emix = torch.where(mask, eA + pi1 * eB + pj1 * eC + p11 * eD, zero)
+            part[sl] = hp.observed(emix, fmix, dx, dy, dz, mask, rsq, innersq)
+    return out, part
+
+
+# ---- the CUDA launch (K3 and K4 share the entry point) -------------------------
+
+def _lib():
+    from lammps_ucg_dev_tpu_torch.ops import cuda_lib
+
+    fn = cuda_lib.load("bethe_pair").lib.density_pair_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 15
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_density_pair(style: int, scal, z0, span_len, ipack, cols, coef,
+                        cls, *, mx, my, degree, ntab, ucg_mask, observe, mf,
+                        scores, feedback):
+    """One launch of K3 (``style`` 1) or K4 (2) on CUDA tensors, after the
+    same checks as K2's; returns (out, part)."""
+    dev = ipack.device
+    f32, i32 = torch.float32, torch.int32
+    ncol, cpc, _ = z0.shape
+    if ncol != mx * my:
+        raise ValueError(f"span table has {ncol} columns, grid {mx}x{my}")
+    cz = cpc * colpack.CL
+    czp = cols.shape[2]
+    n_slots = ncol * cz
+    multi = cls is not None
+    if style == STYLE_RLEUCG and not multi:
+        raise ValueError("K4 takes the raw rows and the row table (cls)")
+    nrow = hp.MAX_ROWS if multi else 8
+    if not 2 <= degree <= hp.MAX_DEGREE:
+        raise ValueError(f"degree {degree} outside [2, {hp.MAX_DEGREE}]")
+    hp._check(scal, "scal", f32, (8,), dev)
+    hp._check(z0, "z0", i32, (ncol, cpc, hp.NSTEN), dev)
+    hp._check(span_len, "L", i32, (ncol, cpc, hp.NSTEN), dev)
+    hp._check(ipack, "ipack", f32, (n_slots, 8), dev)
+    hp._check(cols, "cols", f32, (ncol, 8, czp), dev)
+    hp._check(coef, "coef", f32, (nrow, degree), dev)
+    ntypes1 = 0
+    if multi:
+        ntypes1 = cls.shape[0]
+        hp._check(cls, "cls", i32, (ntypes1, ntypes1, 4), dev)
+    out = torch.empty((n_slots, 8), dtype=f32, device=dev)
+    part = (torch.empty((n_slots, 8), dtype=f32, device=dev) if observe
+            else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib()(scal.data_ptr(), z0.data_ptr(), span_len.data_ptr(),
+                    ipack.data_ptr(), cols.data_ptr(), coef.data_ptr(),
+                    cls.data_ptr() if multi else None, out.data_ptr(),
+                    part.data_ptr() if observe else None,
+                    n_slots, mx, my, cz, czp, degree, ntab, ntypes1,
+                    int(ucg_mask), style, int(observe), int(mf), int(scores),
+                    int(feedback), int(multi), stream)
+    if rc != 0:
+        raise RuntimeError(f"density pair kernel launch failed: CUDA error "
+                           f"{rc}")
+    return out, part
+
+
+def dbethe_pair(scal, z0, span_len, ipack, cols, coef, cls, *, mx: int,
+                my: int, degree: int, ntab: int, ucg_mask: int,
+                observe: bool, mf: bool, want_scores: bool):
+    """K3: the hand-written kernel on CUDA tensors (launch or raise), its
+    plain twin on CPU tensors.  Returns (out, part); part is None unless
+    ``observe``."""
+    kw = dict(mx=mx, my=my, degree=degree, ntab=ntab, ucg_mask=ucg_mask,
+              observe=observe, mf=mf)
+    name = variant(observe, want_scores)
+    if ipack.is_cuda:
+        res = launch_density_pair(STYLE_DBETHE, scal, z0, span_len, ipack,
+                                  cols, coef, cls, scores=want_scores,
+                                  feedback=False, **kw)
+        dbethe_pair.launches[name] += 1
+        return res
+    if ipack.device.type == "cpu":
+        return dbethe_pair_reference(scal, z0, span_len, ipack, cols, coef,
+                                     cls, want_scores=want_scores, **kw)
+    raise ValueError(f"no K3 implementation for device {ipack.device}")
+
+
+dbethe_pair.launches = {"full": 0, "fast": 0, "fast_noscores": 0}
+
+
+# ---- the three passes ----------------------------------------------------------
+
+def radius_by_type(params: BetheDensityParams) -> torch.Tensor:
+    """(T+1,) proximity radius per type."""
+    return params.tp.threshold_radius
+
+
+def density_inputs(state: SimState, cl: colpack.ColumnList,
+                   params: BetheDensityParams, cheb: ChebBank,
+                   pi1: torch.Tensor, observe: bool, want_scores: bool):
+    """(args, kwargs) of :func:`dbethe_pair` for pass 2 on the density
+    priors ``pi1`` (P(state 1) per atom)."""
+    tp = params.tp
+    f32 = torch.float32
+    multi = tp.ntypes > 1
+    ipack, cols = colpack.pack(cl, state.box, state.x, pi1, state.ucgstate,
+                               dtype=f32, aux=pi1,
+                               typ=state.typ if multi else None)
+    coef, cls = hp.kernel_rows(cheb, tp, True, True, f32, state.device)
+    scal = hb.kernel_scalars(state.box, params, cheb, f32)
+    return ((scal, cl.z0, cl.L, ipack, cols, coef, cls),
+            dict(mx=cl.mx, my=cl.my, degree=cheb.degree,
+                 ntab=params.bank.n_tables, ucg_mask=hb.ucg_mask(tp),
+                 observe=observe, mf=params.method == "mf",
+                 want_scores=want_scores))
+
+
+def totals(part2, part3, observe: bool, device):
+    """(pe, virial, oob_low) from the pair pass's and the CV pass's
+    per-slot rows, halved (full list, newton off)."""
+    f32 = torch.float32
+    if not observe:
+        return (torch.zeros((), dtype=f32, device=device),
+                torch.zeros(6, dtype=f32, device=device),
+                torch.zeros((), dtype=torch.int32, device=device))
+    tot2, tot3 = part2.sum(0), part3.sum(0)
+    return (0.5 * tot2[0], 0.5 * (tot2[1:7] + tot3[1:7]),
+            tot2[7].to(torch.int32))
+
+
+def compute_density(state: SimState, cl: colpack.ColumnList,
+                    params: BetheDensityParams, cheb: ChebBank,
+                    observe: bool = True,
+                    want_scores: bool = True) -> ForceOut:
+    """Pair evaluation through K5 → K3 → K6, with ``params`` as
+    ``select_pair_kernel`` returns them (``cv_rad`` set).
+    ``observe=False`` drops pe/virial/oob (they come back 0);
+    ``want_scores=False`` also drops the scores, and ``ucgp`` is then None
+    — valid only when nothing feeds the scores back (``Simulation`` gates
+    this)."""
+    tp = params.tp
+    f32 = torch.float32
+    dev = state.device
+    typ = state.typ.long()
+    n = state.n_atoms
+    kT = params.kT.to(f32)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    is_ucg = tp.n_states[typ] > 1
+    use_den = (tp.use_density[typ] == 1) & is_ucg
+    cv_args = (params.cv_rad, tp.cutsq[1, 1], params.bank.innersq[0])
+
+    # ---- pass 1: ρ and the real in-cutoff count (K5) ----------------------
+    args, kw = hcv.cv_inputs(state, cl, *cv_args, None)
+    at1 = hcv.cv_rho(*args, **kw)[cl.atom_slot]
+    prior, partial0 = pbd._priors(params, typ, at1[:, 0])
+    pi1 = prior[:, 1]
+    one_body = pbd.one_body(params, typ,
+                            torch.log(torch.clamp(prior, min=P_LOG_FLOOR)),
+                            at1[:, 1])
+
+    # ---- pass 2: Bethe mixing, prior forces, scores (K3) -----------------
+    args, kw = density_inputs(state, cl, params, cheb, pi1, observe,
+                              want_scores)
+    out2, part2 = dbethe_pair(*args, **kw)
+    at2 = out2[cl.atom_slot]
+    pforce = torch.stack([at2[:, 3], at2[:, 6]], dim=-1)
+    pforce = torch.where(use_den[:, None], pforce + one_body, zero)
+    if want_scores:
+        mu_i = tp.mu[tp.formal[typ].long()].to(f32)
+        scores = at2[:, 4:6] / kT - torch.where(use_den[:, None], mu_i / kT,
+                                                zero)
+        scores = torch.where(is_ucg[:, None], scores, zero)
+        ucgp = common.softmax_posterior(scores, is_ucg)
+    else:
+        scores = torch.zeros((n, 2), dtype=f32, device=dev)
+        ucgp = None
+
+    # ---- pass 3: the CV back-force (K6) -----------------------------------
+    cvf = pforce[:, 0] * partial0 - pforce[:, 1] * partial0
+    cvf = torch.where(use_den, cvf, zero)
+    args, kw = hcv.cv_inputs(state, cl, *cv_args, cvf)
+    out3, part3 = hcv.cv_force(
+        *args, gform="mder" if params.backforce_derivative else "w",
+        observe=observe, **kw)
+    pe, virial, oob_low = totals(part2, part3, observe, dev)
+    return ForceOut(f=at2[:, 0:3] + out3[cl.atom_slot, 0:3],
+                    ucgforce=torch.zeros(n, dtype=f32, device=dev),
+                    scores=scores, pe=pe, virial=virial, oob_low=oob_low,
+                    oob_high=torch.zeros((), dtype=torch.int32, device=dev),
+                    ucgp=ucgp)
+
+
+def compute_style_density(state: SimState, cl: colpack.ColumnList,
+                          params: BetheDensityParams) -> ForceOut:
+    """Simulation pair entry: reads the ChebBank from ``params.cheb``."""
+    return compute_density(state, cl, params, params.cheb)
+
+
+def compute_style_density_fast(state: SimState, cl: colpack.ColumnList,
+                               params: BetheDensityParams) -> ForceOut:
+    """Interior-step variant: no energy/virial/oob (observe=False)."""
+    return compute_density(state, cl, params, params.cheb, observe=False)
+
+
+def compute_style_density_fast_noscores(state: SimState,
+                                        cl: colpack.ColumnList,
+                                        params: BetheDensityParams
+                                        ) -> ForceOut:
+    """Interior-step variant without scores (ucgp None) — selected by the
+    ``Simulation`` only when no ``fix ucgstate`` reads them."""
+    return compute_density(state, cl, params, params.cheb, observe=False,
+                           want_scores=False)
+
+
+compute_style_density.fast_variant = compute_style_density_fast
+compute_style_density.fast_variant_noscores = (
+    compute_style_density_fast_noscores)

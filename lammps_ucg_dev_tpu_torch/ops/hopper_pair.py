@@ -109,14 +109,19 @@ def kernel_rows(cheb: ChebBank, tp, observe: bool, want_scores: bool,
     return out
 
 
+def u_map(cheb: ChebBank, dtype=torch.float32):
+    """(uscale, uoff) with u = rsq·uscale + uoff ∈ [-1, 1] over the fit
+    domain."""
+    span = (cheb.hi - cheb.lo).to(dtype)
+    return (2.0 / span).to(dtype), (-(cheb.hi + cheb.lo) / span).to(dtype)
+
+
 def kernel_scalars(box, params: UCGLDParams, cheb: ChebBank,
                    dtype=torch.float32) -> torch.Tensor:
-    """scal = [Lx Ly cutsq innersq uscale uoff 0 0], with the u map
-    u = rsq·uscale + uoff ∈ [-1, 1] over the fit domain."""
+    """scal = [Lx Ly cutsq innersq uscale uoff 0 0] (the u map of
+    :func:`u_map`)."""
     L = box.lengths.to(dtype)
-    span = (cheb.hi - cheb.lo).to(dtype)
-    uscale = (2.0 / span).to(dtype)
-    uoff = (-(cheb.hi + cheb.lo) / span).to(dtype)
+    uscale, uoff = u_map(cheb, dtype)
     zero = torch.zeros((), dtype=dtype, device=L.device)
     return torch.stack([L[0], L[1], params.tp.cutsq[1, 1].to(dtype),
                         params.bank.innersq[0].to(dtype), uscale, uoff,

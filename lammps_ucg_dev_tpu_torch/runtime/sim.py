@@ -95,7 +95,12 @@ class Simulation:
     # ---- one force evaluation + post-force fixes -------------------------
 
     def _is_ucg(self, state: SimState) -> torch.Tensor:
-        return self.pair_params.tp.n_states[state.typ] > 1
+        tp = getattr(self.pair_params, "tp", None)
+        if tp is None:
+            # styles without per-type UCG params (table_rleucg_interface)
+            return torch.ones(state.n_atoms, dtype=torch.bool,
+                              device=state.device)
+        return tp.n_states[state.typ] > 1
 
     def _uniforms(self, state: SimState) -> torch.Tensor:
         """(rng_n,) uniforms from the generator, indexed by tag - 1."""
@@ -132,6 +137,9 @@ class Simulation:
                     else None)
             state = fs.post_force(state, fout.scores, self._is_ucg(state),
                                   cfg.ucgstate, mc_u)
+        elif cfg.ucgstate is None and fout.ucgp is not None:
+            # a style's own in-pass posterior (table_ucg_bethe_density)
+            state = dataclasses.replace(state, ucgp=fout.ucgp)
         return state, dataclasses.replace(fout, ucgforce=ucgforce)
 
     def _step(self, state: SimState, fout_prev: ForceOut, nbr, run_window,
@@ -144,6 +152,10 @@ class Simulation:
                                      cfg.integrator)
         state, fout = self._forces(state, nbr, run_window, pair_fn,
                                    scores_valid)
+        if fout.ucgp is None and fout_prev.ucgp is not None:
+            # score-free interior step of an in-pass-posterior style: carry
+            # the posterior (the block's full step refreshes it)
+            fout = dataclasses.replace(fout, ucgp=fout_prev.ucgp)
         state = fi.final_integrate(state, fout.f, fout.ucgforce, mass, cfg.dt,
                                    cfg.u.ftm2v, cfg.integrator)
         return dataclasses.replace(state, step=state.step + 1), fout

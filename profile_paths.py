@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where one block of a main path spends its time on the GPU.
 
-    python3 profile_paths.py [--path bethe|ucgld]
+    python3 profile_paths.py [--path bethe|ucgld|density|rleucg]
 
-Builds the path's system at 2^20 beads (``flagship.build_bethe_sim`` or
-``flagship.build_sim``, reneighbour every 5 or 20 steps), runs setup and two
-warm blocks, times five blocks one by one on the host clock (each ending
+Builds the path's system at 2^20 beads (``flagship.build_bethe_sim``,
+``build_sim``, ``build_density_sim`` or ``build_rleucg_sim``; reneighbour
+every 5, 20, 10 and 10 steps), runs setup and two warm blocks, times five
+blocks one by one on the host clock (each ending
 in a synchronize), then traces one more with ``torch.profiler``.  Prints
 the card's name and power limit, the median ms per step with the fastest
 and slowest block, the device time per step and its share of the median
@@ -33,13 +34,16 @@ def main() -> int:
     from lammps_ucg_dev_tpu_torch import flagship
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("bethe", "ucgld"), default="bethe")
+    builders = {"bethe": flagship.build_bethe_sim,
+                "ucgld": lambda n: flagship.build_sim(n=n, reneigh_every=20),
+                "density": flagship.build_density_sim,
+                "rleucg": flagship.build_rleucg_sim}
+    ap.add_argument("--path", choices=tuple(builders), default="bethe")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: no CUDA device")
     n = 2**20
-    sim = (flagship.build_bethe_sim(n=n) if a.path == "bethe"
-           else flagship.build_sim(n=n, reneigh_every=20))
+    sim = builders[a.path](n=n)
     nre = sim.cfg.reneigh_every
     window = (0, 8 * nre)
     sim.setup(window)

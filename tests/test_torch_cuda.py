@@ -1,5 +1,5 @@
-"""K1 and K2 on the card: the hand-written CUDA kernels against their plain
-PyTorch twins on the same CUDA tensors.  Needs an NVIDIA GPU and nvcc; without them
+"""K1–K6 on the card: the hand-written CUDA kernels against their plain
+PyTorch twins on the same CUDA tensors, and the main paths through them.  Needs an NVIDIA GPU and nvcc; without them
 every test here skips.  The file imports nothing of JAX, so it also runs
 where JAX is absent (skip the JAX test configuration there):
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``.
@@ -23,7 +23,10 @@ from lammps_ucg_dev_tpu_torch.models.pair_ucgld import UCGLDParams
 from lammps_ucg_dev_tpu_torch.models.typemap import TablePairBuilder
 from lammps_ucg_dev_tpu_torch.ops import colpack
 from lammps_ucg_dev_tpu_torch.ops import hopper_bethe as hb
+from lammps_ucg_dev_tpu_torch.ops import hopper_cv as hcv
+from lammps_ucg_dev_tpu_torch.ops import hopper_density as hd
 from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+from lammps_ucg_dev_tpu_torch.ops import hopper_rleucg as hr
 from lammps_ucg_dev_tpu_torch.ops.kernel_select import select_pair_kernel
 
 pytestmark = pytest.mark.cuda
@@ -214,3 +217,187 @@ def test_bethe_main_path_runs_through_k2(device):
     assert row["oob_low"] == 0 and np.isfinite(row["etotal"])
     p = sim.state.ucgp
     assert bool(((p >= 1e-6) & (p <= 1 - 1e-6)).all())
+
+
+# ---- K3-K6: the density-CV styles ----------------------------------------
+
+DENSITY_VARIANTS = [(m, o, s) for m in ("bethe", "mf")
+                    for o, s in ((True, True), (False, True), (False, False))]
+CV_VARIANTS = [(g, o) for g in hcv.GFORMS for o in (True, False)]
+
+
+@pytest.fixture(scope="module")
+def density_systems(device):
+    """The config-4 (P3) and config-5 (P4) systems at 32,768 beads after
+    setup, each with a column list."""
+    out = {}
+    for name, build in (("p3", flagship.build_density_sim),
+                        ("p4", flagship.build_rleucg_sim)):
+        sim = build(n=32768, device=device)
+        sim.setup((0, 10))
+        out[name] = (sim, colpack.build(sim.state.x, sim.state.box,
+                                        sim.nbr_spec))
+    return out
+
+
+def assert_close(a, b, name):
+    scale = max(float(b.abs().max()), 1e-30)
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                               atol=TOL * scale, err_msg=name)
+
+
+def cv_args(sim, cl, weight):
+    p = sim.pair_params
+    cutsq = (p.tp.cutsq if isinstance(p, hd.BetheDensityParams)
+             else p.cutsq)[1, 1]
+    return hcv.cv_inputs(sim.state, cl, p.cv_rad, cutsq, p.bank.innersq[0],
+                         weight)
+
+
+@pytest.mark.parametrize("style", ["p3", "p4"])
+def test_k5_matches_twin(density_systems, style):
+    sim, cl = density_systems[style]
+    args, kw = cv_args(sim, cl, None)
+    before = hcv.cv_rho.launches["rho"]
+    out_k = hcv.cv_rho(*args, **kw)
+    assert hcv.cv_rho.launches["rho"] == before + 1
+    out_t = hcv.cv_rho_reference(*args, **kw)
+    assert_close(out_k[:, 0], out_t[:, 0], "rho")
+    assert torch.equal(out_k[:, 1], out_t[:, 1])
+    # plain types: the floored radius gives exactly zero density
+    plain = (args[3][:, 7] == (1 if style == "p3" else 3)) & (args[3][:, 5] > 0)
+    assert float(out_k[plain, 0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("gform,observe", CV_VARIANTS)
+@pytest.mark.parametrize("style", ["p3", "p4"])
+def test_k6_matches_twin(density_systems, style, gform, observe):
+    sim, cl = density_systems[style]
+    w = torch.randn(sim.state.n_atoms, generator=torch.Generator(
+        device=sim.state.device).manual_seed(3), device=sim.state.device)
+    args, kw = cv_args(sim, cl, w)
+    key = "full" if observe else "fast"
+    before = hcv.cv_force.launches[key]
+    out_k, part_k = hcv.cv_force(*args, gform=gform, observe=observe, **kw)
+    assert hcv.cv_force.launches[key] == before + 1
+    out_t, part_t = hcv.cv_force_reference(*args, gform=gform,
+                                           observe=observe, **kw)
+    torch.cuda.synchronize()
+    assert_close(out_k, out_t, "force")
+    if observe:
+        assert_close(part_k.sum(0), part_t.sum(0), "virial")
+
+
+@pytest.mark.parametrize("method,observe,scores", DENSITY_VARIANTS)
+def test_k3_matches_twin(density_systems, method, observe, scores):
+    sim, cl = density_systems["p3"]
+    params = dataclasses.replace(sim.pair_params, method=method)
+    pi1 = torch.rand(sim.state.n_atoms, device=sim.state.device)
+    pi1 = torch.where(sim.state.typ == 2, pi1, torch.zeros_like(pi1))
+    args, kw = hd.density_inputs(sim.state, cl, params, params.cheb, pi1,
+                                 observe, scores)
+    name = hd.variant(observe, scores)
+    before = hd.dbethe_pair.launches[name]
+    out_k, part_k = hd.dbethe_pair(*args, **kw)
+    assert hd.dbethe_pair.launches[name] == before + 1
+    out_t, part_t = hd.dbethe_pair_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for c in range(8):
+        assert_close(out_k[:, c], out_t[:, c], f"column {c}")
+    if observe:
+        assert_close(part_k.sum(0)[:7], part_t.sum(0)[:7], "pe/virial")
+        assert int(part_k[:, 7].sum()) == int(part_t[:, 7].sum())
+
+
+@pytest.mark.parametrize("feedback", [True, False])
+@pytest.mark.parametrize("observe", [True, False])
+def test_k4_matches_twin(density_systems, observe, feedback):
+    sim, cl = density_systems["p4"]
+    params = dataclasses.replace(
+        sim.pair_params, feedback="always" if feedback else "never")
+    a1 = torch.rand(sim.state.n_atoms, device=sim.state.device)
+    a1 = torch.where(sim.state.typ < 3, a1, torch.zeros_like(a1))
+    args, kw = hr.rleucg_inputs(sim.state, cl, params, params.cheb, a1,
+                                observe)
+    before = hr.rleucg_pair.launches[hr.variant(observe)]
+    out_k, part_k = hr.rleucg_pair(*args, **kw)
+    assert hr.rleucg_pair.launches[hr.variant(observe)] == before + 1
+    out_t, part_t = hr.rleucg_pair_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for c in range(4):
+        assert_close(out_k[:, c], out_t[:, c], f"column {c}")
+    assert float(out_k[:, 4:].abs().max()) == 0.0
+    if observe:
+        assert_close(part_k.sum(0)[:7], part_t.sum(0)[:7], "pe/virial")
+
+
+def test_density_kernels_reject_wrong_inputs(density_systems):
+    sim, cl = density_systems["p3"]
+    args, kw = cv_args(sim, cl, None)
+    bad = list(args)
+    bad[3] = args[3].double()
+    with pytest.raises(TypeError):
+        hcv.cv_rho(*bad, **kw)
+    bad = list(args)
+    bad[5] = args[5][:1]                           # one radius, per-type
+    with pytest.raises(ValueError):
+        hcv.cv_rho(*bad, **kw)
+    with pytest.raises(ValueError):
+        hcv.cv_force(*args, gform="x", observe=False, **kw)
+    with pytest.raises(ValueError):                # scal on the host
+        hcv.cv_rho(args[0].cpu(), *args[1:], **kw)
+    pi1 = torch.zeros(sim.state.n_atoms, device=sim.state.device)
+    args, kw = hd.density_inputs(sim.state, cl, sim.pair_params,
+                                 sim.pair_params.cheb, pi1, True, True)
+    with pytest.raises(ValueError):
+        hd.dbethe_pair(*args, **dict(kw, degree=40))
+    sim4, cl4 = density_systems["p4"]
+    args, kw = hr.rleucg_inputs(sim4.state, cl4, sim4.pair_params,
+                                sim4.pair_params.cheb, pi1, True)
+    with pytest.raises(ValueError):
+        hr.rleucg_pair(*args[:6], None, **kw)      # K4 needs the row table
+
+
+@pytest.mark.parametrize("style", ["p3", "p4"])
+def test_density_main_paths_run_through_kernels(device, style):
+    build = (flagship.build_density_sim if style == "p3"
+             else flagship.build_rleucg_sim)
+    sim = build(n=32768, device=device)
+    pair = hd.dbethe_pair if style == "p3" else hr.rleucg_pair
+    fast = "fast_noscores" if style == "p3" else "fast"
+    counters = (hcv.cv_rho, hcv.cv_force, pair)
+    before = [dict(c.launches) for c in counters]
+    sim.run_fused(2)
+    d = [{k: c.launches[k] - b[k] for k in b} for c, b in zip(counters,
+                                                               before)]
+    assert d[0]["rho"] == 21                       # setup + 2 blocks of 10
+    assert d[1]["full"] == d[2]["full"] == 3
+    assert d[1]["fast"] == d[2][fast] == 18
+    row = sim.thermo()
+    assert row["oob_low"] == 0 and np.isfinite(row["etotal"])
+    if style == "p3":
+        p, typ = sim.state.ucgp, sim.state.typ
+        assert bool(((p[typ == 2] >= 1e-6) & (p[typ == 2] <= 1 - 1e-6)).all())
+
+
+def test_k2_unchanged_by_the_style_template(device):
+    """K2 and K3 share one tally template: on a one-type system with the
+    same priors in both roles, K3's forces and pseudolikelihood scores are
+    K2's (the same arithmetic, instantiated twice)."""
+    sim = flagship.build_bethe_sim(n=32768, device=device)
+    sim.setup((0, 10))
+    state = dataclasses.replace(sim.state, ucgl=sim.state.ucgp)
+    cl = colpack.build(state.x, state.box, sim.nbr_spec)
+    params = sim.pair_params
+    args, kw = hb.kernel_inputs(state, cl, params, params.cheb, False)
+    out2, _ = hb.bethe_pair(*args, **kw)
+    dparams = hd.BetheDensityParams(bank=params.bank, tp=params.tp,
+                                    kT=params.kT, cheb=params.cheb)
+    args3, kw3 = hd.density_inputs(state, cl, dparams, params.cheb,
+                                   state.ucgp, False, True)
+    assert torch.equal(args3[3], args[3]) and torch.equal(args3[4], args[4])
+    out3, _ = hd.dbethe_pair(*args3, **kw3)
+    for c in (0, 1, 2, 4, 5):
+        assert_close(out3[:, c], out2[:, c], f"column {c}")
+    out_t, _ = hb.bethe_pair_reference(*args, **kw)
+    assert_close(out2, out_t, "K2 vs twin")

@@ -1,7 +1,7 @@
 """The port imports without JAX and builds nothing at import time: every
-module of the package (the Bethe path's included) is imported in a fresh
-interpreter, and every source is scanned for imports of ``jax`` or the JAX
-package."""
+module of the package (the Bethe and density-CV paths' included) is
+imported in a fresh interpreter, and every source is scanned for imports
+of ``jax`` or the JAX package."""
 
 import os
 import subprocess
@@ -30,7 +30,9 @@ print(" ".join(names))
 """
 
 NEW_MODULES = ("models.pair_bethe", "ops.hopper_bethe", "ops.kernel_select",
-               "fixes.ucgstate", "flagship", "convert")
+               "fixes.ucgstate", "flagship", "convert", "models.density",
+               "models.pair_bethe_density", "models.pair_rleucg",
+               "ops.hopper_cv", "ops.hopper_density", "ops.hopper_rleucg")
 
 
 def test_port_imports_without_jax_and_builds_nothing():
@@ -39,7 +41,7 @@ def test_port_imports_without_jax_and_builds_nothing():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     names = r.stdout.split()
-    assert len(names) >= 22
+    assert len(names) >= 28
     for mod in NEW_MODULES:
         assert f"lammps_ucg_dev_tpu_torch.{mod}" in names, mod
 

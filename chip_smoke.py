@@ -10,16 +10,24 @@ K2 ``csrc/bethe_pair.cu``), the config-4 density-CV system
 (``flagship.build_density_sim``, K5 → K3 → K6) and the config-5 RLE-UCG
 interface system (``flagship.build_rleucg_sim``, K5 → K4 → K6; K3 and K4
 are styles of ``csrc/bethe_pair.cu``, K5 and K6 ``csrc/density_cv.cu``),
-all at 2^20 beads through ``Simulation`` — after building the kernels with
-nvcc (one process per source, started together) into
-``lammps_ucg_dev_tpu_torch/_build/``.  Phases, each of which raises on
-failure:
+all at 2^20 beads through ``Simulation`` — and the two paths of the JAX
+package's remaining TPU kernels: the K1 ablation microbench
+(``tools/kbench.py`` of the port, kernel K7 ``csrc/ucgld_ablation.cu``)
+and the flagship fluid on cell-padded cluster lists
+(``flagship.build_cluster_sim``, kernel K8 ``csrc/ucgld_cluster.cu``),
+after building the kernels with nvcc (one process per source, started
+together) into ``lammps_ucg_dev_tpu_torch/_build/``.  Phases, each of
+which raises on failure:
 
 1. the card's name and power limit, torch and CUDA versions;
 2. the kernels' build;
 3. K1 against its plain PyTorch twin in all three variants on the same
    inputs, at 32,768 beads and at the main path's 2^20, with both times;
-   then the K1 path against the float64 reference pair path on 4,096;
+   K7 at its five levels against its twins, and level 4 against K1's
+   no-scores kernel, at 32,768 and 2^20; then the K1 path against the
+   float64 reference pair path on 4,096;
+3b. the K7 ablation table at 2^20 (``tools.kbench.run``), with K7's launch
+   counts set to 0 just before and read just after;
 4. the UCG-LD main path: setup, one warm block, five timed blocks of 20
    steps, with K1's launch counts set to 0 just before and read just after;
 5. the NVE energy drift by the JAX package's ``bench.run_drift`` protocol
@@ -38,7 +46,14 @@ failure:
    float32 on the same 4,096-bead inputs, at the JAX package's
    kernel-vs-XLA gates, with the gap to the float64 reference printed;
 11. the P3 and P4 main paths: setup, one warm block, ten timed blocks of 10
-   steps, with every launch count set to 0 just before and read just after.
+   steps, with every launch count set to 0 just before and read just after;
+12. K8 against its twin at 32,768 and 2^20 (columns, pe, virial and the
+   inner-cutoff count gated apart);
+13. the K8 path against the float64 reference pair path on 4,096, at K1's
+   Chebyshev gate;
+14. the cluster main path at 2^20: setup, one warm block, five timed blocks
+   of 20 steps, K8 on every step, with its launch count set to 0 just
+   before and read just after.
 
 The line before the last is a JSON object of the kernels on the main paths
 (times, errors, launches and the bound each kernel's work puts on its time);
@@ -52,16 +67,23 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+# the package beside this script; without it the script stops here
+from lammps_ucg_dev_tpu_torch.tools.timing import card, cuda_ms  # noqa: E402
+
 K1_SOURCE = "lammps_ucg_dev_tpu_torch/csrc/ucgld_pair.cu"
 K2_SOURCE = "lammps_ucg_dev_tpu_torch/csrc/bethe_pair.cu"
 CV_SOURCE = "lammps_ucg_dev_tpu_torch/csrc/density_cv.cu"
+K7_SOURCE = "lammps_ucg_dev_tpu_torch/csrc/ucgld_ablation.cu"
+K8_SOURCE = "lammps_ucg_dev_tpu_torch/csrc/ucgld_cluster.cu"
 REPLACES = "lammps_ucg_dev_tpu/ops/pallas_pair.py:719"
 CV_REPLACES = "lammps_ucg_dev_tpu/ops/pallas_pair.py:944"
+K7_REPLACES = "tools/kbench.py:41"
+K8_REPLACES = "attic/pallas_ucgld.py:77"
 TOL = 2e-5       # kernel vs twin: f32 sums taken in another order (see below)
 DRIFT_MAX = 1e-4
 PEAK_F32 = 67e12        # H100 SXM f32 outside the tensor cores, FLOP/s
@@ -70,29 +92,6 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call on the card (CUDA events)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 # ---- the least time the card needs for a kernel's work ---------------------
@@ -106,6 +105,24 @@ def kernel_ops(kernel: str, kw: dict, nrow: int) -> tuple[float, float]:
     the style's mixing and tallies as written in the kernel source."""
     if kernel == "cv_rho":
         return 10.0, 9.0           # sqrt, the tanh argument, tanh, 2 sums
+    if kernel == "cluster":
+        # a candidate: 3 subtractions, divides, rints and FMAs of the min
+        # image, rsq, the cutoff, slot-id and validity tests; a pair: the
+        # same function as K1 full on the same single-type fluid (forces,
+        # λ-force, scores, pe, virial, oob), counted as K1 full's is: one
+        # shared recurrence and one FMA per row and degree over the 8 rows,
+        # whatever summation the kernel is written with (it uses Clenshaw)
+        full = dict(observe=True, want_scores=True, degree=kw["degree"])
+        return 23.0, kernel_ops("ucgld", full, 8)[1]
+    if kernel == "abl":
+        level = kw["level"]
+        if level == 0:
+            return 2.0, 0.0        # the shift and the sum, no cutoff test
+        if level == 1:
+            return 10.0, 1.0       # the distance test; the rsq sum
+        nrow = 0 if level == 2 else 6
+        series = 2 + 2 * nrow + (kw["degree"] - 2) * (2 + 2 * nrow)
+        return 10.0, float(series + {2: 1, 3: 2, 4: 16}[level])
     if kernel == "cv_force":
         per = 20.0                 # sqrt, tanh, g, fcv, 3 force sums
         if kw["pertype"]:
@@ -145,6 +162,13 @@ def kernel_io(kernel: str, kw: dict, multi: bool):
     irows, jrows = {0, 1, 2, 5} | typ, {0, 1, 2} | ({5} if observe else set())
     if kernel == "cv_rho":
         return irows, {0, 1, 2}, 2, 0                 # [ρ n_real]
+    if kernel == "abl":
+        level = kw["level"]
+        if level == 0:                                # valid; x of each j
+            return {5}, {0}, 1, 0
+        if level < 4:
+            return irows, jrows, 1, 0
+        return irows | {3}, jrows | {3}, 4, 0         # f, λ-force
     if kernel == "cv_force":
         # [Fx Fy Fz], the virial (pe and oob are 0)
         return irows | {6}, jrows | {3} | typ, 3, 6 if observe else 0
@@ -162,6 +186,18 @@ def kernel_io(kernel: str, kw: dict, multi: bool):
                 5 + (2 if scores else 0), part)
     return (irows | {6}, jrows | {3} | typ,           # rleucg: f, pf0
             3 + (1 if kw["feedback"] else 0), part)
+
+
+def least_time(pairs: int, cand: int, ops: float, nbytes: int) -> dict:
+    """The larger of ``ops`` over the f32 peak and ``nbytes`` over the
+    memory rate, and which of the two it is."""
+    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    r = {"bound_ms": max(t_ops, t_bytes),
+         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+         "pairs": pairs, "candidates": cand, "ops": ops, "bytes": nbytes}
+    log(f"    bound {r['bound_ms']:.4f} ms by {r['bound_by']}: {pairs} pairs "
+        f"of {cand} candidates, {ops:.4e} operations, {nbytes} bytes")
+    return r
 
 
 def bound(kernel: str, args, kw, nrow: int) -> dict:
@@ -187,20 +223,35 @@ def bound(kernel: str, args, kw, nrow: int) -> dict:
     per_cand, per_pair = kernel_ops(kernel, kw, nrow)
     ops = cand * per_cand + pairs * per_pair
     multi = (kw["pertype"] if kernel.startswith("cv_")
-             else args[6] is not None)
+             else len(args) > 6 and args[6] is not None)
     irows, jrows, out_cols, part_cols = kernel_io(kernel, kw, multi)
     n_slots, ncol, _, czp = ipack.shape[0], *cols.shape
     nbytes = sum(a.numel() * a.element_size() for a in (args[1:3] + args[5:])
                  if isinstance(a, torch.Tensor)) + scal.numel() * 4
     nbytes += 4 * (n_slots * (len(irows) + out_cols + part_cols)
                    + ncol * czp * len(jrows))
-    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    r = {"bound_ms": max(t_ops, t_bytes),
-         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-         "pairs": pairs, "candidates": cand, "ops": ops, "bytes": nbytes}
-    log(f"    bound {r['bound_ms']:.4f} ms by {r['bound_by']}: {pairs} pairs "
-        f"of {cand} candidates, {ops:.4e} operations, {nbytes} bytes")
-    return r
+    return least_time(pairs, cand, ops, nbytes)
+
+
+def bound_cluster(args, kw) -> dict:
+    """:func:`bound` for K8: its candidates (every real i-slot against
+    every real slot of its cluster's list) and in-cutoff pairs (counted by
+    the twin's walk); the bytes of scal, the coefficient rows, ``jcl``, the
+    six attributes of ``apack`` it reads [x y z λ state valid], and its
+    six output and eight per-slot columns."""
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cluster as hc
+
+    scal, apack, jcl, coef = args
+    pairs = 0
+    for *_, mask in hc.cluster_pairs(scal, apack, jcl):
+        pairs += int(mask.sum())
+    cand = hc.candidates(apack, jcl)
+    per_cand, per_pair = kernel_ops("cluster", kw, 8)
+    ops = cand * per_cand + pairs * per_pair
+    n_slots = apack.shape[0]
+    nbytes = (scal.numel() * 4 + coef.numel() * 4 + jcl.numel() * 4
+              + 4 * n_slots * (6 + 6 + 8))
+    return least_time(pairs, cand, ops, nbytes)
 
 
 # ---- a kernel against its twin ---------------------------------------------
@@ -282,6 +333,68 @@ def compare_k1(sim, label: str, kernel_reps: int, twin_reps: int,
                          twin_reps)
         if with_bound:
             res[name].update(bound("ucgld", args, kw, args[5].shape[0]))
+    return res
+
+
+def compare_k7(sim, label: str, kernel_reps: int, twin_reps: int,
+               with_bound: bool = False) -> dict:
+    """K7 at every level against its twin on K1's no-scores inputs of
+    ``sim``, and level 4 against K1's no-scores kernel on the same inputs
+    (the same arithmetic: within TOL of each column's scale)."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch.ops import hopper_ablation as ha
+    from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+
+    state, cl = column_state(sim)
+    params, cheb = sim.pair_params, sim.pair_params.cheb
+    args, kw = ha.kernel_inputs(state, cl, params, cheb)
+    res = {}
+    for level in ha.LEVELS:
+        lkw = dict(kw, level=level)
+        res[level] = hold(label, f"K7 L{level}", ha.ucgld_ablation,
+                          ha.ablation_reference, args, lkw, kernel_reps,
+                          twin_reps)
+        if with_bound:
+            res[level].update(bound("abl", args, lkw, ha.NROW))
+    k1_args, k1_kw = hp.kernel_inputs(state, cl, params, cheb, False, False)
+    k1, _ = hp.ucgld_pair(*k1_args, **k1_kw)
+    l4 = ha.ucgld_ablation(*args, **kw, level=4)
+    torch.cuda.synchronize()
+    for c in range(4):
+        err = float((l4[:, c] - k1[:, c]).abs().max())
+        scale = float(k1[:, c].abs().max())
+        if err > TOL * scale:
+            raise RuntimeError(f"{label} K7 L4 column {c} differs from K1 "
+                               f"no-scores by {err:.3e} (scale {scale:.3e})")
+    log(f"[{label}] K7 L4 vs K1 noscores kernel: max|diff| "
+        f"{float((l4 - k1).abs().max()):.3e}")
+    return res
+
+
+def cluster_state(sim):
+    """``sim``'s state wrapped into the box and a fresh cluster list."""
+    from lammps_ucg_dev_tpu_torch.ops import clusters
+
+    state = sim.state
+    state = dataclasses.replace(state, x=state.box.wrap(state.x))
+    cl = clusters.build(state.x, state.box, sim.nbr_spec)
+    if bool(cl.overflow):
+        raise RuntimeError("cluster list overflow")
+    return state, cl
+
+
+def compare_k8(sim, label: str, kernel_reps: int, twin_reps: int,
+               with_bound: bool = False) -> dict:
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cluster as hc
+
+    state, cl = cluster_state(sim)
+    params = sim.pair_params
+    args, kw = hc.kernel_inputs(state, cl, params, params.cheb)
+    res = hold(label, "K8 full", hc.ucgld_cluster,
+               hc.ucgld_cluster_reference, args, kw, kernel_reps, twin_reps)
+    if with_bound:
+        res.update(bound_cluster(args, kw))
     return res
 
 
@@ -395,18 +508,21 @@ def compare_density(sim, label: str, kernel_reps: int, twin_reps: int,
 
 # ---- the kernel paths against the float64 reference paths ------------------
 
-def check_k1_oracle(device: str, n: int = 4096) -> None:
-    """One force evaluation of the K1 path (f32, on the card) against the
-    float64 reference pair path on the CPU, same system: agreement to the
-    Chebyshev fit gate (the fit's max relative error is < 1e-4)."""
+def check_k1_oracle(device: str, what: str, build, entry,
+                    n: int = 4096) -> None:
+    """One force evaluation of a flagship kernel path (``build``, a
+    ``flagship`` builder whose pair entry must be ``entry``: K1's or K8's)
+    in f32 on the card against the float64 reference pair path on the CPU,
+    same system: agreement to the Chebyshev fit gate (the fit's max
+    relative error is < 1e-4)."""
     import torch
 
     from lammps_ucg_dev_tpu_torch import flagship
-    from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
 
-    ker = flagship.build_sim(n=n, device=device)
-    if ker.pair_compute is not hp.compute_style:
-        raise RuntimeError("kernel path was not selected for the oracle check")
+    ker = build(n=n, device=device)
+    if ker.pair_compute is not entry:
+        raise RuntimeError(f"{what} path was not selected for the oracle "
+                           f"check")
     ref = flagship.build_sim(n=n, dtype=torch.float64, kernel=False,
                              device="cpu")
     for s in (ker, ref):       # no thermostat noise: the draws differ
@@ -417,10 +533,10 @@ def check_k1_oracle(device: str, n: int = 4096) -> None:
     f_err = float((f_k - f_r).abs().max()) / scale
     pe_err = abs(float(fk.pe) - float(fr.pe)) / abs(float(fr.pe))
     lam_err = float((fk.ucgforce.double().cpu() - fr.ucgforce).abs().max())
-    log(f"[K1 oracle n={n}] kernel path (f32) vs reference path (f64): "
+    log(f"[{what} oracle n={n}] kernel path (f32) vs reference path (f64): "
         f"f rel {f_err:.3e}, pe rel {pe_err:.3e}, ucgforce abs {lam_err:.3e}")
     if f_err > 3e-5 or pe_err > 1e-5 or lam_err > 1e-4:
-        raise RuntimeError("K1 path disagrees with the reference path")
+        raise RuntimeError(f"{what} path disagrees with the reference path")
 
 
 def check_k2_oracle(device: str, n: int = 4096) -> None:
@@ -517,8 +633,8 @@ def check_density_oracle(device: str, style: str, n: int = 4096) -> None:
                                    f"reference path: {bad}, oob {oob}")
 
 
-def run_density_main(device: str, style: str, card: str, blocks: int = 10,
-                     n: int = 2**20):
+def run_density_main(device: str, style: str, card_name: str,
+                     blocks: int = 10, n: int = 2**20):
     """One density main path at ``n``: setup, one warm block, ``blocks``
     timed blocks, every launch count set to 0 just before and read just
     after.  Returns ({wrapper: launches}, steps/s)."""
@@ -558,7 +674,7 @@ def run_density_main(device: str, style: str, card: str, blocks: int = 10,
     steps_s = blocks * nre / wall
     msg = (f"[{style} main n={n}] {blocks * nre} steps in {wall:.3f} s = "
            f"{steps_s:.2f} steps/s ({steps_s * n / 1e6:.2f} M "
-           f"atom-steps/s) on {card}; temp {row['temp']:.6f} etotal "
+           f"atom-steps/s) on {card_name}; temp {row['temp']:.6f} etotal "
            f"{row['etotal']:.6f} oob_low {row['oob_low']}; dangerous builds "
            f"{sim.dangerous_builds}; launches {launches}")
     nblk = blocks + 1
@@ -585,6 +701,55 @@ def run_density_main(device: str, style: str, card: str, blocks: int = 10,
     return launches, steps_s
 
 
+def run_cluster_main(device: str, card_name: str, blocks: int = 5,
+                     n: int = 2**20):
+    """The K8 cluster-list path at ``n``: setup, one warm block, ``blocks``
+    timed blocks, K8's launch count set to 0 just before and read just
+    after.  Returns (launches, steps/s)."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch import flagship
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cluster as hc
+
+    sim = flagship.build_cluster_sim(n=n, device=device)
+    spec, nre = sim.nbr_spec, sim.cfg.reneigh_every
+    window = (0, (blocks + 1) * nre)
+    for k in hc.ucgld_cluster.launches:
+        hc.ucgld_cluster.launches[k] = 0
+    t0 = time.perf_counter()
+    sim.setup(window)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    sim.run_fused(1, run_window=window)            # warm block
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run_fused(blocks, run_window=window)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(hc.ucgld_cluster.launches)
+    row = sim.thermo()
+    steps_s = blocks * nre / wall
+    nbr = sim._nbr
+    log(f"[cluster main n={n}] cells {spec.cells_per_side} capacity "
+        f"{spec.cell_capacity} kc {spec.kc}, {nbr.n_clusters} i-clusters, "
+        f"most j-clusters kept {int(nbr.max_occupancy)}; setup "
+        f"{t_setup:.3f} s; {blocks * nre} steps in {wall:.3f} s = "
+        f"{steps_s:.2f} steps/s ({steps_s * n / 1e6:.2f} M atom-steps/s) on "
+        f"{card_name}; temp {row['temp']:.6f} etotal {row['etotal']:.6f} oob_low "
+        f"{row['oob_low']}; dangerous builds {sim.dangerous_builds}; K8 "
+        f"launches {launches}")
+    if launches["full"] < (blocks + 1) * nre:
+        raise RuntimeError(f"cluster path did not run through K8 on every "
+                           f"step: {launches}")
+    if bool(nbr.overflow):
+        raise RuntimeError("cluster list overflow")
+    if not finite_row(row):
+        raise RuntimeError(f"non-finite thermo: {row}")
+    if row["oob_low"] != 0:
+        raise RuntimeError(f"pairs below the table inner cutoff: {row}")
+    return launches, steps_s
+
+
 def finite_row(row: dict) -> bool:
     return all(v == v and abs(v) != float("inf")
                for v in row.values() if isinstance(v, float))
@@ -595,7 +760,6 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
     from lammps_ucg_dev_tpu_torch import flagship
     from lammps_ucg_dev_tpu_torch.ops import cuda_lib
     from lammps_ucg_dev_tpu_torch.ops import hopper_bethe as hb
@@ -607,14 +771,15 @@ def main() -> int:
     t_all = time.perf_counter()
 
     # ---- 1. the card -----------------------------------------------------
-    card = card_line()
-    log(card)
+    card_name = card()
+    log(card_name)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     # ---- 2. build the kernels (one nvcc per source, together) ----------
     t0 = time.perf_counter()
-    libs = cuda_lib.build(["ucgld_pair", "bethe_pair", "density_cv"])
+    libs = cuda_lib.build(["ucgld_pair", "bethe_pair", "density_cv",
+                           "ucgld_cluster", "ucgld_ablation"])
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for name, nl in libs.items():
         log(f"  {name}: nvcc {nl.build_seconds:.1f} s -> {nl.path.name}")
@@ -625,13 +790,29 @@ def main() -> int:
     # ---- 3. K1 vs its twin, and the K1 path vs the oracle ---------------
     small = flagship.build_sim(n=32768, device=device, reneigh_every=20)
     compare_k1(small, "n=32768", kernel_reps=40, twin_reps=3)
+    compare_k7(small, "n=32768", kernel_reps=40, twin_reps=3)
     del small
     sim = flagship.build_sim(n=2**20, device=device, reneigh_every=20)
     if sim.pair_compute is not hp.compute_style:
         raise RuntimeError("select_pair_kernel did not choose K1 at 2^20")
     k1 = compare_k1(sim, "n=2^20", kernel_reps=20, twin_reps=1,
                     with_bound=True)
-    check_k1_oracle(device)
+    k7 = compare_k7(sim, "n=2^20", kernel_reps=20, twin_reps=1,
+                    with_bound=True)
+    check_k1_oracle(device, "K1", flagship.build_sim, hp.compute_style)
+
+    # ---- 3b. the K7 ablation table (the microbench path) -----------------
+    from lammps_ucg_dev_tpu_torch.ops import hopper_ablation as ha
+    from lammps_ucg_dev_tpu_torch.tools import kbench
+
+    for k in ha.ucgld_ablation.launches:
+        ha.ucgld_ablation.launches[k] = 0
+    table = kbench.run(sim, reps=20)
+    k7_launches = dict(ha.ucgld_ablation.launches)
+    for r in table:
+        log(f"[kbench n=2^20] {json.dumps(r)}")
+    if any(k7_launches[f"L{lv}"] < 20 for lv in ha.LEVELS):
+        raise RuntimeError(f"the microbench did not run K7: {k7_launches}")
 
     # ---- 4. the UCG-LD main path ------------------------------------------
     blocks, nre = 5, sim.cfg.reneigh_every
@@ -650,7 +831,7 @@ def main() -> int:
     steps_s = blocks * nre / wall
     log(f"[UCG-LD main n=2^20] {blocks * nre} steps in {wall:.3f} s = "
         f"{steps_s:.2f} steps/s ({steps_s * 2**20 / 1e6:.2f} M atom-steps/s) "
-        f"on {card}; temp {row['temp']:.6f} etotal {row['etotal']:.6f} "
+        f"on {card_name}; temp {row['temp']:.6f} etotal {row['etotal']:.6f} "
         f"oob_low {row['oob_low']}; dangerous builds {sim.dangerous_builds}; "
         f"K1 launches {k1_launches}")
     nblk = blocks + 1
@@ -735,7 +916,7 @@ def main() -> int:
     steps_s = blocks * nre / wall
     log(f"[Bethe main n=2^20] {blocks * nre} steps in {wall:.3f} s = "
         f"{steps_s:.2f} steps/s ({steps_s * 2**20 / 1e6:.2f} M atom-steps/s) "
-        f"on {card}; temp {row['temp']:.6f} etotal {row['etotal']:.6f} "
+        f"on {card_name}; temp {row['temp']:.6f} etotal {row['etotal']:.6f} "
         f"oob_low {row['oob_low']}; ucgp in [{p_lo:.6f}, {p_hi:.6f}]; "
         f"dangerous builds {sim.dangerous_builds}; K2 launches {k2_launches}")
     nblk = blocks + 1
@@ -770,8 +951,26 @@ def main() -> int:
         check_density_oracle(device, style)
 
     # ---- 11. the P3 and P4 main paths -------------------------------------
-    main = {style: run_density_main(device, style, card)
+    main = {style: run_density_main(device, style, card_name)
             for style in ("P3", "P4")}
+
+    # ---- 12. K8 vs its twin ---------------------------------------------
+    small = flagship.build_cluster_sim(n=32768, device=device)
+    compare_k8(small, "n=32768", kernel_reps=20, twin_reps=1)
+    del small
+    sim = flagship.build_cluster_sim(n=2**20, device=device)
+    k8 = compare_k8(sim, "n=2^20", kernel_reps=10, twin_reps=1,
+                    with_bound=True)
+    del sim
+
+    # ---- 13. the K8 path vs the oracle ----------------------------------
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cluster as hc
+
+    check_k1_oracle(device, "K8", flagship.build_cluster_sim,
+                    hc.compute_style_cluster)
+
+    # ---- 14. the cluster main path --------------------------------------
+    k8_launches, _ = run_cluster_main(device, card_name)
 
     log(f"K1 fast variant (not on the UCG-LD main path under ucgstate ld): "
         f"{json.dumps(k1['fast'], default=float)}")
@@ -802,7 +1001,12 @@ def main() -> int:
                         CV_REPLACES)]
                + [entry(f"cv_force[{v}]", CV_SOURCE, l3["cv_force"][v]
                         + l4["cv_force"][v], dens["P3"][f"cv_force[{v}]"],
-                        CV_REPLACES) for v in ("full", "fast")])
+                        CV_REPLACES) for v in ("full", "fast")]
+               + [entry("ucgld_cluster[full]", K8_SOURCE,
+                        k8_launches["full"], k8, K8_REPLACES)]
+               + [entry(f"ucgld_ablation[L{lv}]", K7_SOURCE,
+                        k7_launches[f"L{lv}"], k7[lv], K7_REPLACES)
+                  for lv in ha.LEVELS])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

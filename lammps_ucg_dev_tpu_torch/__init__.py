@@ -14,8 +14,10 @@ Layout idiom:
   * the pair hot paths run hand-written Hopper kernels, built with ``nvcc``
     at their first launch: ``csrc/ucgld_pair.cu`` for ``table_ucgld``
     (``ops/hopper_pair.py``) and ``csrc/bethe_pair.cu`` for
-    ``table_ucg_bethe`` (``ops/hopper_bethe.py``), both on the shared span
-    walk of ``csrc/colspan.cuh``; on CPU tensors each wrapper runs its plain
+    ``table_ucg_bethe`` (``ops/hopper_bethe.py``) and the density-CV styles,
+    all on the shared span walk of ``csrc/colspan.cuh``, and
+    ``csrc/ucgld_cluster.cu`` for ``table_ucgld`` on cluster lists
+    (``ops/hopper_cluster.py``); on CPU tensors each wrapper runs its plain
     PyTorch twin.
 
 Importing the package builds nothing and touches no GPU.

@@ -1,12 +1,14 @@
 """Carry parameters and state across from the JAX package.
 
 The JAX package's ``UCGLDParams`` / ``TableBank`` / ``UCGTypeParams`` /
-``ChebBank``, ``BetheParams``, ``BetheDensityParams``, ``RLEUCGParams`` and
-``SimState`` are dataclasses of arrays.  ``as_numpy_dict`` turns any such
+``ChebBank``, ``BetheParams``, ``BetheDensityParams``, ``RLEUCGParams``,
+``SimState`` and the cluster lists' ``ClusterList`` are dataclasses of
+arrays.  ``as_numpy_dict`` turns any such
 object into nested dicts of numpy arrays and Python scalars (it reads
 fields only and needs no JAX import); the ``*_from_numpy`` functions build
 this package's counterparts from those dicts, so both packages can compute
-on identical inputs.
+on identical inputs.  They build on the CUDA device unless given
+``device="cpu"``, and raise without CUDA.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from lammps_ucg_dev_tpu_torch.core.state import Box, SimState
+from lammps_ucg_dev_tpu_torch.core.state import Box, SimState, resolve_device
 from lammps_ucg_dev_tpu_torch.models.pair_bethe import BetheParams
 from lammps_ucg_dev_tpu_torch.models.pair_bethe_density import (
     BetheDensityParams)
@@ -24,6 +26,7 @@ from lammps_ucg_dev_tpu_torch.models.pair_rleucg import RLEUCGParams
 from lammps_ucg_dev_tpu_torch.models.pair_ucgld import UCGLDParams
 from lammps_ucg_dev_tpu_torch.models.typemap import UCGTypeParams
 from lammps_ucg_dev_tpu_torch.ops.chebtab import ChebBank
+from lammps_ucg_dev_tpu_torch.ops.clusters import ClusterList
 from lammps_ucg_dev_tpu_torch.ops.table import LINEAR, TableBank
 
 
@@ -45,7 +48,8 @@ def _float_dtype(a) -> torch.dtype:
     return torch.float64 if np.asarray(a).dtype == np.float64 else torch.float32
 
 
-def bank_from_numpy(d: dict, device="cpu") -> TableBank:
+def bank_from_numpy(d: dict, device="cuda") -> TableBank:
+    device = resolve_device(device)
     if d["style"] != LINEAR:
         raise NotImplementedError(f"table style {d['style']!r} is not ported")
     dt = _float_dtype(d["e"])
@@ -56,7 +60,8 @@ def bank_from_numpy(d: dict, device="cpu") -> TableBank:
         uniform=bool(d["uniform"]))
 
 
-def typeparams_from_numpy(d: dict, device="cpu") -> UCGTypeParams:
+def typeparams_from_numpy(d: dict, device="cuda") -> UCGTypeParams:
+    device = resolve_device(device)
     dt = _float_dtype(d["cutsq"])
     return UCGTypeParams(
         n_states=_t(d["n_states"], torch.int32, device),
@@ -70,7 +75,8 @@ def typeparams_from_numpy(d: dict, device="cpu") -> UCGTypeParams:
         threshold_radius=_t(d["threshold_radius"], dt, device))
 
 
-def cheb_from_numpy(d: dict, device="cpu") -> ChebBank:
+def cheb_from_numpy(d: dict, device="cuda") -> ChebBank:
+    device = resolve_device(device)
     dt = _float_dtype(d["coeffs"])
     return ChebBank(**{k: _t(d[k], dt, device)
                        for k in ("coeffs", "lo", "hi", "max_abs_err",
@@ -78,8 +84,9 @@ def cheb_from_numpy(d: dict, device="cpu") -> ChebBank:
                     degree=int(d["degree"]))
 
 
-def params_from_numpy(d: dict, device="cpu") -> UCGLDParams:
+def params_from_numpy(d: dict, device="cuda") -> UCGLDParams:
     """``d`` = as_numpy_dict(JAX UCGLDParams)."""
+    device = resolve_device(device)
     bank = bank_from_numpy(d["bank"], device)
     return UCGLDParams(
         bank=bank, tp=typeparams_from_numpy(d["tp"], device),
@@ -88,8 +95,9 @@ def params_from_numpy(d: dict, device="cpu") -> UCGLDParams:
               else None))
 
 
-def bethe_params_from_numpy(d: dict, device="cpu") -> BetheParams:
+def bethe_params_from_numpy(d: dict, device="cuda") -> BetheParams:
     """``d`` = as_numpy_dict(JAX BetheParams)."""
+    device = resolve_device(device)
     bank = bank_from_numpy(d["bank"], device)
     dt = bank.e.dtype
     return BetheParams(
@@ -111,8 +119,9 @@ def _cheb(d: dict, device):
 
 
 def bethe_density_params_from_numpy(d: dict,
-                                    device="cpu") -> BetheDensityParams:
+                                    device="cuda") -> BetheDensityParams:
     """``d`` = as_numpy_dict(JAX BetheDensityParams)."""
+    device = resolve_device(device)
     bank = bank_from_numpy(d["bank"], device)
     return BetheDensityParams(
         bank=bank, tp=typeparams_from_numpy(d["tp"], device),
@@ -122,8 +131,9 @@ def bethe_density_params_from_numpy(d: dict,
         cheb=_cheb(d, device))
 
 
-def rleucg_params_from_numpy(d: dict, device="cpu") -> RLEUCGParams:
+def rleucg_params_from_numpy(d: dict, device="cuda") -> RLEUCGParams:
     """``d`` = as_numpy_dict(JAX RLEUCGParams)."""
+    device = resolve_device(device)
     bank = bank_from_numpy(d["bank"], device)
     dt = bank.e.dtype
     i32 = torch.int32
@@ -142,9 +152,10 @@ def rleucg_params_from_numpy(d: dict, device="cpu") -> RLEUCGParams:
         chunk=int(d.get("chunk", 0)), cheb=_cheb(d, device))
 
 
-def state_from_numpy(d: dict, device="cpu") -> SimState:
+def state_from_numpy(d: dict, device="cuda") -> SimState:
     """``d`` = as_numpy_dict(JAX SimState) of a global (unsharded) state;
     orthogonal boxes only."""
+    device = resolve_device(device)
     box = d["box"]
     if box.get("tilt") is not None:
         raise NotImplementedError("triclinic boxes are not ported yet")
@@ -163,3 +174,16 @@ def state_from_numpy(d: dict, device="cpu") -> SimState:
         ucgml=_t(d["ucgml"], dt, device), ucgp=_t(d["ucgp"], dt, device),
         box=Box(lo=_t(box["lo"], dt, device), hi=_t(box["hi"], dt, device),
                 periodic=tuple(bool(p) for p in box["periodic"])))
+
+
+def cluster_list_from_numpy(d: dict, device="cuda") -> ClusterList:
+    """``d`` = as_numpy_dict(JAX ClusterList, ``attic/clusters.py``)."""
+    device = resolve_device(device)
+    i64 = torch.int64
+    return ClusterList(
+        jcl=_t(d["jcl"], torch.int32, device),
+        atom_slot=_t(d["atom_slot"], i64, device),
+        slot_atom=_t(d["slot_atom"], i64, device),
+        x0=_t(d["x0"], _float_dtype(d["x0"]), device),
+        overflow=_t(d["overflow"], torch.bool, device),
+        max_occupancy=_t(d["max_occupancy"], i64, device), kc=int(d["kc"]))

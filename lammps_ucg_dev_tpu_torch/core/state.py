@@ -24,6 +24,16 @@ import numpy as np
 import torch
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without CUDA raises (the
+    port's builders and converters default to the card)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build on "
+                           "the CPU")
+    return dev
+
+
 @dataclasses.dataclass(frozen=True)
 class Box:
     """Orthogonal periodic simulation box."""

@@ -9,6 +9,10 @@ built from the same arrays.
   of ``_build_sim``, in the same order (``default_rng(11)``: x, then v,
   ucgl, ucgstate and ucgvl), so both packages start from the identical
   state.
+* :func:`build_cluster_sim` — the same fluid on the cluster-list path
+  (kernel K8, ``csrc/ucgld_cluster.cu``): the JAX package's round-1
+  cluster lists (``attic/clusters.py``) and its cluster-list kernel
+  (``attic/pallas_ucgld.py``), full on every step.
 * :func:`build_bethe_sim` — the self-consistent Bethe fluid, the config-3
   system of ``examples/make_deck.py:write_bethe_deck`` at its published
   settings: ``pair_style table_ucg_bethe linear 1200 ... method bethe
@@ -42,7 +46,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from lammps_ucg_dev_tpu_torch.core.state import Box, SimState, System
+from lammps_ucg_dev_tpu_torch.core.state import (Box, SimState, System,
+                                                resolve_device)
 from lammps_ucg_dev_tpu_torch.fixes import integrate as fi
 from lammps_ucg_dev_tpu_torch.fixes import langevin as fl
 from lammps_ucg_dev_tpu_torch.fixes import ucgstate as fs
@@ -52,6 +57,7 @@ from lammps_ucg_dev_tpu_torch.models import (pair_bethe, pair_bethe_density,
                                              pair_rleucg, pair_ucgld)
 from lammps_ucg_dev_tpu_torch.models.typemap import (RLEUCGBuilder,
                                                      TablePairBuilder)
+from lammps_ucg_dev_tpu_torch.ops import chebtab, clusters, hopper_cluster
 from lammps_ucg_dev_tpu_torch.ops import neighbor as nb
 from lammps_ucg_dev_tpu_torch.ops.kernel_select import select_pair_kernel
 from lammps_ucg_dev_tpu_torch.runtime.sim import SimConfig, Simulation
@@ -67,14 +73,6 @@ DENSITY_SETTINGS = "2 3 2\n1 1\n2 2\n2 3 density entropy\n6.0 1.5\n0.0 0.2\n"
 RLEUCG_SETTINGS = "2 3\n2 density use_entropy\n5.0 1.5\n0.4\n1 density no_entropy\n"
 
 
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to build the "
-                           "system on the CPU")
-    return dev
-
-
 def soft_table(eps: float, n: int, rlo: float = 1e-3) -> RawTable:
     """Cosine-soft raw table: E = eps (1 + cos(pi r/rc)) on [rlo, rc]."""
     r = np.linspace(rlo, RC, n)
@@ -85,7 +83,8 @@ def soft_table(eps: float, n: int, rlo: float = 1e-3) -> RawTable:
 
 def _pair_path(params, state, n, L, skin, kernel, reference_fn):
     """(pair_fn, spec, params): the kernel path when ``select_pair_kernel``
-    takes it, else the reference path on an nsq list."""
+    takes it, else the reference path on an nsq or cell list (the JAX
+    package's choice: cell for n > 512 with >= 3 cells a side)."""
     sel = select_pair_kernel(params, state, RC, skin, force=kernel)
     if sel is not None:
         return sel
@@ -95,14 +94,8 @@ def _pair_path(params, state, n, L, skin, kernel, reference_fn):
     return reference_fn, nb.make_spec(n, [L] * 3, RC, skin), params
 
 
-def build_sim(n: int = 256, dtype=torch.float32, device="cuda",
-              reneigh_every: int = 5, kernel: bool | None = None,
-              rho: float = 0.6, skin: float = 0.4) -> Simulation:
-    """``kernel``: run the pair step through K1 (ops/hopper_pair.py) —
-    None = auto (CUDA device, f32, eligible geometry), True = force the
-    selection (on CPU tensors the wrapper then runs the kernel's twin),
-    False = the reference pair path on an nsq neighbor list."""
-    device = _device(device)
+def _flagship(n: int, dtype, device, rho: float):
+    """(L, state, params) of the flagship fluid from ``default_rng(11)``."""
     rng = np.random.default_rng(11)
     L = (n / rho) ** (1 / 3)
     x = rng.uniform(0, L, (n, 3))
@@ -120,9 +113,10 @@ def build_sim(n: int = 256, dtype=torch.float32, device="cuda",
         dtype=dtype, device=device)
     params = pair_ucgld.UCGLDParams(
         bank=bank, tp=tp, kT=torch.tensor(0.8, dtype=dtype, device=device))
+    return L, state, params
 
-    pair_fn, spec, params = _pair_path(params, state, n, L, skin, kernel,
-                                       pair_ucgld.compute)
+
+def _flagship_sim(n, state, pair_fn, params, spec, reneigh_every):
     system = System(n_atoms=n, ntypes=1, masses=np.array([0.0, 1.0]))
     cfg = SimConfig(
         dt=0.004, units="lj",
@@ -131,6 +125,49 @@ def build_sim(n: int = 256, dtype=torch.float32, device="cuda",
         langevin=fl.LangevinCfg(t_start=0.8, t_stop=0.8, t_period=0.5),
         ucgstate=fs.UCGStateCfg(mode="ld"), reneigh_every=reneigh_every)
     return Simulation(system, state, pair_fn, params, spec, cfg)
+
+
+def build_sim(n: int = 256, dtype=torch.float32, device="cuda",
+              reneigh_every: int = 5, kernel: bool | None = None,
+              rho: float = 0.6, skin: float = 0.4) -> Simulation:
+    """``kernel``: run the pair step through K1 (ops/hopper_pair.py) —
+    None = auto (CUDA device, f32, eligible geometry), True = force the
+    selection (on CPU tensors the wrapper then runs the kernel's twin),
+    False = the reference pair path on an nsq or cell neighbor list."""
+    device = resolve_device(device)
+    L, state, params = _flagship(n, dtype, device, rho)
+    pair_fn, spec, params = _pair_path(params, state, n, L, skin, kernel,
+                                       pair_ucgld.compute)
+    return _flagship_sim(n, state, pair_fn, params, spec, reneigh_every)
+
+
+CLUSTER_CHUNK = 32768   # i-clusters per candidate block of a cluster build
+
+
+def build_cluster_sim(n: int = 512, dtype=torch.float32, device="cuda",
+                      reneigh_every: int = 20, rho: float = 0.6,
+                      skin: float = 0.4) -> Simulation:
+    """The flagship fluid of :func:`build_sim` (the same draws) on K8's
+    path: a cell-padded cluster list (ops/clusters.py) rebuilt every
+    ``reneigh_every`` steps and the cluster-list kernel
+    (ops/hopper_cluster.py), whose one variant is full, on every step.
+    On a CUDA device K8 launches; on the CPU its wrapper runs the kernel's
+    twin.  Raises (never falls back to K1 or the reference path) when K8
+    does not take the system: float64, a bank K8 does not support or the
+    Chebyshev fit misses 1e-4, or fewer than 3 cells on a side."""
+    device = resolve_device(device)
+    if dtype != torch.float32:
+        raise ValueError("K8 computes in float32")
+    L, state, params = _flagship(n, dtype, device, rho)
+    if not hopper_cluster.supports(params):
+        raise ValueError("K8 does not support this system")
+    cheb = chebtab.fit_bank(params.bank)
+    if float(cheb.max_rel_err.max()) >= 1e-4:
+        raise ValueError("the Chebyshev fit misses K8's 1e-4 gate")
+    spec = clusters.make_spec(n, [L] * 3, RC, skin, chunk=CLUSTER_CHUNK)
+    params = dataclasses.replace(params, cheb=cheb)
+    return _flagship_sim(n, state, hopper_cluster.compute_style_cluster,
+                         params, spec, reneigh_every)
 
 
 def bethe_arrays(n: int, seed: int = 11) -> dict:
@@ -209,7 +246,7 @@ def build_bethe_sim(n: int = 512, dtype=torch.float32, device="cuda",
     """The config-3 self-consistent Bethe fluid (``method bethe pseudo yes
     prior chemical_potential``, skin 0.4).  ``kernel`` as in
     :func:`build_sim`, selecting K2 (ops/hopper_bethe.py)."""
-    device = _device(device)
+    device = resolve_device(device)
     a = bethe_arrays(n)
     L = a["L"]
     st = parse_state_settings(TWO_STATE_SETTINGS, "bethe")
@@ -244,7 +281,7 @@ def build_density_sim(n: int = 512, dtype=torch.float32, device="cuda",
     """The config-4 density-CV system (P3) without ``fix cluster_switch``.
     ``kernel`` as in :func:`build_sim`, selecting K5, K3 and K6
     (ops/hopper_density.py)."""
-    device = _device(device)
+    device = resolve_device(device)
     a = density_arrays(n)
     st = parse_state_settings(DENSITY_SETTINGS, "bethe_density")
     b = TablePairBuilder("linear", 1200, st)
@@ -270,7 +307,7 @@ def build_rleucg_sim(n: int = 512, dtype=torch.float32, device="cuda",
                      kernel: bool | None = None) -> Simulation:
     """The config-5 RLE-UCG interface system (P4).  ``kernel`` as in
     :func:`build_sim`, selecting K5, K4 and K6 (ops/hopper_rleucg.py)."""
-    device = _device(device)
+    device = resolve_device(device)
     a = rleucg_arrays(n)
     st = parse_state_settings(RLEUCG_SETTINGS, "rleucg")
     b = RLEUCGBuilder("linear", 1200, st)

@@ -131,15 +131,16 @@ def kernel_scalars(box, params: UCGLDParams, cheb: ChebBank,
 # ---- the plain PyTorch twin ------------------------------------------------
 
 def span_pairs(scal, z0, span_len, ipack, cols, *, mx: int, my: int,
-               observe: bool):
-    """The twins' walk over the column spans (shared by K1's and K2's
-    twins).  Each cluster's nine spans expand into a padded candidate
-    index; clusters go in chunks of at most ``TWIN_CHUNK_ELEMS`` (i-row,
+               observe: bool, every: bool = False):
+    """The twins' walk over the column spans (shared by the twins of K1–K7).
+    Each cluster's nine spans expand into a padded candidate index;
+    clusters go in chunks of at most ``TWIN_CHUNK_ELEMS`` (i-row,
     candidate) pairs so 2^20-atom systems fit.  Yields, per chunk,
     ``(rows_slice, irows, jattr, dx, dy, dz, rsq, mask)``: ``irows`` the
     (C, 8, 8) i-slot rows, ``jattr(a)`` the (C, 1, K) candidate attribute
     a, and ``mask`` the pairs with 0 < rsq < cutsq from a real i-slot (and,
-    with ``observe``, to a valid j-slot)."""
+    with ``observe``, to a valid j-slot); with ``every``, every candidate
+    of a real i-slot, with no distance test."""
     dev, dt = ipack.device, ipack.dtype
     ncol, cpc, _ = z0.shape
     czp = cols.shape[2]
@@ -184,8 +185,9 @@ def span_pairs(scal, z0, span_len, ipack, cols, *, mx: int, my: int,
         dy = irows[:, :, 1:2] - yj
         dz = irows[:, :, 2:3] - jattr(2)
         rsq = dx * dx + dy * dy + dz * dz
-        mask = (live[:, None, :] & (rsq < cutsq) & (rsq > 0.0)
-                & (irows[:, :, 5:6] > 0.5))
+        mask = live[:, None, :] & (irows[:, :, 5:6] > 0.5)
+        if not every:
+            mask = mask & (rsq < cutsq) & (rsq > 0.0)
         if observe:
             mask = mask & (jattr(5) > 0.5)
         yield slice(c0 * 8, c1 * 8), irows, jattr, dx, dy, dz, rsq, mask

@@ -34,7 +34,7 @@ from lammps_ucg_dev_tpu_torch.core.state import ForceOut, SimState, System
 from lammps_ucg_dev_tpu_torch.fixes import integrate as fi
 from lammps_ucg_dev_tpu_torch.fixes import langevin as fl
 from lammps_ucg_dev_tpu_torch.fixes import ucgstate as fs
-from lammps_ucg_dev_tpu_torch.ops import colpack
+from lammps_ucg_dev_tpu_torch.ops import clusters, colpack
 from lammps_ucg_dev_tpu_torch.ops import neighbor as nbrmod
 
 
@@ -63,8 +63,9 @@ class Simulation:
     """Assembles state + pair style + fixes into a stepper.
 
     ``pair_compute(state, nbr, params) -> ForceOut`` is the pair-style
-    entry; ``nbr_spec`` is a NeighborSpec (reference pair path) or a
-    colpack.ColumnSpec (kernel path).  ``seed`` seeds the generator that
+    entry; ``nbr_spec`` is a NeighborSpec (reference pair path, nsq or
+    cell), a colpack.ColumnSpec (the column kernels) or a
+    clusters.ClusterSpec (K8's cluster list).  ``seed`` seeds the generator that
     draws the Langevin noise, the ``ucgstate mc`` uniforms and the noisy
     Bethe priors."""
 
@@ -76,7 +77,6 @@ class Simulation:
         self.pair_compute = pair_compute
         self.pair_params = pair_params
         self.nbr_spec = nbr_spec
-        self._is_column = isinstance(nbr_spec, colpack.ColumnSpec)
         self.cfg = cfg
         self.generator = torch.Generator(device=state.device)
         self.generator.manual_seed(seed)
@@ -197,9 +197,11 @@ class Simulation:
         return state, fout, nbr, danger
 
     def _nbr_build(self, state: SimState):
-        if self._is_column:
+        if isinstance(self.nbr_spec, colpack.ColumnSpec):
             return colpack.build(state.x, state.box, self.nbr_spec)
-        return nbrmod.build_nsq(state.x, state.box, self.nbr_spec)
+        if isinstance(self.nbr_spec, clusters.ClusterSpec):
+            return clusters.build(state.x, state.box, self.nbr_spec)
+        return nbrmod.build(state.x, state.box, self.nbr_spec)
 
     def _check_block(self, nbr, danger):
         if bool(nbr.overflow):

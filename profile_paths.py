@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where one block of a main path spends its time on the GPU.
 
-    python3 profile_paths.py [--path bethe|ucgld|density|rleucg]
+    python3 profile_paths.py [--path bethe|ucgld|density|rleucg|cluster]
 
 Builds the path's system at 2^20 beads (``flagship.build_bethe_sim``,
-``build_sim``, ``build_density_sim`` or ``build_rleucg_sim``; reneighbour
-every 5, 20, 10 and 10 steps), runs setup and two warm blocks, times five
+``build_sim``, ``build_density_sim``, ``build_rleucg_sim`` or
+``build_cluster_sim``; reneighbour every 5, 20, 10, 10 and 20 steps), runs setup and two warm blocks, times five
 blocks one by one on the host clock (each ending
 in a synchronize), then traces one more with ``torch.profiler``.  Prints
 the card's name and power limit, the median ms per step with the fastest
@@ -24,7 +24,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from chip_smoke import card_line  # noqa: E402
+from lammps_ucg_dev_tpu_torch.tools.timing import card  # noqa: E402
 
 
 def main() -> int:
@@ -37,7 +37,8 @@ def main() -> int:
     builders = {"bethe": flagship.build_bethe_sim,
                 "ucgld": lambda n: flagship.build_sim(n=n, reneigh_every=20),
                 "density": flagship.build_density_sim,
-                "rleucg": flagship.build_rleucg_sim}
+                "rleucg": flagship.build_rleucg_sim,
+                "cluster": flagship.build_cluster_sim}
     ap.add_argument("--path", choices=tuple(builders), default="bethe")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -67,7 +68,7 @@ def main() -> int:
     # them carry the same time and are left out)
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(card_line())
+    print(card())
     busy_step = busy_ms / nre
     print(f"[{a.path} n={n}] {ms_step:.3f} ms/step untraced, median of 5 "
           f"blocks ({block_ms[0]:.3f}-{block_ms[-1]:.3f}; "

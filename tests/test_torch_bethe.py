@@ -69,8 +69,8 @@ def system(kind, dtype, method="bethe", pseudo=True, seed=7):
         box=JBox.create([0, 0, 0], [L] * 3, dtype=dtype), dtype=dtype)
     jp = jpb.make_params(bank, tp, KT, method=method, pseudo=pseudo,
                          dtype=dtype)
-    ts = convert.state_from_numpy(convert.as_numpy_dict(js))
-    tp_ = convert.bethe_params_from_numpy(convert.as_numpy_dict(jp))
+    ts = convert.state_from_numpy(convert.as_numpy_dict(js), device="cpu")
+    tp_ = convert.bethe_params_from_numpy(convert.as_numpy_dict(jp), device="cpu")
     return js, jp, ts, tp_, rc, L
 
 
@@ -224,8 +224,8 @@ def test_k2_twin_at_f32_clamp_boundary():
     js32, jp32, _ = jax_side(jnp.float32)
     spec = jnb.make_spec(n, [L] * 3, rc, 0.4, method="nsq")
     jout = jpb.compute(js64, jnb.build_nsq(js64.x, js64.box, spec), jp64)
-    ts = convert.state_from_numpy(convert.as_numpy_dict(js32))
-    tp = convert.bethe_params_from_numpy(convert.as_numpy_dict(jp32))
+    ts = convert.state_from_numpy(convert.as_numpy_dict(js32), device="cpu")
+    tp = convert.bethe_params_from_numpy(convert.as_numpy_dict(jp32), device="cpu")
     tp, cl = twin_path(ts, tp, rc)
     tout = hb.compute_bethe(ts, cl, tp, tp.cheb)
     assert bool(torch.isfinite(tout.f).all())
@@ -251,7 +251,7 @@ def test_k2_wrapper_and_selection_gates():
     assert hb.supports_bethe(tp)
     assert not hb.supports_bethe(convert.params_from_numpy(
         convert.as_numpy_dict(jpu.UCGLDParams(bank=jp.bank, tp=jp.tp,
-                                              kT=jp.kT))))
+                                              kT=jp.kT)), device="cpu"))
     assert hb.ucg_mask(tp.tp) == 0b10
     assert select_pair_kernel(tp, ts, rc, 0.4) is None          # no CUDA
     assert select_pair_kernel(tp, ts, rc, 0.4, force=False) is None
@@ -279,7 +279,7 @@ def test_ucgstate_mc_matches_jax(rng, compat):
         ucgp=rng.uniform(0, 1, n), tag=rng.permutation(n) + 1,
         box=JBox.create([0, 0, 0], [5.0] * 3, dtype=jnp.float64),
         dtype=jnp.float64)
-    ts = convert.state_from_numpy(convert.as_numpy_dict(js))
+    ts = convert.state_from_numpy(convert.as_numpy_dict(js), device="cpu")
     scores = rng.normal(0, 2.0, (n, 2))
     is_ucg = rng.integers(0, 2, n).astype(bool)
     key = jax.random.PRNGKey(3)

@@ -53,7 +53,7 @@ def states(rng, n=96, L=7.0):
         ucgml=rng.uniform(1.0, 5.0, n), ucgp=rng.uniform(0, 1, n),
         box=JBox.create([0, 0, 0], [L, L, L], dtype=jnp.float64),
         dtype=jnp.float64)
-    return js, convert.state_from_numpy(convert.as_numpy_dict(js))
+    return js, convert.state_from_numpy(convert.as_numpy_dict(js), device="cpu")
 
 
 def test_units_tables_equal():
@@ -165,7 +165,7 @@ def test_langevin_post_force_with_injected_noise(rng, grouped):
     js, ts = states(rng)
     perm = rng.permutation(js.n_atoms)              # tags out of row order
     js = js.permute(jnp.asarray(perm))
-    ts = convert.state_from_numpy(convert.as_numpy_dict(js))
+    ts = convert.state_from_numpy(convert.as_numpy_dict(js), device="cpu")
     group = (rng.integers(0, 2, js.n_atoms).astype(bool) if grouped
              else None)
     jcfg = jfl.LangevinCfg(t_start=0.8, t_stop=1.2, t_period=0.5, group=group)
@@ -261,7 +261,7 @@ def test_convert_params_match_port_build():
 
     jp = jpu.UCGLDParams(bank=jbank, tp=jtp, kT=jnp.asarray(0.8),
                          cheb=jcheb.fit_bank(jbank, dtype=jnp.float64))
-    tp = convert.params_from_numpy(convert.as_numpy_dict(jp))
+    tp = convert.params_from_numpy(convert.as_numpy_dict(jp), device="cpu")
     for name in ("e", "f", "de", "df", "innersq", "invdelta"):
         np.testing.assert_array_equal(_np(getattr(tp.bank, name)),
                                       _np(getattr(tbank, name)))

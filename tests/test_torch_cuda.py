@@ -1,4 +1,4 @@
-"""K1–K6 on the card: the hand-written CUDA kernels against their plain
+"""K1–K8 on the card: the hand-written CUDA kernels against their plain
 PyTorch twins on the same CUDA tensors, and the main paths through them.  Needs an NVIDIA GPU and nvcc; without them
 every test here skips.  The file imports nothing of JAX, so it also runs
 where JAX is absent (skip the JAX test configuration there):
@@ -401,3 +401,94 @@ def test_k2_unchanged_by_the_style_template(device):
         assert_close(out3[:, c], out2[:, c], f"column {c}")
     out_t, _ = hb.bethe_pair_reference(*args, **kw)
     assert_close(out2, out_t, "K2 vs twin")
+
+
+# ---- K7 (ablation microbench) and K8 (cluster lists) ---------------------
+
+@pytest.fixture(scope="module")
+def k7_inputs(device):
+    from lammps_ucg_dev_tpu_torch.ops import hopper_ablation as ha
+
+    sim = flagship.build_sim(n=32768, device=device)
+    cl = colpack.build(sim.state.x, sim.state.box, sim.nbr_spec)
+    args, kw = ha.kernel_inputs(sim.state, cl, sim.pair_params,
+                                sim.pair_params.cheb)
+    return sim, cl, args, kw
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3, 4])
+def test_k7_matches_twin(k7_inputs, level):
+    from lammps_ucg_dev_tpu_torch.ops import hopper_ablation as ha
+
+    _, _, args, kw = k7_inputs
+    before = ha.ucgld_ablation.launches[f"L{level}"]
+    out_k = ha.ucgld_ablation(*args, **kw, level=level)
+    assert ha.ucgld_ablation.launches[f"L{level}"] == before + 1
+    out_t = ha.ablation_reference(*args, **kw, level=level)
+    torch.cuda.synchronize()
+    for c in range(8):
+        a, b = out_k[:, c].cpu().numpy(), out_t[:, c].cpu().numpy()
+        scale = max(float(np.abs(b).max()), 1e-30)
+        np.testing.assert_allclose(a, b, rtol=0, atol=TOL * scale,
+                                   err_msg=f"column {c}")
+
+
+def test_k7_level4_is_k1_noscores(k7_inputs):
+    from lammps_ucg_dev_tpu_torch.ops import hopper_ablation as ha
+
+    sim, cl, args, kw = k7_inputs
+    k1_args, k1_kw = hp.kernel_inputs(sim.state, cl, sim.pair_params,
+                                      sim.pair_params.cheb, False, False)
+    k1, _ = hp.ucgld_pair(*k1_args, **k1_kw)
+    l4 = ha.ucgld_ablation(*args, **kw, level=4)
+    scale = float(k1.abs().max())
+    np.testing.assert_allclose(l4.cpu().numpy(), k1.cpu().numpy(), rtol=0,
+                               atol=TOL * scale)
+
+
+def test_k8_matches_twin(device):
+    from lammps_ucg_dev_tpu_torch.ops import clusters
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cluster as hc
+
+    sim = flagship.build_cluster_sim(n=32768, device=device)
+    state, params = sim.state, sim.pair_params
+    cl = clusters.build(state.x, state.box, sim.nbr_spec)
+    assert not bool(cl.overflow)
+    args, kw = hc.kernel_inputs(state, cl, params, params.cheb)
+    before = hc.ucgld_cluster.launches["full"]
+    out_k, part_k = hc.ucgld_cluster(*args, **kw)
+    assert hc.ucgld_cluster.launches["full"] == before + 1
+    out_t, part_t = hc.ucgld_cluster_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for c in range(8):
+        a, b = out_k[:, c].cpu().numpy(), out_t[:, c].cpu().numpy()
+        scale = max(float(np.abs(b).max()), 1e-30)
+        np.testing.assert_allclose(a, b, rtol=0, atol=TOL * scale,
+                                   err_msg=f"column {c}")
+    tk, tt = part_k.double().sum(0).cpu(), part_t.double().sum(0).cpu()
+    np.testing.assert_allclose(float(tk[0]), float(tt[0]), rtol=TOL)
+    vs = float(tt[1:7].abs().max())
+    np.testing.assert_allclose(tk[1:7].numpy(), tt[1:7].numpy(), rtol=0,
+                               atol=TOL * vs)
+    assert float(tk[7]) == float(tt[7])
+    bad = list(args)
+    bad[1] = args[1].double()                       # apack in f64
+    with pytest.raises(TypeError):
+        hc.ucgld_cluster(*bad, **kw)
+
+
+def test_cluster_path_runs_through_k8_and_refuses_unsupported(device):
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cluster as hc
+
+    sim = flagship.build_cluster_sim(n=32768, device=device,
+                                     reneigh_every=10)
+    before = hc.ucgld_cluster.launches["full"]
+    sim.run_fused(2)
+    assert hc.ucgld_cluster.launches["full"] >= before + 21
+    row = sim.thermo()
+    assert row["oob_low"] == 0 and np.isfinite(row["etotal"])
+    with pytest.raises(ValueError):                 # float64
+        flagship.build_cluster_sim(n=32768, device=device,
+                                   dtype=torch.float64)
+    with pytest.raises(ValueError):                 # 2 cells a side
+        flagship.build_cluster_sim(n=128, device=device)

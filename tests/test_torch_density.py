@@ -95,18 +95,18 @@ def system(style, dtype, settings=flagship.DENSITY_SETTINGS, seed=7, **kw):
         a = flagship.density_arrays(N)
         bank, tp = jax_p3_bank(settings, dtype)
         jp = jpd.make_params(bank, tp, KT, dtype=dtype, **kw)
-        tp_ = convert.bethe_density_params_from_numpy(convert.as_numpy_dict(jp))
+        tp_ = convert.bethe_density_params_from_numpy(convert.as_numpy_dict(jp), device="cpu")
     else:
         a = flagship.rleucg_arrays(N)
         st, b = jax_p4_builder()
         jp = jpr.make_params(b, st, KT, dtype=dtype, **kw)
-        tp_ = convert.rleucg_params_from_numpy(convert.as_numpy_dict(jp))
+        tp_ = convert.rleucg_params_from_numpy(convert.as_numpy_dict(jp), device="cpu")
     L = a["L"]
     js = JSimState.create(
         x=a["x"], typ=a["typ"], ucgl=rng.uniform(0.2, 0.8, N),
         ucgstate=rng.integers(0, 2, N),
         box=JBox.create([0, 0, 0], [L] * 3, dtype=dtype), dtype=dtype)
-    ts = convert.state_from_numpy(convert.as_numpy_dict(js))
+    ts = convert.state_from_numpy(convert.as_numpy_dict(js), device="cpu")
     return js, jp, ts, tp_, L
 
 

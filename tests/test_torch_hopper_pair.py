@@ -54,11 +54,11 @@ def system(rng, kind="two_state", dtype=jnp.float32):
 
 def port(js, jp, rc, cheb=None):
     """The same system in the port (f32), with its own column list."""
-    ts = convert.state_from_numpy(convert.as_numpy_dict(js))
-    tp = convert.params_from_numpy(convert.as_numpy_dict(jp))
+    ts = convert.state_from_numpy(convert.as_numpy_dict(js), device="cpu")
+    tp = convert.params_from_numpy(convert.as_numpy_dict(jp), device="cpu")
     if cheb is not None:
         tp = type(tp)(bank=tp.bank, tp=tp.tp, kT=tp.kT,
-                      cheb=convert.cheb_from_numpy(convert.as_numpy_dict(cheb)))
+                      cheb=convert.cheb_from_numpy(convert.as_numpy_dict(cheb), device="cpu"))
     spec = tcp.measure_spec(ts.x.numpy(), [L] * 3, rc, 0.4)
     cl = tcp.build(ts.x, ts.box, spec)
     assert not bool(cl.overflow)
@@ -129,12 +129,12 @@ def test_twin_multitype_matches_xla_reference(rng):
     jspec = jnb.make_spec(N, [L] * 3, rc, 0.4, method="nsq")
     jout = jax.jit(lambda s, p: jpu.compute(
         s, jnb.build_nsq(s.x, s.box, jspec), p))(js, jp)
-    ts = as_f32(convert.state_from_numpy(convert.as_numpy_dict(js)))
+    ts = as_f32(convert.state_from_numpy(convert.as_numpy_dict(js), device="cpu"))
     assert set(ts.typ.tolist()) == {1, 2}
     _, bank32, tp32, _ = helpers.build_mixed(dtype=jnp.float32)
     tp = convert.params_from_numpy(convert.as_numpy_dict(
         jpu.UCGLDParams(bank=bank32, tp=tp32, kT=jnp.asarray(0.8,
-                                                             jnp.float32))))
+                                                             jnp.float32))), device="cpu")
     sel = select_pair_kernel(tp, ts, rc, 0.4, force=True)
     assert sel is not None and sel[0] is hp.compute_style
     _, spec, tp = sel
@@ -215,8 +215,8 @@ def test_dform_rows_follow_the_jax_transform():
     taken in float64 on the f32 fit and rounded once to f32."""
     _, bank, tp, _ = helpers.build_two_state(dtype=jnp.float32)
     cheb = jcheb.fit_bank(bank)
-    tcheb = convert.cheb_from_numpy(convert.as_numpy_dict(cheb))
-    ttp = convert.typeparams_from_numpy(convert.as_numpy_dict(tp))
+    tcheb = convert.cheb_from_numpy(convert.as_numpy_dict(cheb), device="cpu")
+    ttp = convert.typeparams_from_numpy(convert.as_numpy_dict(tp), device="cpu")
     ce = np.asarray(cheb.coeffs, np.float64)
     i00, i01, i10, i11 = np.asarray(tp.tab4)[1, 1].reshape(-1)
     T = ce.shape[0] // 2

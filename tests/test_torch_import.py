@@ -32,7 +32,9 @@ print(" ".join(names))
 NEW_MODULES = ("models.pair_bethe", "ops.hopper_bethe", "ops.kernel_select",
                "fixes.ucgstate", "flagship", "convert", "models.density",
                "models.pair_bethe_density", "models.pair_rleucg",
-               "ops.hopper_cv", "ops.hopper_density", "ops.hopper_rleucg")
+               "ops.hopper_cv", "ops.hopper_density", "ops.hopper_rleucg",
+               "ops.clusters", "ops.hopper_cluster", "ops.hopper_ablation",
+               "tools.kbench", "tools.timing")
 
 
 def test_port_imports_without_jax_and_builds_nothing():
@@ -41,17 +43,21 @@ def test_port_imports_without_jax_and_builds_nothing():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     names = r.stdout.split()
-    assert len(names) >= 28
+    assert len(names) >= 33
     for mod in NEW_MODULES:
         assert f"lammps_ucg_dev_tpu_torch.{mod}" in names, mod
 
 
 def test_port_sources_never_name_jax():
+    """Nor the JAX package, its ``tools/`` or its ``attic/``; the smoke
+    script is held to the same rule."""
     pkg = ROOT / "lammps_ucg_dev_tpu_torch"
-    for path in pkg.rglob("*.py"):
+    for path in [*pkg.rglob("*.py"), ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
             assert not (s.startswith(("import jax", "from jax"))
                         or "import lammps_ucg_dev_tpu." in s
-                        or s.startswith("from lammps_ucg_dev_tpu.")), \
+                        or s.startswith("from lammps_ucg_dev_tpu.")
+                        or s.startswith(("import tools", "from tools",
+                                         "import attic", "from attic"))), \
                 f"{path}: {line}"

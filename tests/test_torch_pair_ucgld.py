@@ -43,8 +43,8 @@ def systems(rng, kind):
         box=JBox.create([0, 0, 0], [L] * 3, dtype=jnp.float64),
         dtype=jnp.float64)
     jp = jpu.UCGLDParams(bank=bank, tp=tp, kT=jnp.asarray(0.8))
-    ts = convert.state_from_numpy(convert.as_numpy_dict(js))
-    tp_ = convert.params_from_numpy(convert.as_numpy_dict(jp))
+    ts = convert.state_from_numpy(convert.as_numpy_dict(js), device="cpu")
+    tp_ = convert.params_from_numpy(convert.as_numpy_dict(jp), device="cpu")
     jspec = jnb.make_spec(N, [L] * 3, rc, 0.4, method="nsq")
     tspec = tnb.make_spec(N, [L] * 3, rc, 0.4)
     assert tspec.capacity == jspec.capacity
@@ -70,8 +70,8 @@ def test_nsq_chunked_rows_and_overflow(two_state):
     tiny = tnb.build_nsq(ts.x, ts.box, tnb.NeighborSpec(
         cutoff=tspec.cutoff, skin=tspec.skin, capacity=8))
     assert bool(tiny.overflow) and tiny.idx.shape == (N, 8)
-    with pytest.raises(NotImplementedError):
-        tnb.make_spec(N, [L] * 3, 2.5, 0.4, method="cell")
+    with pytest.raises(ValueError):          # fewer than 3 cells a side
+        tnb.make_spec(N, [7.0] * 3, 2.5, 0.4, method="cell")
 
 
 @pytest.mark.parametrize("chunk", [0, 128])

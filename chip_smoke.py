@@ -39,9 +39,10 @@ which raises on failure:
 8. the Bethe main path: setup, one warm block, twenty timed blocks of 5
    steps, with K2's launch counts set to 0 just before and read just after;
 9. K5, K3 and K6 against their twins on the inputs the P3 path gives them
-   (K3 full, fast and fast without scores; K6 full and fast with the path's
-   g-form, and with the two others off the path) at 32,768 and 2^20; K5,
-   K4 (full and fast, both feedback modes) and K6 likewise on P4;
+   (K3 full, fast and fast without scores with the path's method, and
+   with mf off the path; K6 full and fast with the path's g-form, and with
+   the two others off the path) at 32,768 and 2^20; K5, K4 (full and
+   fast, both feedback modes) and K6 likewise on P4;
 10. the K3 path and the K4 path against the port's reference pair path in
    float32 on the same 4,096-bead inputs, at the JAX package's
    kernel-vs-XLA gates, with the gap to the float64 reference printed;
@@ -96,13 +97,33 @@ def log(msg: str) -> None:
 
 # ---- the least time the card needs for a kernel's work ---------------------
 
+def rows_needed(kernel: str, kw: dict, multi: bool) -> int:
+    """The D-form rows [eA eB eC eD fA fB fC fD] a pair kernel variant's
+    outputs read, whatever rows the kernel evaluates: the four f rows for
+    the forces; K1 eB, eD for the λ-force and all 8 with scores or pe; K2
+    all 8 (its scores); K3 eB, eD for pf1 and, with several actual types,
+    eA for a plain partner's pf0 (7), all 8 with scores or pe; K4 eB, eD
+    with feedback, all 8 with pe."""
+    observe = kw.get("observe", False)
+    if kernel == "ucgld":
+        return 8 if observe or kw["want_scores"] else 6
+    if kernel == "bethe":
+        return 8
+    if kernel == "dbethe":
+        return 8 if observe or kw["want_scores"] else (7 if multi else 6)
+    if kernel == "rleucg":
+        return 8 if observe else (6 if kw["feedback"] else 4)
+    raise ValueError(f"no coefficient rows for {kernel}")
+
+
 def kernel_ops(kernel: str, kw: dict, nrow: int) -> tuple[float, float]:
     """(operations per candidate, operations per in-cutoff pair) of one
     kernel variant: each add, multiply, divide, compare-select, exp, log,
     tanh or sqrt one operation, an FMA two.  A candidate costs its distance
-    test (10); a pair of the table kernels the u map (2), the Chebyshev rows
-    (2 per row to start, then 2 + 2 per row for each further degree), and
-    the style's mixing and tallies as written in the kernel source."""
+    test (10); a pair of the table kernels the u map (2), the Chebyshev
+    series of the ``nrow`` rows its outputs need (:func:`rows_needed`; 2 per
+    row to start, then 2 + 2 per row for each further degree), and the
+    style's mixing and tallies as written in the kernel source."""
     if kernel == "cv_rho":
         return 10.0, 9.0           # sqrt, the tanh argument, tanh, 2 sums
     if kernel == "cluster":
@@ -113,14 +134,15 @@ def kernel_ops(kernel: str, kw: dict, nrow: int) -> tuple[float, float]:
         # shared recurrence and one FMA per row and degree over the 8 rows,
         # whatever summation the kernel is written with (it uses Clenshaw)
         full = dict(observe=True, want_scores=True, degree=kw["degree"])
-        return 23.0, kernel_ops("ucgld", full, 8)[1]
+        return 23.0, kernel_ops("ucgld", full, rows_needed("ucgld", full,
+                                                           False))[1]
     if kernel == "abl":
         level = kw["level"]
         if level == 0:
             return 2.0, 0.0        # the shift and the sum, no cutoff test
         if level == 1:
             return 10.0, 1.0       # the distance test; the rsq sum
-        nrow = 0 if level == 2 else 6
+        nrow = 0 if level == 2 else nrow
         series = 2 + 2 * nrow + (kw["degree"] - 2) * (2 + 2 * nrow)
         return 10.0, float(series + {2: 1, 3: 2, 4: 16}[level])
     if kernel == "cv_force":
@@ -154,9 +176,8 @@ def kernel_io(kernel: str, kw: dict, multi: bool):
     columns) that one kernel variant reads and defines.  Attributes index
     ipack's columns and cols' rows, [x y z a3 state valid a6 typ]; every
     kernel reads its i-slot's x y z and valid, and its candidates' x y z
-    (and valid when it observes).  ``multi``: the raw rows with the row
-    table (the pair kernels) or the per-type radius (K5/K6), which read
-    typ."""
+    (and valid when it observes).  ``multi``: the rows of each type pair
+    (the pair kernels) or the per-type radius (K5/K6), which read typ."""
     observe = kw.get("observe", False)
     typ = {7} if multi else set()
     irows, jrows = {0, 1, 2, 5} | typ, {0, 1, 2} | ({5} if observe else set())
@@ -200,11 +221,12 @@ def least_time(pairs: int, cand: int, ops: float, nbytes: int) -> dict:
     return r
 
 
-def bound(kernel: str, args, kw, nrow: int) -> dict:
+def bound(kernel: str, args, kw) -> dict:
     """Least time of one launch on these inputs: the larger of its
     operations (this data's candidates and in-cutoff pairs, counted by the
-    twins' span walk) over the f32 peak and its bytes over the memory
-    rate: every small input (scalars, spans, coefficient rows, row table,
+    twins' span walk; the pair kernels' series over the rows their outputs
+    need, :func:`rows_needed`) over the f32 peak and its bytes over the
+    memory rate: every small input (scalars, spans, coefficient rows,
     radii) read once, the i-slot and candidate attributes it reads
     (:func:`kernel_io`) read once, the output columns it defines written
     once."""
@@ -220,10 +242,13 @@ def bound(kernel: str, args, kw, nrow: int) -> dict:
         pairs += int(mask.sum())
     per_slot = span_len.sum(-1).reshape(-1).repeat_interleave(8)
     cand = int((per_slot * (ipack[:, 5] > 0.5)).sum())
+    multi = (kw["pertype"] if kernel.startswith("cv_")
+             else args[5].dim() == 4)
+    nrow = (rows_needed(kernel, kw, multi)
+            if kernel in ("ucgld", "bethe", "dbethe", "rleucg")
+            else args[5].shape[0])
     per_cand, per_pair = kernel_ops(kernel, kw, nrow)
     ops = cand * per_cand + pairs * per_pair
-    multi = (kw["pertype"] if kernel.startswith("cv_")
-             else len(args) > 6 and args[6] is not None)
     irows, jrows, out_cols, part_cols = kernel_io(kernel, kw, multi)
     n_slots, ncol, _, czp = ipack.shape[0], *cols.shape
     nbytes = sum(a.numel() * a.element_size() for a in (args[1:3] + args[5:])
@@ -332,7 +357,7 @@ def compare_k1(sim, label: str, kernel_reps: int, twin_reps: int,
                          hp.ucgld_pair_reference, args, kw, kernel_reps,
                          twin_reps)
         if with_bound:
-            res[name].update(bound("ucgld", args, kw, args[5].shape[0]))
+            res[name].update(bound("ucgld", args, kw))
     return res
 
 
@@ -356,7 +381,7 @@ def compare_k7(sim, label: str, kernel_reps: int, twin_reps: int,
                           ha.ablation_reference, args, lkw, kernel_reps,
                           twin_reps)
         if with_bound:
-            res[level].update(bound("abl", args, lkw, ha.NROW))
+            res[level].update(bound("abl", args, lkw))
     k1_args, k1_kw = hp.kernel_inputs(state, cl, params, cheb, False, False)
     k1, _ = hp.ucgld_pair(*k1_args, **k1_kw)
     l4 = ha.ucgld_ablation(*args, **kw, level=4)
@@ -413,7 +438,7 @@ def compare_k2(state, cl, params, label: str, variants, kernel_reps: int,
                          hb.bethe_pair_reference, args, kw, kernel_reps,
                          twin_reps)
         if with_bound:
-            res[name].update(bound("bethe", args, kw, args[5].shape[0]))
+            res[name].update(bound("bethe", args, kw))
     return res
 
 
@@ -467,11 +492,11 @@ def compare_density(sim, label: str, kernel_reps: int, twin_reps: int,
     res = {}
 
     def one(key, name, kernel, twin, args, kw, exact=(), kind=None,
-            nrow=0, on_path=True):
+            on_path=True):
         res[key] = hold(label, name, kernel, twin, args, kw, kernel_reps,
                         twin_reps, exact)
         if with_bound and on_path:
-            res[key].update(bound(kind, args, kw, nrow))
+            res[key].update(bound(kind, args, kw))
 
     args, kw = inp["cv_rho"]
     one("cv_rho", "K5 rho", hcv.cv_rho, hcv.cv_rho_reference, args, kw,
@@ -487,12 +512,16 @@ def compare_density(sim, label: str, kernel_reps: int, twin_reps: int,
                 on_path=g == on_path)
     if "dbethe_pair" in inp:
         args, kw = inp["dbethe_pair"]
-        for observe, scores in ((True, True), (False, True), (False, False)):
-            v = hd.variant(observe, scores)
-            one(f"dbethe_pair[{v}]", f"K3 {v}", hd.dbethe_pair,
-                hd.dbethe_pair_reference, args,
-                dict(kw, observe=observe, want_scores=scores),
-                kind="dbethe", nrow=args[5].shape[0])
+        for mf in (kw["mf"], not kw["mf"]):       # the path's method first
+            for observe, scores in ((True, True), (False, True),
+                                    (False, False)):
+                v = hd.variant(observe, scores)
+                key = f"dbethe_pair[{v}]" + ("" if mf == kw["mf"] else
+                                             f"/mf={mf}")
+                one(key, f"K3 {v} mf {mf}", hd.dbethe_pair,
+                    hd.dbethe_pair_reference, args,
+                    dict(kw, observe=observe, want_scores=scores, mf=mf),
+                    kind="dbethe", on_path=mf == kw["mf"])
     else:
         args, kw = inp["rleucg_pair"]
         for feedback in (True, False):
@@ -502,7 +531,7 @@ def compare_density(sim, label: str, kernel_reps: int, twin_reps: int,
                 one(key, f"K4 {v} feedback {feedback}", hr.rleucg_pair,
                     hr.rleucg_pair_reference, args,
                     dict(kw, observe=observe, feedback=feedback),
-                    kind="rleucg", nrow=args[5].shape[0])
+                    kind="rleucg")
     return res
 
 
@@ -750,6 +779,35 @@ def run_cluster_main(device: str, card_name: str, blocks: int = 5,
     return launches, steps_s
 
 
+def ptxas_summary(log_text: str) -> list[str]:
+    """One line per compiled kernel of nvcc's ``-Xptxas -v`` report: the
+    kernel with its template arguments, registers, shared memory and
+    spill bytes."""
+    import re
+
+    out, name, spill = [], None, ""
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)(I.*E)?E[vP]", m.group(1))
+            targs = re.findall(r"L[bi](\d+)E", k.group(2) or "") if k else []
+            name = (k.group(1) if k else m.group(1)) + (
+                f"<{','.join(targs)}>" if targs else "")
+            spill = ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spills {m.group(1)}/{m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {m.group(2) or 0} B "
+                       f"static smem, {spill}")
+            name = None
+    return out
+
+
 def finite_row(row: dict) -> bool:
     return all(v == v and abs(v) != float("inf")
                for v in row.values() if isinstance(v, float))
@@ -783,9 +841,8 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for name, nl in libs.items():
         log(f"  {name}: nvcc {nl.build_seconds:.1f} s -> {nl.path.name}")
-        for line in nl.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    ptxas: {line.strip()}")
+        for line in ptxas_summary(nl.log):
+            log(f"    ptxas: {line}")
 
     # ---- 3. K1 vs its twin, and the K1 path vs the oracle ---------------
     small = flagship.build_sim(n=32768, device=device, reneigh_every=20)
@@ -1014,27 +1071,33 @@ def main() -> int:
     return 0
 
 
-def mixed_bethe(device: str, n: int = 8192):
-    """A 2-type Bethe system (plain type 1 + 2-state type 2) at ρ 0.6 with
-    assigned priors: (state, params, spec) for K2's multi-type variants."""
-    import numpy as np
-    import torch
-
-    from lammps_ucg_dev_tpu_torch.core.state import Box, SimState
+def mixed_bank(device: str):
+    """(bank, tp) of a 2-type Bethe system: plain type 1 and 2-state type
+    2 (formal types 2, 3), 7 soft tables."""
     from lammps_ucg_dev_tpu_torch.flagship import soft_table
     from lammps_ucg_dev_tpu_torch.io.state_settings import parse_state_settings
-    from lammps_ucg_dev_tpu_torch.models import pair_bethe
     from lammps_ucg_dev_tpu_torch.models.typemap import TablePairBuilder
-    from lammps_ucg_dev_tpu_torch.ops.kernel_select import select_pair_kernel
 
-    rng = np.random.default_rng(5)
     st = parse_state_settings("2 3 2\n1 1\n2 2\n2 3\n0.0 0.4\n", "bethe")
     b = TablePairBuilder("linear", 1200, st)
     b.pair_coeff(1, 1, 1, 1, [(soft_table(1.0, 1500), 2.5)])
     b.pair_coeff(1, 2, 1, 2, [(soft_table(e, 1500), 2.5) for e in (0.8, 0.5)])
     b.pair_coeff(2, 2, 2, 2, [(soft_table(e, 1500), 2.5)
                               for e in (0.9, 0.55, 0.55, 0.3)])
-    bank, tp = b.build(device=device)
+    return b.build(device=device)
+
+
+def mixed_bethe(device: str, n: int = 8192):
+    """The :func:`mixed_bank` system at ρ 0.6 with assigned priors:
+    (state, params, spec) for K2's multi-type variants."""
+    import numpy as np
+
+    from lammps_ucg_dev_tpu_torch.core.state import Box, SimState
+    from lammps_ucg_dev_tpu_torch.models import pair_bethe
+    from lammps_ucg_dev_tpu_torch.ops.kernel_select import select_pair_kernel
+
+    rng = np.random.default_rng(5)
+    bank, tp = mixed_bank(device)
     L = (n / 0.6) ** (1 / 3)
     state = SimState.create(
         x=rng.uniform(0, L, (n, 3)), typ=rng.integers(1, 3, n),

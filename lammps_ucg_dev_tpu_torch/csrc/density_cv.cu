@@ -48,7 +48,7 @@ using colspan::PairArgs;
 enum GForm : int { kMder = 0, kPder = 1, kW = 2 };
 
 struct CvArgs {
-  PairArgs p;          // coef and cls unused; ntypes1 = entries of rad
+  PairArgs p;          // coef unused; ntypes1 = entries of rad
   const float* rad;    // (ntypes1,) proximity radius per type
 };
 
@@ -177,9 +177,8 @@ extern "C" int density_cv_launch(
       || (mode == 0 && observe) || (observe && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const CvArgs a{PairArgs{scal, span_z0, span_len, ipack, cols, nullptr,
-                          nullptr, out, part, n_slots, mx, my, cz, czp, 0, 0,
-                          nrad, 0},
+  const CvArgs a{PairArgs{scal, span_z0, span_len, ipack, cols, nullptr, out,
+                          part, n_slots, mx, my, cz, czp, 0, nrad, 0},
                  rad};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = colspan::grid_of(n_slots);

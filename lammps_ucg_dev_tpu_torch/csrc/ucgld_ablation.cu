@@ -152,8 +152,8 @@ extern "C" int ucgld_ablation_launch(
       || level < 0 || level > 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const PairArgs a{scal, span_z0, span_len, ipack, cols, coef, nullptr, out,
-                   nullptr, n_slots, mx, my, cz, czp, degree, 0, 0, 0};
+  const PairArgs a{scal, span_z0, span_len, ipack, cols, coef, out, nullptr,
+                   n_slots, mx, my, cz, czp, degree, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (level) {
     case 0: launch<0>(a, st); break;

@@ -6,7 +6,7 @@
 // is lammps_ucg_dev_tpu_torch/ops/hopper_pair.py:ucgld_pair_reference, which
 // takes the same arguments and returns the same outputs.  The span walk,
 // the Chebyshev series and the D-form channels live in colspan.cuh, shared
-// with K2 (bethe_pair.cu).
+// with K2–K4 (bethe_pair.cu).
 //
 // What it computes, for every real i-slot of the column list
 // (ops/colpack.py), over each candidate j with 0 < rsq < cutsq:
@@ -37,20 +37,18 @@ namespace {
 
 using colspan::kBlock;
 using colspan::kMaxDeg;
-using colspan::kMaxRows;
 using colspan::PairArgs;
 
 // The per-candidate physics of one i-slot and its tallies.  OBSERVE: also
-// tally pe/virial/oob.  SCORES: tally the two score channels.  MULTI: raw
-// channel rows + per-(ti, tj) row table `cls` (up to 3 actual types);
-// otherwise the host passes the D-form rows [eA eB eC eD fA fB fC fD] (or
+// tally pe/virial/oob.  SCORES: tally the two score channels.  MULTI: the
+// D-form rows [eA eB eC eD fA fB fC fD] of each ordered type pair (ti, tj)
+// (up to 3 actual types); otherwise the host passes those 8 rows (or
 // [eB eD fA fB fC fD] without scores).
 template <bool OBSERVE, bool SCORES, bool MULTI>
 struct UcgldTally {
-  static constexpr int NR = MULTI ? kMaxRows : ((OBSERVE || SCORES) ? 8 : 6);
+  static constexpr int NR = (MULTI || OBSERVE || SCORES) ? 8 : 6;
   const float* c;      // coefficient rows in shared memory
-  const int* cls;
-  int degree, czp, ntypes1, ntab, ti;
+  int degree, czp, ntypes1, ti;
   float li, uscale, uoff, innersq;
   float fx = 0.f, fy = 0.f, fz = 0.f, lamf = 0.f, s0 = 0.f, s1 = 0.f;
   colspan::Observed obs;
@@ -58,11 +56,11 @@ struct UcgldTally {
   __device__ __forceinline__ void operator()(const float* cj, int j, float dx,
                                              float dy, float dz, float rsq) {
     const float lj = cj[3 * czp + j];
-    float acc[NR];
-    colspan::series<NR>(c, degree, fmaxf(rsq * uscale + uoff, -1.f), acc);
     const int tj = MULTI ? static_cast<int>(cj[7 * czp + j]) : 0;
-    const colspan::Channels ch =
-        colspan::channels<MULTI, NR>(acc, cls, ti, tj, ntypes1, ntab);
+    float acc[NR];
+    colspan::series<NR>(colspan::pair_rows<MULTI>(c, degree, ntypes1, ti, tj),
+                        degree, fmaxf(rsq * uscale + uoff, -1.f), acc);
+    const colspan::Channels ch = colspan::channels<NR>(acc);
 
     const float wD = li * lj;
     const float fmix = ch.fA + li * ch.fB + lj * ch.fC + wD * ch.fD;
@@ -86,8 +84,9 @@ template <bool OBSERVE, bool SCORES, bool MULTI>
 __global__ void __launch_bounds__(kBlock)
 ucgld_pair_kernel(const __grid_constant__ PairArgs a) {
   using Tally = UcgldTally<OBSERVE, SCORES, MULTI>;
-  __shared__ float c[Tally::NR * kMaxDeg];
-  colspan::stage_coef(c, a.coef, Tally::NR * a.degree);
+  __shared__ float one[MULTI ? 1 : Tally::NR * kMaxDeg];
+  extern __shared__ float pairs[];
+  const float* c = colspan::stage_rows<MULTI>(one, pairs, a, Tally::NR);
 
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= a.n_slots) return;
@@ -97,11 +96,9 @@ ucgld_pair_kernel(const __grid_constant__ PairArgs a) {
   Tally tal;
   if (ib.y > 0.5f) {   // i-slot holds a real atom
     tal.c = c;
-    tal.cls = a.cls;
     tal.degree = a.degree;
     tal.czp = a.czp;
     tal.ntypes1 = a.ntypes1;
-    tal.ntab = a.ntab;
     tal.ti = static_cast<int>(ib.w);
     tal.li = ia.w;
     tal.innersq = a.scal[3];
@@ -117,27 +114,28 @@ ucgld_pair_kernel(const __grid_constant__ PairArgs a) {
 
 template <bool O, bool S, bool M>
 void launch(const PairArgs& a, cudaStream_t stream) {
-  ucgld_pair_kernel<O, S, M>
-      <<<colspan::grid_of(a.n_slots), kBlock, 0, stream>>>(a);
+  ucgld_pair_kernel<O, S, M><<<colspan::grid_of(a.n_slots), kBlock,
+                               colspan::dyn_bytes<M>(a), stream>>>(a);
 }
 
 }  // namespace
 
 // Returns 0 on success, else a cudaError_t code.  Variants: observe=1 with
 // scores=1 (full), observe=0 with scores=1 (fast), observe=0 with scores=0
-// (fast without scores).
+// (fast without scores); multi: several actual types, coef holds the
+// (ntypes1, ntypes1, 8, degree) rows, at most 4 x 4 pairs.
 extern "C" int ucgld_pair_launch(
     const float* scal, const int* span_z0, const int* span_len,
-    const float* ipack, const float* cols, const float* coef, const int* cls,
-    float* out, float* part, int n_slots, int mx, int my, int cz, int czp,
-    int degree, int ntab, int ntypes1, int observe, int scores, int multi,
-    void* stream) {
+    const float* ipack, const float* cols, const float* coef, float* out,
+    float* part, int n_slots, int mx, int my, int cz, int czp, int degree,
+    int ntypes1, int observe, int scores, int multi, void* stream) {
   if (degree < 2 || degree > kMaxDeg || (observe && !scores) || n_slots <= 0
-      || (cz & 7) != 0) {
+      || (cz & 7) != 0
+      || (multi && (ntypes1 < 2 || ntypes1 > colspan::kMaxTypes1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const PairArgs a{scal, span_z0, span_len, ipack, cols, coef, cls, out,
-                   part, n_slots, mx, my, cz, czp, degree, ntab, ntypes1, 0};
+  const PairArgs a{scal, span_z0, span_len, ipack, cols, coef, out, part,
+                   n_slots, mx, my, cz, czp, degree, multi ? ntypes1 : 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (multi) {
     if (observe) launch<true, true, true>(a, st);

@@ -17,8 +17,8 @@ its measured time can be split by level (the tool that times it is
 
 Self is excluded by rsq > 0, so L1–L4 are sums over pairs whatever the slot
 geometry.  The six rows are kbench's ``[eB eD fA fB fC fD]`` from the
-single-type state block (:func:`ablation_rows`); K7, like the JAX tool, is
-single-type only.
+single-type state block, K1's no-scores rows (``hopper_pair.kernel_rows``);
+K7, like the JAX tool, is single-type only.
 
 * :func:`ucgld_ablation` is the kernel's wrapper: on CUDA tensors it
   launches ``csrc/ucgld_ablation.cu`` or raises, on CPU tensors it runs
@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from lammps_ucg_dev_tpu_torch.ops import colpack
@@ -40,39 +39,13 @@ LEVELS = (0, 1, 2, 3, 4)
 NROW = 6
 
 
-def ablation_rows(cheb, tp, dtype=torch.float32, device=None):
-    """(6, degree) rows [eB eD fA fB fC fD] of the single-type 2x2 state
-    block, from the f64 coefficients: A = c00, B = c10 - c00, C = c01 - c00,
-    D = (c11 - c01) - (c10 - c00)."""
-    if tp.ntypes != 1:
-        raise ValueError("K7 is single-type only")
-    ce = cheb.coeffs.cpu().numpy().astype(np.float64)
-    T = ce.shape[0] // 2
-    i00, i01, i10, i11 = (int(v) for v in tp.tab4[1, 1].reshape(-1))
-
-    def abcd(base):
-        A = ce[base + i00]
-        return (A, ce[base + i10] - A, ce[base + i01] - A,
-                (ce[base + i11] - ce[base + i01])
-                - (ce[base + i10] - ce[base + i00]))
-
-    _, eB, _, eD = abcd(0)
-    fA, fB, fC, fD = abcd(T)
-    device = cheb.coeffs.device if device is None else device
-    return torch.as_tensor(np.stack([eB, eD, fA, fB, fC, fD]), dtype=dtype,
-                           device=device)
-
-
 def kernel_inputs(state, cl: colpack.ColumnList, params, cheb):
     """(args, kwargs) of :func:`ucgld_ablation` (without ``level``): K1's
-    no-scores inputs with kbench's rows."""
-    args, kw = hp.kernel_inputs(state, cl, params, cheb, False, False)
-    scal, z0, span_len, ipack, cols, _, cls = args
-    if cls is not None:
+    no-scores inputs, whose rows are kbench's six."""
+    if params.tp.ntypes != 1:
         raise ValueError("K7 is single-type only")
-    coef = ablation_rows(cheb, params.tp, torch.float32, state.device)
-    return ((scal, z0, span_len, ipack, cols, coef),
-            dict(mx=kw["mx"], my=kw["my"], degree=kw["degree"]))
+    args, kw = hp.kernel_inputs(state, cl, params, cheb, False, False)
+    return args, dict(mx=kw["mx"], my=kw["my"], degree=kw["degree"])
 
 
 # ---- the plain PyTorch twins -------------------------------------------------
@@ -85,8 +58,8 @@ def ablation_reference(scal, z0, span_len, ipack, cols, coef, *, mx: int,
         raise ValueError(f"level {level} outside {LEVELS}")
     if level == 4:
         return hp.ucgld_pair_reference(
-            scal, z0, span_len, ipack, cols, coef, None, mx=mx, my=my,
-            degree=degree, ntab=0, observe=False, want_scores=False)[0]
+            scal, z0, span_len, ipack, cols, coef, mx=mx, my=my,
+            degree=degree, observe=False, want_scores=False)[0]
     dev, dt = ipack.device, ipack.dtype
     out = torch.zeros((ipack.shape[0], 8), dtype=dt, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)

@@ -20,8 +20,8 @@ Kernel contract (both the CUDA kernel and the twin) — K1's
   scal   (8,) f32   [Lx Ly cutsq innersq uscale uoff kT 0]
   ipack  (n_slots, 8) f32 [x y z pj1 state valid pi1 typ]
   cols   (ncol, 8, czp) f32 the same attributes over the extended slots
-  coef   the 8 D-form rows [eA eB eC eD fA fB fC fD], or the raw rows with
-         ``cls`` for several actual types
+  coef   the 8 D-form rows [eA eB eC eD fA fB fC fD], or for several actual
+         types the (T+1, T+1, 8, degree) rows of each ordered type pair
   ucg_mask  int, bit t set when actual type t is a 2-state UCG type (the
          full-SCE scores treat partners of plain types apart)
   out    (n_slots, 8) [fx fy fz 0 s0 s1 0 0]
@@ -106,19 +106,21 @@ def closed_form(eD, pi1, pj1, kT, mf: bool):
     return p11, xk, bb
 
 
-def partner_is_ucg(cls, jattr, ucg_mask: int):
+def partner_is_ucg(coef, jattr, ucg_mask: int):
     """(C, 1, K) bool: the candidate's type has two states (its bit in
-    ``ucg_mask``); every partner with one actual type (``cls`` None)."""
-    if cls is None:
+    ``ucg_mask``); every partner with one actual type (``coef`` the one
+    set of rows, not the per-type-pair block)."""
+    if coef.dim() == 2:
         return True
-    ucg_t = torch.tensor([(ucg_mask >> t) & 1 > 0
-                          for t in range(cls.shape[0])], device=cls.device)
-    return ucg_t[jattr(7).long().clamp(0, cls.shape[0] - 1)]
+    t1 = coef.shape[0]
+    ucg_t = torch.tensor([(ucg_mask >> t) & 1 > 0 for t in range(t1)],
+                         device=coef.device)
+    return ucg_t[jattr(7).long().clamp(0, t1 - 1)]
 
 
-def bethe_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
-                         mx: int, my: int, degree: int, ntab: int,
-                         ucg_mask: int, observe: bool, mf: bool, sce: bool):
+def bethe_pair_reference(scal, z0, span_len, ipack, cols, coef, *, mx: int,
+                         my: int, degree: int, ucg_mask: int, observe: bool,
+                         mf: bool, sce: bool):
     """Plain PyTorch version of the kernel (same arguments, same outputs),
     computed in the tensors' dtype; the span walk, series and channels are
     K1's twin's (ops/hopper_pair.py)."""
@@ -131,8 +133,8 @@ def bethe_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
     for sl, irows, jattr, dx, dy, dz, rsq, mask in hp.span_pairs(
             scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe):
         u = torch.clamp(rsq * uscale + uoff, min=-1.0)
-        eA, eB, eC, eD, fA, fB, fC, fD = hp.channels(
-            hp.series(coef, u, degree), cls, irows, jattr, ntab)
+        eA, eB, eC, eD, fA, fB, fC, fD = hp.pair_channels(
+            coef, u, irows, jattr, degree)
         pi1, pj1 = irows[:, :, 6:7], jattr(3)
         p11 = closed_form(eD, pi1, pj1, kT, mf)[0]
         fmix = torch.where(mask, fA + pi1 * fB + pj1 * fC + p11 * fD, zero)
@@ -144,8 +146,8 @@ def bethe_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
             c10, c11 = (pi1 - p11) / p1e, p11 / p1e
             sc0 = c00 * eA + c01 * (eA + eC)
             sc1 = c10 * (eA + eB) + c11 * ((eA + eB) + (eC + eD))
-            if cls is not None:
-                jug = partner_is_ucg(cls, jattr, ucg_mask)
+            if coef.dim() == 4:
+                jug = partner_is_ucg(coef, jattr, ucg_mask)
                 sc0 = torch.where(jug, sc0, eA)
                 sc1 = torch.where(jug, sc1, eA + eB)
         else:
@@ -171,14 +173,14 @@ def _lib():
 
     fn = cuda_lib.load("bethe_pair").lib.bethe_pair_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 13
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_cuda(scal, z0, span_len, ipack, cols, coef, cls, *, mx, my,
-                 degree, ntab, ucg_mask, observe, mf, sce):
+def _launch_cuda(scal, z0, span_len, ipack, cols, coef, *, mx, my, degree,
+                 ucg_mask, observe, mf, sce):
     dev = ipack.device
     f32, i32 = torch.float32, torch.int32
     ncol, cpc, _ = z0.shape
@@ -187,20 +189,15 @@ def _launch_cuda(scal, z0, span_len, ipack, cols, coef, cls, *, mx, my,
     cz = cpc * colpack.CL
     czp = cols.shape[2]
     n_slots = ncol * cz
-    multi = cls is not None
-    nrow = hp.MAX_ROWS if multi else 8
     if not 2 <= degree <= hp.MAX_DEGREE:
         raise ValueError(f"degree {degree} outside [2, {hp.MAX_DEGREE}]")
+    shape, ntypes1 = hp.coef_shape(coef, degree, 8)
     hp._check(scal, "scal", f32, (8,), dev)
     hp._check(z0, "z0", i32, (ncol, cpc, hp.NSTEN), dev)
     hp._check(span_len, "L", i32, (ncol, cpc, hp.NSTEN), dev)
     hp._check(ipack, "ipack", f32, (n_slots, 8), dev)
     hp._check(cols, "cols", f32, (ncol, 8, czp), dev)
-    hp._check(coef, "coef", f32, (nrow, degree), dev)
-    ntypes1 = 0
-    if multi:
-        ntypes1 = cls.shape[0]
-        hp._check(cls, "cls", i32, (ntypes1, ntypes1, 4), dev)
+    hp._check(coef, "coef", f32, shape, dev)
     out = torch.empty((n_slots, 8), dtype=f32, device=dev)
     part = (torch.empty((n_slots, 8), dtype=f32, device=dev) if observe
             else None)
@@ -208,30 +205,29 @@ def _launch_cuda(scal, z0, span_len, ipack, cols, coef, cls, *, mx, my,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib()(scal.data_ptr(), z0.data_ptr(), span_len.data_ptr(),
                     ipack.data_ptr(), cols.data_ptr(), coef.data_ptr(),
-                    cls.data_ptr() if multi else None, out.data_ptr(),
-                    part.data_ptr() if observe else None,
-                    n_slots, mx, my, cz, czp, degree, ntab, ntypes1,
+                    out.data_ptr(), part.data_ptr() if observe else None,
+                    n_slots, mx, my, cz, czp, degree, ntypes1,
                     int(ucg_mask), int(observe), int(mf), int(sce),
-                    int(multi), stream)
+                    int(ntypes1 > 0), stream)
     if rc != 0:
         raise RuntimeError(f"bethe_pair kernel launch failed: CUDA error {rc}")
     bethe_pair.launches[variant(observe)] += 1
     return out, part
 
 
-def bethe_pair(scal, z0, span_len, ipack, cols, coef, cls, *, mx: int,
-               my: int, degree: int, ntab: int, ucg_mask: int, observe: bool,
-               mf: bool, sce: bool):
+def bethe_pair(scal, z0, span_len, ipack, cols, coef, *, mx: int, my: int,
+               degree: int, ucg_mask: int, observe: bool, mf: bool,
+               sce: bool):
     """K2: the hand-written kernel on CUDA tensors (launch or raise), its
     plain twin on CPU tensors.  Returns (out, part); part is None unless
     ``observe``."""
-    kw = dict(mx=mx, my=my, degree=degree, ntab=ntab, ucg_mask=ucg_mask,
+    kw = dict(mx=mx, my=my, degree=degree, ucg_mask=ucg_mask,
               observe=observe, mf=mf, sce=sce)
     if ipack.is_cuda:
-        return _launch_cuda(scal, z0, span_len, ipack, cols, coef, cls, **kw)
+        return _launch_cuda(scal, z0, span_len, ipack, cols, coef, **kw)
     if ipack.device.type == "cpu":
         return bethe_pair_reference(scal, z0, span_len, ipack, cols, coef,
-                                    cls, **kw)
+                                    **kw)
     raise ValueError(f"no K2 implementation for device {ipack.device}")
 
 
@@ -252,13 +248,12 @@ def kernel_inputs(state: SimState, cl: colpack.ColumnList,
     ipack, cols = colpack.pack(cl, state.box, state.x, pj1, state.ucgstate,
                                dtype=f32, aux=pi1,
                                typ=state.typ if multi else None)
-    coef, cls = hp.kernel_rows(cheb, tp, True, True, f32, state.device)
+    coef = hp.kernel_rows(cheb, tp, True, True, f32, state.device)
     scal = kernel_scalars(state.box, params, cheb, f32)
-    return ((scal, cl.z0, cl.L, ipack, cols, coef, cls),
+    return ((scal, cl.z0, cl.L, ipack, cols, coef),
             dict(mx=cl.mx, my=cl.my, degree=cheb.degree,
-                 ntab=params.bank.n_tables, ucg_mask=ucg_mask(tp),
-                 observe=observe, mf=params.method == "mf",
-                 sce=not params.pseudo))
+                 ucg_mask=ucg_mask(tp), observe=observe,
+                 mf=params.method == "mf", sce=not params.pseudo))
 
 
 def force_out(out, part, state: SimState, cl: colpack.ColumnList,

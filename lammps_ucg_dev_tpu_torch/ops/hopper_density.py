@@ -77,10 +77,9 @@ def variant(observe: bool, want_scores: bool) -> str:
 
 # ---- the plain PyTorch twin ------------------------------------------------
 
-def dbethe_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
-                          mx: int, my: int, degree: int, ntab: int,
-                          ucg_mask: int, observe: bool, mf: bool,
-                          want_scores: bool):
+def dbethe_pair_reference(scal, z0, span_len, ipack, cols, coef, *,
+                          mx: int, my: int, degree: int, ucg_mask: int,
+                          observe: bool, mf: bool, want_scores: bool):
     """Plain PyTorch version of K3 (same arguments, same outputs), computed
     in the tensors' dtype; the span walk, series and channels are K1's twin's
     (ops/hopper_pair.py), the closed form K2's (ops/hopper_bethe.py)."""
@@ -98,8 +97,8 @@ def dbethe_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
     for sl, irows, jattr, dx, dy, dz, rsq, mask in hp.span_pairs(
             scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe):
         u = torch.clamp(rsq * uscale + uoff, min=-1.0)
-        eA, eB, eC, eD, fA, fB, fC, fD = hp.channels(
-            hp.series(coef, u, degree), cls, irows, jattr, ntab)
+        eA, eB, eC, eD, fA, fB, fC, fD = hp.pair_channels(
+            coef, u, irows, jattr, degree)
         pi1, pj1 = irows[:, :, 6:7], jattr(3)
         p11, xk, bb = hb.closed_form(eD, pi1, pj1, kT, mf)
         fmix = torch.where(mask, fA + pi1 * fB + pj1 * fC + p11 * fD, zero)
@@ -114,7 +113,7 @@ def dbethe_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
                              xk + log_floor(2.0 * pi1) - log_floor(est + dst),
                              log_floor(dst - est)
                              - log_floor(2.0 * (1.0 - pi1)))
-        jug = hb.partner_is_ucg(cls, jattr, ucg_mask)
+        jug = hb.partner_is_ucg(coef, jattr, ucg_mask)
         pf0 = torch.where(jug, zero, eA + kT * lp0)
         pf1 = torch.where(jug, (eB + eD) + kT * lr, (eA + eB) + kT * lp1)
         cols_out = [torch.sum(fmix * dx, -1), torch.sum(fmix * dy, -1),
@@ -144,15 +143,15 @@ def _lib():
 
     fn = cuda_lib.load("bethe_pair").lib.density_pair_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 15
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def launch_density_pair(style: int, scal, z0, span_len, ipack, cols, coef,
-                        cls, *, mx, my, degree, ntab, ucg_mask, observe, mf,
-                        scores, feedback):
+                        *, mx, my, degree, ucg_mask, observe, mf, scores,
+                        feedback):
     """One launch of K3 (``style`` 1) or K4 (2) on CUDA tensors, after the
     same checks as K2's; returns (out, part)."""
     dev = ipack.device
@@ -163,22 +162,17 @@ def launch_density_pair(style: int, scal, z0, span_len, ipack, cols, coef,
     cz = cpc * colpack.CL
     czp = cols.shape[2]
     n_slots = ncol * cz
-    multi = cls is not None
-    if style == STYLE_RLEUCG and not multi:
-        raise ValueError("K4 takes the raw rows and the row table (cls)")
-    nrow = hp.MAX_ROWS if multi else 8
+    if style == STYLE_RLEUCG and coef.dim() != 4:
+        raise ValueError("K4 takes the rows of each substate-type pair")
     if not 2 <= degree <= hp.MAX_DEGREE:
         raise ValueError(f"degree {degree} outside [2, {hp.MAX_DEGREE}]")
+    shape, ntypes1 = hp.coef_shape(coef, degree, 8)
     hp._check(scal, "scal", f32, (8,), dev)
     hp._check(z0, "z0", i32, (ncol, cpc, hp.NSTEN), dev)
     hp._check(span_len, "L", i32, (ncol, cpc, hp.NSTEN), dev)
     hp._check(ipack, "ipack", f32, (n_slots, 8), dev)
     hp._check(cols, "cols", f32, (ncol, 8, czp), dev)
-    hp._check(coef, "coef", f32, (nrow, degree), dev)
-    ntypes1 = 0
-    if multi:
-        ntypes1 = cls.shape[0]
-        hp._check(cls, "cls", i32, (ntypes1, ntypes1, 4), dev)
+    hp._check(coef, "coef", f32, shape, dev)
     out = torch.empty((n_slots, 8), dtype=f32, device=dev)
     part = (torch.empty((n_slots, 8), dtype=f32, device=dev) if observe
             else None)
@@ -186,35 +180,34 @@ def launch_density_pair(style: int, scal, z0, span_len, ipack, cols, coef,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib()(scal.data_ptr(), z0.data_ptr(), span_len.data_ptr(),
                     ipack.data_ptr(), cols.data_ptr(), coef.data_ptr(),
-                    cls.data_ptr() if multi else None, out.data_ptr(),
-                    part.data_ptr() if observe else None,
-                    n_slots, mx, my, cz, czp, degree, ntab, ntypes1,
+                    out.data_ptr(), part.data_ptr() if observe else None,
+                    n_slots, mx, my, cz, czp, degree, ntypes1,
                     int(ucg_mask), style, int(observe), int(mf), int(scores),
-                    int(feedback), int(multi), stream)
+                    int(feedback), int(ntypes1 > 0), stream)
     if rc != 0:
         raise RuntimeError(f"density pair kernel launch failed: CUDA error "
                            f"{rc}")
     return out, part
 
 
-def dbethe_pair(scal, z0, span_len, ipack, cols, coef, cls, *, mx: int,
-                my: int, degree: int, ntab: int, ucg_mask: int,
-                observe: bool, mf: bool, want_scores: bool):
+def dbethe_pair(scal, z0, span_len, ipack, cols, coef, *, mx: int, my: int,
+                degree: int, ucg_mask: int, observe: bool, mf: bool,
+                want_scores: bool):
     """K3: the hand-written kernel on CUDA tensors (launch or raise), its
     plain twin on CPU tensors.  Returns (out, part); part is None unless
     ``observe``."""
-    kw = dict(mx=mx, my=my, degree=degree, ntab=ntab, ucg_mask=ucg_mask,
+    kw = dict(mx=mx, my=my, degree=degree, ucg_mask=ucg_mask,
               observe=observe, mf=mf)
     name = variant(observe, want_scores)
     if ipack.is_cuda:
         res = launch_density_pair(STYLE_DBETHE, scal, z0, span_len, ipack,
-                                  cols, coef, cls, scores=want_scores,
+                                  cols, coef, scores=want_scores,
                                   feedback=False, **kw)
         dbethe_pair.launches[name] += 1
         return res
     if ipack.device.type == "cpu":
         return dbethe_pair_reference(scal, z0, span_len, ipack, cols, coef,
-                                     cls, want_scores=want_scores, **kw)
+                                     want_scores=want_scores, **kw)
     raise ValueError(f"no K3 implementation for device {ipack.device}")
 
 
@@ -239,13 +232,12 @@ def density_inputs(state: SimState, cl: colpack.ColumnList,
     ipack, cols = colpack.pack(cl, state.box, state.x, pi1, state.ucgstate,
                                dtype=f32, aux=pi1,
                                typ=state.typ if multi else None)
-    coef, cls = hp.kernel_rows(cheb, tp, True, True, f32, state.device)
+    coef = hp.kernel_rows(cheb, tp, True, True, f32, state.device)
     scal = hb.kernel_scalars(state.box, params, cheb, f32)
-    return ((scal, cl.z0, cl.L, ipack, cols, coef, cls),
+    return ((scal, cl.z0, cl.L, ipack, cols, coef),
             dict(mx=cl.mx, my=cl.my, degree=cheb.degree,
-                 ntab=params.bank.n_tables, ucg_mask=hb.ucg_mask(tp),
-                 observe=observe, mf=params.method == "mf",
-                 want_scores=want_scores))
+                 ucg_mask=hb.ucg_mask(tp), observe=observe,
+                 mf=params.method == "mf", want_scores=want_scores))
 
 
 def totals(part2, part3, observe: bool, device):

@@ -17,11 +17,10 @@ Kernel contract (both the CUDA kernel and the twin):
   z0, L  (ncol, cz/8, 9) int32 candidate spans per (column, cluster, stencil)
   ipack  (n_slots, 8) f32 [x y z λ state valid 0 typ]
   cols   (ncol, 8, czp) f32 the same attributes over the extended slots
-  coef   (rows, degree) Chebyshev rows: D-form [eA eB eC eD fA fB fC fD]
-         ([eB eD fA fB fC fD] without observe and scores), or for
-         multi-type systems the raw rows [e_0..e_{T-1} f_0..f_{T-1}] padded
-         to 16, with ``cls`` (T+1, T+1, 4) int32 raw table ids of the
-         (00, 01, 10, 11) state combinations per ordered type pair
+  coef   Chebyshev rows in D-form: (8, degree) [eA eB eC eD fA fB fC fD]
+         ((6, degree) [eB eD fA fB fC fD] without observe and scores), or
+         for multi-type systems (T+1, T+1, 8, degree), the 8 rows of each
+         ordered type pair (ti, tj), zero where a state pair has no table
   out    (n_slots, 8) [fx fy fz lamf s0 s1 0 0]
   part   (n_slots, 8) [pe vxx vyy vzz vxy vxz vyz oob] per i-slot (observe)
 Rows of invalid i-slots are zero.
@@ -40,7 +39,7 @@ from lammps_ucg_dev_tpu_torch.ops import colpack
 from lammps_ucg_dev_tpu_torch.ops.chebtab import ChebBank, fittable
 
 NSTEN = colpack.NSTEN
-MAX_ROWS = 16
+MAX_TYPES1 = 4       # T+1 of the per-type-pair rows the kernels stage
 MAX_DEGREE = 24
 TWIN_CHUNK_ELEMS = 1 << 22   # (i-row, candidate) pairs per twin chunk
 
@@ -69,42 +68,58 @@ def variant(observe: bool, want_scores: bool) -> str:
     return "fast" if want_scores else "noscores"
 
 
+def dform_rows(ce: np.ndarray, ids) -> np.ndarray:
+    """(8, degree) D-form rows [eA eB eC eD fA fB fC fD] in float64 from the
+    raw rows ``ce`` (2T, degree), energies then forces, of the state pairs
+    (00, 01, 10, 11) with table ids ``ids``: A = c00, B = c10 - c00,
+    C = c01 - c00, D = (c11 - c01) - (c10 - c00), where a state pair
+    without a table (id -1) has zero rows."""
+    T = ce.shape[0] // 2
+    zero = np.zeros(ce.shape[1])
+    rows = []
+    for base in (0, T):
+        c00, c01, c10, c11 = (ce[base + int(i)] if i >= 0 else zero
+                              for i in ids)
+        rows += [c00, c10 - c00, c01 - c00, (c11 - c01) - (c10 - c00)]
+    return np.stack(rows)
+
+
+def dform_block(ce: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """(T+1, T+1, 8, degree) D-form rows of every ordered type pair, from
+    the (T+1, T+1, 4) table ids of their (00, 01, 10, 11) state pairs (the
+    rows of a pair with type 0 are zero)."""
+    t1 = ids.shape[0]
+    if t1 > MAX_TYPES1:
+        raise ValueError(f"{t1 - 1} types: the kernels stage the rows of at "
+                         f"most {MAX_TYPES1 - 1}")
+    block = np.zeros((t1, t1, 8, ce.shape[1]))
+    for a in range(1, t1):
+        for b in range(1, t1):
+            block[a, b] = dform_rows(ce, ids[a, b])
+    return block
+
+
 def kernel_rows(cheb: ChebBank, tp, observe: bool, want_scores: bool,
-                dtype=torch.float32, device=None):
-    """(coef, cls) for the kernel, cached on the ChebBank.  One actual type:
-    the 2x2 state basis change to D-form happens on the coefficients in
-    float64 (costs nothing per candidate), ``cls`` is None.  Several types:
-    raw rows padded to 16 and the (T+1, T+1, 4) row-id table."""
+                dtype=torch.float32, device=None) -> torch.Tensor:
+    """The kernel's coefficient rows, cached on the ChebBank: the 2x2 state
+    basis change to D-form is taken on the coefficients in float64 (it
+    costs nothing per candidate).  One actual type: the 8 rows (6 without
+    observe and scores).  Several: the (T+1, T+1, 8, degree) rows of every
+    ordered type pair."""
     device = cheb.coeffs.device if device is None else torch.device(device)
     key = (observe, want_scores, dtype, str(device))
     if key in cheb.kernel_rows:
         return cheb.kernel_rows[key]
     ce = cheb.coeffs.cpu().numpy().astype(np.float64)
-    T = ce.shape[0] // 2
     tab4 = tp.tab4.cpu().numpy()
     nt = tp.ntypes
     if nt == 1:
-        i00, i01, i10, i11 = (int(v) for v in tab4[1, 1].reshape(-1))
-
-        def abcd(base):
-            A = ce[base + i00]
-            return (A, ce[base + i10] - A, ce[base + i01] - A,
-                    (ce[base + i11] - ce[base + i01])
-                    - (ce[base + i10] - ce[base + i00]))
-
-        eA, eB, eC, eD = abcd(0)
-        fA, fB, fC, fD = abcd(T)
-        rows = ([eA, eB, eC, eD, fA, fB, fC, fD] if (want_scores or observe)
-                else [eB, eD, fA, fB, fC, fD])
-        coef = np.stack(rows)
-        cls = None
+        coef = dform_rows(ce, tab4[1, 1].reshape(-1))
+        if not (want_scores or observe):
+            coef = coef[[1, 3, 4, 5, 6, 7]]
     else:
-        coef = np.zeros((MAX_ROWS, ce.shape[1]))
-        coef[:2 * T] = ce
-        ids = np.full((nt + 1, nt + 1, 4), -1, np.int64)
-        ids[1:, 1:] = tab4[1:, 1:].reshape(nt, nt, 4)
-        cls = torch.as_tensor(ids, dtype=torch.int32, device=device)
-    out = (torch.as_tensor(coef, dtype=dtype, device=device), cls)
+        coef = dform_block(ce, tab4.reshape(nt + 1, nt + 1, 4))
+    out = torch.as_tensor(coef, dtype=dtype, device=device)
     cheb.kernel_rows[key] = out
     return out
 
@@ -209,29 +224,34 @@ def series(coef, u, degree: int):
     return acc
 
 
-def channels(acc, cls, irows, jattr, ntab: int):
-    """(eA, eB, eC, eD, fA, fB, fC, fD) in D-form: from the D-form rows
-    (8 rows; eA = eC = None with the 6-row set) or, with ``cls``, from the
-    raw rows through the (T+1, T+1, 4) row-id table."""
-    if cls is None:
+def pair_channels(coef, u, irows, jattr, degree: int):
+    """(eA, eB, eC, eD, fA, fB, fC, fD) in D-form at u, by the kernels'
+    recurrence: from the one set of rows (eA = eC = None with the 6-row
+    set) or, with the (T+1, T+1, 8, degree) block, from the rows of each
+    candidate's ordered type pair (ti, tj), gathered per coefficient."""
+    if coef.dim() == 2:
+        acc = series(coef, u, degree)
         if len(acc) == 8:
             return tuple(acc)
         eB, eD, fA, fB, fC, fD = acc
         return None, eB, None, eD, fA, fB, fC, fD
-    stack = torch.stack(acc)                                   # (R, C, 8, K)
-    zero = torch.zeros((), dtype=stack.dtype, device=stack.device)
-    ti = irows[:, :, 7:8].long()
-    tj = torch.clamp(jattr(7).long(), 0, cls.shape[0] - 1)
+    t1 = coef.shape[0]
+    flat = coef.reshape(t1 * t1, 8, degree)
+    ti = irows[:, :, 7:8].long().clamp(0, t1 - 1)
+    tj = jattr(7).long().clamp(0, t1 - 1)
+    pair = ti * t1 + tj                                        # (C, 8, K)
 
-    def channel(q, f_off):
-        ids = cls[ti, tj, q].long()                            # (C, 8, K)
-        v = torch.gather(stack, 0, (ids.clamp(min=0) + f_off)[None])[0]
-        return torch.where(ids >= 0, v, zero)
+    def c(r, k):
+        return flat[:, r, k][pair]
 
-    e00, e01, e10, e11 = (channel(q, 0) for q in range(4))
-    f00, f01, f10, f11 = (channel(q, ntab) for q in range(4))
-    return (e00, e10 - e00, e01 - e00, (e11 - e01) - (e10 - e00),
-            f00, f10 - f00, f01 - f00, (f11 - f01) - (f10 - f00))
+    acc = [c(r, 0) + c(r, 1) * u for r in range(8)]
+    u2, tm2, tm1 = u + u, torch.ones_like(u), u
+    for k in range(2, degree):
+        tk = u2 * tm1 - tm2
+        for r in range(8):
+            acc[r] = acc[r] + c(r, k) * tk
+        tm2, tm1 = tm1, tk
+    return tuple(acc)
 
 
 def observed(emix, fmix, dx, dy, dz, mask, rsq, innersq):
@@ -244,9 +264,9 @@ def observed(emix, fmix, dx, dy, dz, mask, rsq, innersq):
     return torch.stack(p, -1).reshape(-1, 8)
 
 
-def ucgld_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
-                         mx: int, my: int, degree: int, ntab: int,
-                         observe: bool, want_scores: bool):
+def ucgld_pair_reference(scal, z0, span_len, ipack, cols, coef, *,
+                         mx: int, my: int, degree: int, observe: bool,
+                         want_scores: bool):
     """Plain PyTorch version of the kernel (same arguments, same outputs),
     computed in the tensors' dtype."""
     variant(observe, want_scores)
@@ -261,8 +281,8 @@ def ucgld_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
         # lower clamp only; past-cutoff lanes may run to inf/NaN and are
         # selected out below
         u = torch.clamp(rsq * uscale + uoff, min=-1.0)
-        eA, eB, eC, eD, fA, fB, fC, fD = channels(
-            series(coef, u, degree), cls, irows, jattr, ntab)
+        eA, eB, eC, eD, fA, fB, fC, fD = pair_channels(
+            coef, u, irows, jattr, degree)
         li, lj = irows[:, :, 3:4], jattr(3)
         wD = li * lj
         fmix = torch.where(mask, fA + li * fB + lj * fC + wD * fD, zero)
@@ -293,7 +313,7 @@ def _lib():
     nl = cuda_lib.load("ucgld_pair")
     fn = nl.lib.ucgld_pair_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -311,8 +331,20 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _launch_cuda(scal, z0, span_len, ipack, cols, coef, cls, *, mx, my,
-                 degree, ntab, observe, want_scores):
+def coef_shape(coef, degree: int, nrow: int):
+    """(shape, T+1) the kernels take for ``coef``: the per-type-pair block
+    of T+1 <= MAX_TYPES1, or one set of ``nrow`` rows (T+1 given as 0)."""
+    if coef.dim() == 4:
+        t1 = coef.shape[0]
+        if not 2 <= t1 <= MAX_TYPES1:
+            raise ValueError(f"{t1 - 1} types: the kernels stage the rows of "
+                             f"at most {MAX_TYPES1 - 1}")
+        return (t1, t1, 8, degree), t1
+    return (nrow, degree), 0
+
+
+def _launch_cuda(scal, z0, span_len, ipack, cols, coef, *, mx, my, degree,
+                 observe, want_scores):
     dev = ipack.device
     f32, i32 = torch.float32, torch.int32
     ncol, cpc, _ = z0.shape
@@ -321,20 +353,16 @@ def _launch_cuda(scal, z0, span_len, ipack, cols, coef, cls, *, mx, my,
     cz = cpc * colpack.CL
     czp = cols.shape[2]
     n_slots = ncol * cz
-    multi = cls is not None
-    nrow = MAX_ROWS if multi else (8 if (observe or want_scores) else 6)
     if not 2 <= degree <= MAX_DEGREE:
         raise ValueError(f"degree {degree} outside [2, {MAX_DEGREE}]")
+    shape, ntypes1 = coef_shape(coef, degree,
+                                8 if (observe or want_scores) else 6)
     _check(scal, "scal", f32, (8,), dev)
     _check(z0, "z0", i32, (ncol, cpc, NSTEN), dev)
     _check(span_len, "L", i32, (ncol, cpc, NSTEN), dev)
     _check(ipack, "ipack", f32, (n_slots, 8), dev)
     _check(cols, "cols", f32, (ncol, 8, czp), dev)
-    _check(coef, "coef", f32, (nrow, degree), dev)
-    ntypes1 = 0
-    if multi:
-        ntypes1 = cls.shape[0]
-        _check(cls, "cls", i32, (ntypes1, ntypes1, 4), dev)
+    _check(coef, "coef", f32, shape, dev)
     out = torch.empty((n_slots, 8), dtype=f32, device=dev)
     part = (torch.empty((n_slots, 8), dtype=f32, device=dev) if observe
             else None)
@@ -342,29 +370,27 @@ def _launch_cuda(scal, z0, span_len, ipack, cols, coef, cls, *, mx, my,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib()(scal.data_ptr(), z0.data_ptr(), span_len.data_ptr(),
                     ipack.data_ptr(), cols.data_ptr(), coef.data_ptr(),
-                    cls.data_ptr() if multi else None, out.data_ptr(),
-                    part.data_ptr() if observe else None,
-                    n_slots, mx, my, cz, czp, degree, ntab, ntypes1,
-                    int(observe), int(want_scores), int(multi), stream)
+                    out.data_ptr(), part.data_ptr() if observe else None,
+                    n_slots, mx, my, cz, czp, degree, ntypes1,
+                    int(observe), int(want_scores), int(ntypes1 > 0), stream)
     if rc != 0:
         raise RuntimeError(f"ucgld_pair kernel launch failed: CUDA error {rc}")
     ucgld_pair.launches[variant(observe, want_scores)] += 1
     return out, part
 
 
-def ucgld_pair(scal, z0, span_len, ipack, cols, coef, cls, *, mx: int,
-               my: int, degree: int, ntab: int, observe: bool,
-               want_scores: bool):
+def ucgld_pair(scal, z0, span_len, ipack, cols, coef, *, mx: int, my: int,
+               degree: int, observe: bool, want_scores: bool):
     """K1: the hand-written kernel on CUDA tensors (launch or raise), its
     plain twin on CPU tensors.  Returns (out, part); part is None unless
     ``observe``."""
-    kw = dict(mx=mx, my=my, degree=degree, ntab=ntab, observe=observe,
+    kw = dict(mx=mx, my=my, degree=degree, observe=observe,
               want_scores=want_scores)
     if ipack.is_cuda:
-        return _launch_cuda(scal, z0, span_len, ipack, cols, coef, cls, **kw)
+        return _launch_cuda(scal, z0, span_len, ipack, cols, coef, **kw)
     if ipack.device.type == "cpu":
         return ucgld_pair_reference(scal, z0, span_len, ipack, cols, coef,
-                                    cls, **kw)
+                                    **kw)
     raise ValueError(f"no K1 implementation for device {ipack.device}")
 
 
@@ -386,11 +412,10 @@ def kernel_inputs(state: SimState, cl: colpack.ColumnList,
     ipack, cols = colpack.pack(cl, state.box, state.x, lam_eff,
                                state.ucgstate, dtype=f32,
                                typ=state.typ if multi else None)
-    coef, cls = kernel_rows(cheb, tp, observe, want_scores, f32, state.device)
+    coef = kernel_rows(cheb, tp, observe, want_scores, f32, state.device)
     scal = kernel_scalars(state.box, params, cheb, f32)
-    return ((scal, cl.z0, cl.L, ipack, cols, coef, cls),
-            dict(mx=cl.mx, my=cl.my, degree=cheb.degree,
-                 ntab=params.bank.n_tables, observe=observe,
+    return ((scal, cl.z0, cl.L, ipack, cols, coef),
+            dict(mx=cl.mx, my=cl.my, degree=cheb.degree, observe=observe,
                  want_scores=want_scores))
 
 

@@ -18,8 +18,8 @@ wrappers, and the three-pass kernel path of the style (port of
 
 K4's contract — K2's (ops/hopper_bethe.py) over SUBSTATE types: attr 7 the
 substate type, ipack attr 6 and the candidates' attr 3 the probability of
-substate 1 (0 for single-state types), always the raw rows with the row
-table ``cls`` built from ``tabSS``, and
+substate 1 (0 for single-state types), always the D-form rows of each
+ordered substate-type pair, built from ``tabSS``, and
   out    (n_slots, 8) [fx fy fz pf0 0 0 0 0], pf0 = Σ eB + pj1·eD with
          ``feedback`` (else 0)
 """
@@ -62,23 +62,19 @@ def variant(observe: bool) -> str:
 
 
 def kernel_rows(cheb: ChebBank, params: RLEUCGParams, dtype=torch.float32,
-                device=None):
-    """(coef, cls): the raw rows padded to 16 and the (S+1, S+1, 4) row
-    table of each ordered substate-type pair from ``tabSS``
-    (``_rleucg_classes``), cached on the ChebBank."""
+                device=None) -> torch.Tensor:
+    """(S+1, S+1, 8, degree): the D-form rows of each ordered substate-type
+    pair from the table ids of ``tabSS`` (``_rleucg_classes``), taken in
+    float64 (``hopper_pair.dform_block``), cached on the ChebBank."""
     device = cheb.coeffs.device if device is None else torch.device(device)
     key = ("rleucg", dtype, str(device))
     if key not in cheb.kernel_rows:
         ce = cheb.coeffs.cpu().numpy().astype(np.float64)
-        coef = np.zeros((hp.MAX_ROWS, ce.shape[1]))
-        coef[:ce.shape[0]] = ce
         tabSS = params.tabSS.cpu().numpy()
         S = tabSS.shape[0] - 1
-        ids = np.full((S + 1, S + 1, 4), -1, np.int64)
-        ids[1:, 1:] = tabSS[1:, 1:].reshape(S, S, 4)
-        cheb.kernel_rows[key] = (
-            torch.as_tensor(coef, dtype=dtype, device=device),
-            torch.as_tensor(ids, dtype=torch.int32, device=device))
+        block = hp.dform_block(ce, tabSS.reshape(S + 1, S + 1, 4))
+        cheb.kernel_rows[key] = torch.as_tensor(block, dtype=dtype,
+                                                device=device)
     return cheb.kernel_rows[key]
 
 
@@ -94,9 +90,9 @@ def kernel_scalars(box, params: RLEUCGParams, cheb: ChebBank,
 
 # ---- the plain PyTorch twin ------------------------------------------------
 
-def rleucg_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
-                          mx: int, my: int, degree: int, ntab: int,
-                          observe: bool, feedback: bool):
+def rleucg_pair_reference(scal, z0, span_len, ipack, cols, coef, *,
+                          mx: int, my: int, degree: int, observe: bool,
+                          feedback: bool):
     """Plain PyTorch version of K4 (same arguments, same outputs), computed
     in the tensors' dtype on K1's twin's span walk, series and channels."""
     dev, dt = ipack.device, ipack.dtype
@@ -108,8 +104,8 @@ def rleucg_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
     for sl, irows, jattr, dx, dy, dz, rsq, mask in hp.span_pairs(
             scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe):
         u = torch.clamp(rsq * uscale + uoff, min=-1.0)
-        eA, eB, eC, eD, fA, fB, fC, fD = hp.channels(
-            hp.series(coef, u, degree), cls, irows, jattr, ntab)
+        eA, eB, eC, eD, fA, fB, fC, fD = hp.pair_channels(
+            coef, u, irows, jattr, degree)
         pi1, pj1 = irows[:, :, 6:7], jattr(3)
         p11 = pi1 * pj1
         fmix = torch.where(mask, fA + pi1 * fB + pj1 * fC + p11 * fD, zero)
@@ -126,23 +122,22 @@ def rleucg_pair_reference(scal, z0, span_len, ipack, cols, coef, cls, *,
     return out, part
 
 
-def rleucg_pair(scal, z0, span_len, ipack, cols, coef, cls, *, mx: int,
-                my: int, degree: int, ntab: int, observe: bool,
-                feedback: bool):
+def rleucg_pair(scal, z0, span_len, ipack, cols, coef, *, mx: int, my: int,
+                degree: int, observe: bool, feedback: bool):
     """K4: the hand-written kernel on CUDA tensors (launch or raise), its
     plain twin on CPU tensors.  Returns (out, part); part is None unless
     ``observe``."""
-    kw = dict(mx=mx, my=my, degree=degree, ntab=ntab, observe=observe)
+    kw = dict(mx=mx, my=my, degree=degree, observe=observe)
     if ipack.is_cuda:
         res = hd.launch_density_pair(hd.STYLE_RLEUCG, scal, z0, span_len,
-                                     ipack, cols, coef, cls, ucg_mask=0,
+                                     ipack, cols, coef, ucg_mask=0,
                                      mf=True, scores=False, feedback=feedback,
                                      **kw)
         rleucg_pair.launches[variant(observe)] += 1
         return res
     if ipack.device.type == "cpu":
         return rleucg_pair_reference(scal, z0, span_len, ipack, cols, coef,
-                                     cls, feedback=feedback, **kw)
+                                     feedback=feedback, **kw)
     raise ValueError(f"no K4 implementation for device {ipack.device}")
 
 
@@ -165,11 +160,10 @@ def rleucg_inputs(state: SimState, cl: colpack.ColumnList,
     ipack, cols = colpack.pack(cl, state.box, state.x, a1,
                                torch.zeros_like(a1), dtype=f32, aux=a1,
                                typ=state.typ)
-    coef, cls = kernel_rows(cheb, params, f32, state.device)
+    coef = kernel_rows(cheb, params, f32, state.device)
     return ((kernel_scalars(state.box, params, cheb), cl.z0, cl.L, ipack,
-             cols, coef, cls),
-            dict(mx=cl.mx, my=cl.my, degree=cheb.degree,
-                 ntab=params.bank.n_tables, observe=observe,
+             cols, coef),
+            dict(mx=cl.mx, my=cl.my, degree=cheb.degree, observe=observe,
                  feedback=params.feedback == "always"))
 
 

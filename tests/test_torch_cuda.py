@@ -240,6 +240,74 @@ def density_systems(device):
     return out
 
 
+# the compacting walk's edge cases (K3, K4): a dilute system, where most
+# warps flush fewer than 32 pairs at the end of their walk; a compressed
+# one, where i-slots hold more than 64 in-cutoff pairs and the 64-entry
+# queue wraps many times; a clumped one (every bead in 40% of the box in
+# x), with empty spans and i-clusters that are mostly pads
+EDGE_RHO = {"dilute": 0.05, "compressed": 2.0, "clumped": 0.5}
+
+
+@pytest.fixture(scope="module")
+def edge_systems(device):
+    """{(style, kind): (state, params, cl)} of 4,096 beads of the P3 or P4
+    system at random positions."""
+    out = {}
+    for style, build in (("p3", flagship.build_density_sim),
+                         ("p4", flagship.build_rleucg_sim)):
+        sim = build(n=4096, device=device, kernel=False)
+        for kind, rho in EDGE_RHO.items():
+            rng = np.random.default_rng(21)
+            n = sim.state.n_atoms
+            L = (n / rho) ** (1 / 3)
+            x = rng.uniform(0.0, L, (n, 3))
+            if kind == "clumped":
+                x[:, 0] *= 0.4
+            state = dataclasses.replace(
+                sim.state, x=torch.as_tensor(x, dtype=torch.float32,
+                                             device=device),
+                box=Box.create([0, 0, 0], [L] * 3, device=device))
+            sel = select_pair_kernel(sim.pair_params, state, flagship.RC,
+                                     0.4)
+            assert sel is not None
+            _, spec, params = sel
+            cl = colpack.build(state.x, state.box, spec)
+            assert not bool(cl.overflow)
+            out[style, kind] = (state, params, cl)
+    return out
+
+
+def system_of(density_systems, edge_systems, style, kind):
+    """(state, params, cl) of the deck system or of an edge case."""
+    if kind == "deck":
+        sim, cl = density_systems[style]
+        return sim.state, sim.pair_params, cl
+    return edge_systems[style, kind]
+
+
+@pytest.mark.parametrize("kind", list(EDGE_RHO))
+@pytest.mark.parametrize("style", ["p3", "p4"])
+def test_edge_systems_reach_the_queue_edges(edge_systems, style, kind):
+    state, params, cl = edge_systems[style, kind]
+    args, kw = (hd.density_inputs(state, cl, params, params.cheb,
+                                  torch.zeros_like(state.ucgl), False, False)
+                if style == "p3" else
+                hr.rleucg_inputs(state, cl, params, params.cheb,
+                                 torch.zeros_like(state.ucgl), False))
+    per_slot = torch.zeros(args[3].shape[0], device=state.device)
+    for sl, *_, mask in hp.span_pairs(*args[:5], mx=kw["mx"], my=kw["my"],
+                                      observe=False):
+        per_slot[sl] = mask.sum(-1).reshape(-1).float()
+    per_warp = per_slot.reshape(-1, 32).sum(1)
+    if kind == "dilute":
+        assert float((per_warp < 32).float().mean()) > 0.5
+    elif kind == "compressed":
+        assert float(per_slot.max()) > 64
+    else:
+        assert bool((args[3][:, 5] < 0.5).any()) and bool((args[2] == 0).any())
+        assert float(per_slot.sum()) > 0
+
+
 def assert_close(a, b, name):
     scale = max(float(b.abs().max()), 1e-30)
     np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
@@ -288,13 +356,15 @@ def test_k6_matches_twin(density_systems, style, gform, observe):
         assert_close(part_k.sum(0), part_t.sum(0), "virial")
 
 
+@pytest.mark.parametrize("kind", ["deck", *EDGE_RHO])
 @pytest.mark.parametrize("method,observe,scores", DENSITY_VARIANTS)
-def test_k3_matches_twin(density_systems, method, observe, scores):
-    sim, cl = density_systems["p3"]
-    params = dataclasses.replace(sim.pair_params, method=method)
-    pi1 = torch.rand(sim.state.n_atoms, device=sim.state.device)
-    pi1 = torch.where(sim.state.typ == 2, pi1, torch.zeros_like(pi1))
-    args, kw = hd.density_inputs(sim.state, cl, params, params.cheb, pi1,
+def test_k3_matches_twin(density_systems, edge_systems, method, observe,
+                         scores, kind):
+    state, params, cl = system_of(density_systems, edge_systems, "p3", kind)
+    params = dataclasses.replace(params, method=method)
+    pi1 = torch.rand(state.n_atoms, device=state.device)
+    pi1 = torch.where(state.typ == 2, pi1, torch.zeros_like(pi1))
+    args, kw = hd.density_inputs(state, cl, params, params.cheb, pi1,
                                  observe, scores)
     name = hd.variant(observe, scores)
     before = hd.dbethe_pair.launches[name]
@@ -309,16 +379,17 @@ def test_k3_matches_twin(density_systems, method, observe, scores):
         assert int(part_k[:, 7].sum()) == int(part_t[:, 7].sum())
 
 
+@pytest.mark.parametrize("kind", ["deck", *EDGE_RHO])
 @pytest.mark.parametrize("feedback", [True, False])
 @pytest.mark.parametrize("observe", [True, False])
-def test_k4_matches_twin(density_systems, observe, feedback):
-    sim, cl = density_systems["p4"]
+def test_k4_matches_twin(density_systems, edge_systems, observe, feedback,
+                         kind):
+    state, params, cl = system_of(density_systems, edge_systems, "p4", kind)
     params = dataclasses.replace(
-        sim.pair_params, feedback="always" if feedback else "never")
-    a1 = torch.rand(sim.state.n_atoms, device=sim.state.device)
-    a1 = torch.where(sim.state.typ < 3, a1, torch.zeros_like(a1))
-    args, kw = hr.rleucg_inputs(sim.state, cl, params, params.cheb, a1,
-                                observe)
+        params, feedback="always" if feedback else "never")
+    a1 = torch.rand(state.n_atoms, device=state.device)
+    a1 = torch.where(state.typ < 3, a1, torch.zeros_like(a1))
+    args, kw = hr.rleucg_inputs(state, cl, params, params.cheb, a1, observe)
     before = hr.rleucg_pair.launches[hr.variant(observe)]
     out_k, part_k = hr.rleucg_pair(*args, **kw)
     assert hr.rleucg_pair.launches[hr.variant(observe)] == before + 1
@@ -354,8 +425,47 @@ def test_density_kernels_reject_wrong_inputs(density_systems):
     sim4, cl4 = density_systems["p4"]
     args, kw = hr.rleucg_inputs(sim4.state, cl4, sim4.pair_params,
                                 sim4.pair_params.cheb, pi1, True)
-    with pytest.raises(ValueError):
-        hr.rleucg_pair(*args[:6], None, **kw)      # K4 needs the row table
+    with pytest.raises(ValueError):                # K4 needs the pair rows
+        hr.rleucg_pair(*args[:5], args[5][1, 1], **kw)
+
+
+def test_launchers_refuse_more_types_than_the_rows_hold(density_systems):
+    """The rows of at most 3 actual types (4 x 4 ordered pairs, 12 KB)
+    fit the shared memory the multi-type kernels stage them in: a 5 x 5
+    block is refused by the wrappers of K1–K4 (ValueError) and by the C
+    entry points of K1–K4 (cudaErrorInvalidValue, 1)."""
+    import ctypes
+
+    sim, cl = density_systems["p3"]
+    zeros = torch.zeros(sim.state.n_atoms, device=sim.state.device)
+    args, kw = hd.density_inputs(sim.state, cl, sim.pair_params,
+                                 sim.pair_params.cheb, zeros, False, False)
+    deg, (mx, my) = kw["degree"], (kw["mx"], kw["my"])
+    big = torch.zeros((5, 5, 8, deg), device=sim.state.device)
+    geo = dict(mx=mx, my=my, degree=deg, observe=False)
+    for call in (
+            lambda: hd.dbethe_pair(*args[:5], big, ucg_mask=kw["ucg_mask"],
+                                   mf=False, want_scores=False, **geo),
+            lambda: hr.rleucg_pair(*args[:5], big, feedback=True, **geo),
+            lambda: hp.ucgld_pair(*args[:5], big, want_scores=True, **geo),
+            lambda: hb.bethe_pair(*args[:5], big, ucg_mask=kw["ucg_mask"],
+                                  mf=False, sce=False, **geo)):
+        with pytest.raises(ValueError):
+            call()
+    scal, z0, span_len, ipack, cols = args[:5]
+    out = torch.empty((ipack.shape[0], 8), device=ipack.device)
+    cz, czp = z0.shape[1] * colpack.CL, cols.shape[2]
+    ptrs = [scal.data_ptr(), z0.data_ptr(), span_len.data_ptr(),
+            ipack.data_ptr(), cols.data_ptr(), big.data_ptr(),
+            out.data_ptr(), None]
+    geo_c = [ipack.shape[0], mx, my, cz, czp, deg, 5]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    assert hd._lib()(*ptrs, *geo_c, 0, hd.STYLE_DBETHE, 0, 0, 0, 0, 1,
+                     stream) == 1
+    assert hd._lib()(*ptrs, *geo_c, 0, hd.STYLE_RLEUCG, 0, 1, 0, 1, 1,
+                     stream) == 1
+    assert hb._lib()(*ptrs, *geo_c, 0, 0, 0, 0, 1, stream) == 1
+    assert hp._lib()(*ptrs, *geo_c, 0, 1, 1, stream) == 1
 
 
 @pytest.mark.parametrize("style", ["p3", "p4"])
@@ -381,9 +491,9 @@ def test_density_main_paths_run_through_kernels(device, style):
 
 
 def test_k2_unchanged_by_the_style_template(device):
-    """K2 and K3 share one tally template: on a one-type system with the
-    same priors in both roles, K3's forces and pseudolikelihood scores are
-    K2's (the same arithmetic, instantiated twice)."""
+    """On a one-type system with the same priors in both roles, K3 (on the
+    compacting walk) gives K2's forces and pseudolikelihood scores: the
+    same closed form and series, summed in the same order per i-slot."""
     sim = flagship.build_bethe_sim(n=32768, device=device)
     sim.setup((0, 10))
     state = dataclasses.replace(sim.state, ucgl=sim.state.ucgp)

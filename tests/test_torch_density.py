@@ -383,9 +383,11 @@ def test_density_selection_gates():
     _, _, ts64, tp64, _ = system("p4", jnp.float64)
     assert select_pair_kernel(tp64, ts64, RC, 0.4, force=True) is None
     fn, tp4, cl = twin_path(ts4, tp4)
-    coef, cls = hr.kernel_rows(tp4.cheb, tp4)
-    assert coef.shape[0] == 16 and tuple(cls.shape) == (4, 4, 4)
-    assert int(cls[0].max()) == -1 and int(cls[1:, 1:].min()) >= 0
+    coef = hr.kernel_rows(tp4.cheb, tp4)
+    assert tuple(coef.shape) == (4, 4, 8, tp4.cheb.degree)
+    # no substate type 0: its rows are zero; every real pair has a table
+    assert float(coef[0].abs().max()) == float(coef[:, 0].abs().max()) == 0
+    assert bool((coef[1:, 1:, 4].abs().amax(-1) > 0).all())
 
 
 @pytest.mark.parametrize("style", ["p3", "p4"])
@@ -415,3 +417,27 @@ def test_density_builders_default_to_cuda():
         else:
             with pytest.raises(RuntimeError):
                 build(n=512)
+
+
+@pytest.mark.parametrize("style", ["p3", "p4"])
+def test_density_pair_rows_match_raw_dform(style):
+    """K3's and K4's per-type-pair D-form rows (P3's 2 actual types, P4's 3
+    substate types) against the D-form of the raw rows, in float64."""
+    from lammps_ucg_dev_tpu_torch.ops import chebtab
+    from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+    from test_torch_hopper_pair import assert_pair_rows_match_raw
+
+    build = (flagship.build_density_sim if style == "p3"
+             else flagship.build_rleucg_sim)
+    p = build(n=N, kernel=False, device="cpu").pair_params
+    cheb = chebtab.fit_bank(p.bank)
+    if style == "p3":
+        t1 = p.tp.ntypes + 1
+        ids = p.tp.tab4.reshape(t1, t1, 4).numpy()
+        block = hp.kernel_rows(cheb, p.tp, True, True, torch.float64)
+    else:
+        t1 = p.tabSS.shape[0]
+        ids = p.tabSS.reshape(t1, t1, 4).numpy()
+        block = hr.kernel_rows(cheb, p, torch.float64)
+    assert t1 == (3 if style == "p3" else 4)
+    assert_pair_rows_match_raw(cheb, ids, block)

@@ -162,12 +162,11 @@ def test_twin_float64_agrees_with_reference_path(rng):
     js, jp, rc = system(rng, dtype=jnp.float64)
     ts, tp, cl = port(js, jp, rc, jcheb.fit_bank(jp.bank, dtype=jnp.float64))
     ipack, cols = tcp.pack(cl, ts.box, ts.x, ts.ucgl, ts.ucgstate, dtype=f64)
-    coef, cls = hp.kernel_rows(tp.cheb, tp.tp, True, True, f64)
+    coef = hp.kernel_rows(tp.cheb, tp.tp, True, True, f64)
     scal = hp.kernel_scalars(ts.box, tp, tp.cheb, f64)
     out, part = hp.ucgld_pair_reference(
-        scal, cl.z0, cl.L, ipack, cols, coef, cls, mx=cl.mx, my=cl.my,
-        degree=tp.cheb.degree, ntab=tp.bank.n_tables, observe=True,
-        want_scores=True)
+        scal, cl.z0, cl.L, ipack, cols, coef, mx=cl.mx, my=cl.my,
+        degree=tp.cheb.degree, observe=True, want_scores=True)
     assert out.dtype == f64
     ref = tpu.compute(ts, tnb.build_nsq(ts.x, ts.box,
                                         tnb.make_spec(N, [L] * 3, rc, 0.4)),
@@ -226,10 +225,71 @@ def test_dform_rows_follow_the_jax_transform():
         want += [A, ce[base + i10] - A, ce[base + i01] - A,
                  (ce[base + i11] - ce[base + i01])
                  - (ce[base + i10] - ce[base + i00])]
-    coef, cls = hp.kernel_rows(tcheb, ttp, True, True)
-    assert cls is None
+    coef = hp.kernel_rows(tcheb, ttp, True, True)
+    assert coef.shape == (8, cheb.degree)
     np.testing.assert_array_equal(coef.numpy(),
                                   np.asarray(want, np.float32))
-    nos, _ = hp.kernel_rows(tcheb, ttp, False, False)
+    nos = hp.kernel_rows(tcheb, ttp, False, False)
     np.testing.assert_array_equal(nos.numpy(),
                                   coef.numpy()[[1, 3, 4, 5, 6, 7]])
+
+
+def assert_pair_rows_match_raw(cheb, ids, block):
+    """The per-type-pair D-form rows ``block`` (T+1, T+1, 8, degree),
+    evaluated by ``hp.series`` at 64 points of u in float64, equal the
+    D-form assembled from the raw rows' series (a state pair with table id
+    -1 contributes exactly 0), within 1e-12 of the largest raw channel; the
+    rows of a pair with type 0 are exactly 0."""
+    u = torch.linspace(-1.0, 1.0, 64, dtype=torch.float64)
+    ce = cheb.coeffs.double()
+    T = ce.shape[0] // 2
+    raw = hp.series(ce, u, cheb.degree)
+    zero = torch.zeros_like(u)
+    t1 = ids.shape[0]
+    assert tuple(block.shape) == (t1, t1, 8, cheb.degree)
+    for a in range(t1):
+        for b in range(t1):
+            got = hp.series(block[a, b].double(), u, cheb.degree)
+            if a == 0 or b == 0:
+                assert max(float(g.abs().max()) for g in got) == 0.0
+                continue
+            want = []
+            for base in (0, T):
+                c00, c01, c10, c11 = (raw[base + int(i)] if i >= 0 else zero
+                                      for i in ids[a, b])
+                want += [c00, c10 - c00, c01 - c00,
+                         (c11 - c01) - (c10 - c00)]
+            scale = max(float(r.abs().max()) for r in raw)
+            for r, (g, w) in enumerate(zip(got, want)):
+                err = float((g - w).abs().max())
+                assert err <= 1e-12 * scale, (a, b, r, err, scale)
+
+
+def mixed_rows():
+    """chip_smoke.mixed_bethe's 2-type bank: (cheb, ids, block)."""
+    import chip_smoke
+    from lammps_ucg_dev_tpu_torch.ops import chebtab
+
+    bank, tp = chip_smoke.mixed_bank("cpu")
+    cheb = chebtab.fit_bank(bank)
+    ids = tp.tab4.reshape(tp.ntypes + 1, tp.ntypes + 1, 4).numpy()
+    return cheb, ids, hp.kernel_rows(cheb, tp, True, True, torch.float64)
+
+
+@pytest.mark.parametrize("case", ["mixed_bethe", "missing_tables"])
+def test_pair_rows_match_raw_dform(case):
+    cheb, ids, block = mixed_rows()
+    if case == "missing_tables":
+        # type pair (1, 2) without its 01/11 tables, (2, 1) with none
+        ids = ids.copy()
+        ids[1, 2, [1, 3]] = -1
+        ids[2, 1] = -1
+        block = torch.as_tensor(
+            hp.dform_block(cheb.coeffs.double().numpy(), ids))
+        assert float(block[2, 1].abs().max()) == 0.0
+        eA, eB, eC, eD = block[1, 2, :4]
+        assert torch.equal(eC, -eA) and torch.equal(eD, -eB)
+    assert_pair_rows_match_raw(cheb, ids, block)
+    with pytest.raises(ValueError):         # 4 actual types: no room
+        hp.dform_block(cheb.coeffs.double().numpy(),
+                       np.zeros((5, 5, 4), np.int64))

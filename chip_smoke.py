@@ -56,6 +56,13 @@ which raises on failure:
    of 20 steps, K8 on every step, with its launch count set to 0 just
    before and read just after.
 
+Each check of a kernel against its twin also launches the kernel twice
+and requires the same bits (K1, K6 and K7 run on the tile walk of
+``csrc/colspan.cuh``, which sums in queue order).  Each of the four
+column main paths (4, 8, 11) ends with D1, the dangerous-build check: the
+in-cutoff pairs of the column list carried since the last rebuild against
+those of a fresh build on the same positions, printed, not gated.
+
 The line before the last is a JSON object of the kernels on the main paths
 (times, errors, launches and the bound each kernel's work puts on its time);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -289,7 +296,8 @@ def hold(label: str, name: str, kernel, twin, args, kw, kernel_reps: int,
     its largest magnitude (the columns in ``exact``, counts, exactly); with
     an observing variant's per-slot rows summed, pe within TOL relative,
     the virial within TOL times its largest component and the inner-cutoff
-    count exactly."""
+    count exactly.  A second launch must give the same bits: no kernel
+    uses atomics, so each sums in an order its inputs fix."""
     import torch
 
     def pair(r):
@@ -301,6 +309,10 @@ def hold(label: str, name: str, kernel, twin, args, kw, kernel_reps: int,
     out_t, part_t = pair(twin(*args, **kw))
     torch.cuda.synchronize()
     errs, bad = {}, []
+    out_2, part_2 = pair(kernel(*args, **kw))
+    if not (torch.equal(out_k, out_2)
+            and (part_k is None or torch.equal(part_k, part_2))):
+        bad.append("two launches on the same inputs differ")
 
     def gate(key, diff, ref, is_exact=False):
         err, scale = float(diff.abs().max()), float(ref.abs().max())
@@ -393,8 +405,43 @@ def compare_k7(sim, label: str, kernel_reps: int, twin_reps: int,
             raise RuntimeError(f"{label} K7 L4 column {c} differs from K1 "
                                f"no-scores by {err:.3e} (scale {scale:.3e})")
     log(f"[{label}] K7 L4 vs K1 noscores kernel: max|diff| "
-        f"{float((l4 - k1).abs().max()):.3e}")
+        f"{float((l4 - k1).abs().max()):.3e}, bit-identical "
+        f"{bool(torch.equal(l4, k1))}")
     return res
+
+
+def missed_pairs(sim, label: str) -> int:
+    """D1, the dangerous-build check: the in-cutoff pairs that the column
+    list carried since the last rebuild gives at ``sim``'s current
+    positions, against a fresh ``colpack.build`` on the same positions.
+    Prints both counts and their difference; does not gate."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch.ops import colpack
+    from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+
+    state, spec = sim.state, sim.nbr_spec
+    dev = state.device
+    zeros = torch.zeros(state.n_atoms, dtype=torch.float32, device=dev)
+    L = state.box.lengths.float()
+    z = torch.zeros((), device=dev)
+    scal = torch.stack([L[0], L[1],
+                        torch.tensor(spec.cutoff ** 2, device=dev), z, z, z,
+                        z, z]).float()
+
+    def count(cl, x):
+        ipack, cols = colpack.pack(cl, state.box, x, zeros, zeros)
+        return sum(int(mask.sum()) for *_, mask in hp.span_pairs(
+            scal, cl.z0, cl.L, ipack, cols, mx=cl.mx, my=cl.my,
+            observe=False))
+
+    carried = count(sim._nbr, state.x)
+    x_w, _ = state.box.wrap(state.x, state.image)
+    fresh = count(colpack.build(x_w, state.box, spec), x_w)
+    log(f"[D1 {label}] in-cutoff pairs at the block end: carried list "
+        f"{carried}, fresh build {fresh}, difference {fresh - carried} "
+        f"(dangerous builds {sim.dangerous_builds})")
+    return fresh - carried
 
 
 def cluster_state(sim):
@@ -701,6 +748,7 @@ def run_density_main(device: str, style: str, card_name: str,
     launches = {name: dict(c.launches) for name, c in counters.items()}
     row = sim.thermo()
     steps_s = blocks * nre / wall
+    missed_pairs(sim, f"{style} n={n}")
     msg = (f"[{style} main n={n}] {blocks * nre} steps in {wall:.3f} s = "
            f"{steps_s:.2f} steps/s ({steps_s * n / 1e6:.2f} M "
            f"atom-steps/s) on {card_name}; temp {row['temp']:.6f} etotal "
@@ -779,35 +827,6 @@ def run_cluster_main(device: str, card_name: str, blocks: int = 5,
     return launches, steps_s
 
 
-def ptxas_summary(log_text: str) -> list[str]:
-    """One line per compiled kernel of nvcc's ``-Xptxas -v`` report: the
-    kernel with its template arguments, registers, shared memory and
-    spill bytes."""
-    import re
-
-    out, name, spill = [], None, ""
-    for line in log_text.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            k = re.search(r"([a-z_]+_kernel)(I.*E)?E[vP]", m.group(1))
-            targs = re.findall(r"L[bi](\d+)E", k.group(2) or "") if k else []
-            name = (k.group(1) if k else m.group(1)) + (
-                f"<{','.join(targs)}>" if targs else "")
-            spill = ""
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spill = f"spills {m.group(1)}/{m.group(2)} B"
-            continue
-        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
-        if m and name:
-            out.append(f"{name}: {m.group(1)} registers, {m.group(2) or 0} B "
-                       f"static smem, {spill}")
-            name = None
-    return out
-
-
 def finite_row(row: dict) -> bool:
     return all(v == v and abs(v) != float("inf")
                for v in row.values() if isinstance(v, float))
@@ -841,7 +860,7 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for name, nl in libs.items():
         log(f"  {name}: nvcc {nl.build_seconds:.1f} s -> {nl.path.name}")
-        for line in ptxas_summary(nl.log):
+        for line in cuda_lib.ptxas_summary(nl.log):
             log(f"    ptxas: {line}")
 
     # ---- 3. K1 vs its twin, and the K1 path vs the oracle ---------------
@@ -899,6 +918,7 @@ def main() -> int:
         raise RuntimeError(f"non-finite thermo: {row}")
     if row["oob_low"] != 0:
         raise RuntimeError(f"pairs below the table inner cutoff: {row}")
+    missed_pairs(sim, "UCG-LD n=2^20")
     del sim
 
     # ---- 5. NVE drift (bench.run_drift protocol) -------------------------
@@ -985,6 +1005,7 @@ def main() -> int:
         raise RuntimeError(f"pairs below the table inner cutoff: {row}")
     if not (p_lo >= 1e-6 and p_hi <= 1 - 1e-6):
         raise RuntimeError(f"ucgp outside [1e-6, 1-1e-6]: {p_lo}, {p_hi}")
+    missed_pairs(sim, "Bethe n=2^20")
     del sim
 
     # ---- 9. K5, K3/K4 and K6 vs their twins --------------------------------

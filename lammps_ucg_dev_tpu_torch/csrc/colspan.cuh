@@ -1,8 +1,9 @@
 // Shared device code of the column-span pair kernels (K1 ucgld_pair.cu,
-// K2–K4 bethe_pair.cu, and the walk of K5/K6 density_cv.cu and K7
-// ucgld_ablation.cu): the walk over a cluster's nine candidate spans, the
-// Chebyshev series of the table channels and the 2x2 state block in
-// D-form, and the compacting walk of K3/K4.  It is the counterpart of the
+// K2–K4 bethe_pair.cu, K5/K6 density_cv.cu and K7 ucgld_ablation.cu): the
+// walk over a cluster's nine candidate spans (K2, K5), the Chebyshev
+// series of the table channels and the 2x2 state block in D-form, the
+// compacting walk of K3/K4 and the tile walk of K1, K6 and K7 (one warp per
+// 8-slot cluster).  It is the counterpart of the
 // split in lammps_ucg_dev_tpu/ops/pallas_pair.py between the span
 // scaffolding (_kernel_colspan) and the per-candidate physics (_phys_tile),
 // which each style fills in.
@@ -20,7 +21,8 @@
 //          pair (ti, tj), zero where a state pair has no table
 //   out    (n_slots, 8) per-slot tallies; part (n_slots, 8) per-slot
 //          [pe vxx vyy vzz vxy vxz vyz oob] (observing variants)
-// One thread owns one i-slot and writes only its own rows: no atomics.
+// One thread (one warp in the tile walk) owns one i-slot (one 8-slot
+// cluster) and writes only its own rows: no atomics.
 
 #pragma once
 
@@ -371,6 +373,249 @@ __device__ __forceinline__ void for_each_pair_compact(
     }
     if (!more) break;
   }
+}
+
+// ---- the tile walk (K1, K6, K7) --------------------------------------------
+//
+// One warp per 8-slot i-cluster.  The cluster's nine spans are laid end to
+// end as one sequence of `total` candidates, and each step takes the next
+// 32 of them, one per lane: the x, y, z rows of a span are read by
+// coalesced loads, once per cluster instead of once per i-slot.  Each lane
+// tests its candidate against the cluster's 8 i-slots (their coordinates
+// held in registers by every lane; NaN for a slot without a real atom,
+// which then passes no test) under the same image shift and the same
+// 0 < rsq < cutsq (and valid j with CHECK_VALID) as for_each_pair.  A hit
+// (dx, dy, dz, candidate offset << 3 | owner) goes to the warp's queue at
+// the __popc prefix of that owner's ballot, owner by owner, two owners'
+// ballots at a time.  After every second owner, while 32 hits wait, each
+// lane runs the physics of one
+// (Phys, on full warps) and adds its NV values to its own column of
+// per-owner partial sums in shared memory; at the end each owner's 32
+// columns are added in a fixed order.  The step count, ceil(total / 32),
+// is warp-uniform: no lane idles on a shorter cluster, and every _sync
+// intrinsic sees all 32 lanes.  Every sum runs in an order the inputs
+// alone fix, so two launches on the same inputs give bit-identical
+// outputs.  Only hits enter the queue (F2); a lane without one computes on
+// a finite dummy entry whose result is never taken.
+
+constexpr int kTileQueue = 128;  // <= 31 waiting + <= 64 appended per check
+
+// One warp's shared memory.  Phys reads its per-owner data (odata, which
+// the kernel fills) by the owner index of the pair.
+template <int NV>
+struct TileShared {
+  float4 owner[8];             // x y z of the cluster's i-slots (NaN: none)
+  float4 odata[8];             // the kernel's per-owner data
+  int4 span[kNsten + 1];       // [first index, offset - first, shx, shy]
+  float4 queue[kTileQueue];    // [dx dy dz (offset << 3 | owner)]
+  float acc[8 * NV * 32];      // partial sums, [owner][value][lane]
+};
+
+// Warps per block: 4, or 2 where the partial sums of a variant with many
+// tallies would take a block of 4 past 48 KB of static shared memory.
+template <int NV>
+struct Tile {
+  static constexpr int kWarps = NV > 8 ? 2 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+};
+
+template <int NV>
+inline int tile_grid(int n_slots) {
+  return ((n_slots >> 3) + Tile<NV>::kWarps - 1) / Tile<NV>::kWarps;
+}
+
+// Lanes 0..7: the ipack rows of i-slot 8c + lane, whose coordinates go to
+// owner[lane] (NaN unless the slot holds a real atom).  Returns whether it
+// does.
+template <int NV>
+__device__ __forceinline__ bool tile_owner(const PairArgs& a, int c,
+                                           TileShared<NV>& sh, float4& ia,
+                                           float4& ib) {
+  const int lane = threadIdx.x & 31;
+  const int t = c * 8 + lane;
+  ia = reinterpret_cast<const float4*>(a.ipack)[2 * t];
+  ib = reinterpret_cast<const float4*>(a.ipack)[2 * t + 1];
+  const bool real = ib.y > 0.5f;
+  const float nan = __int_as_float(0x7fffffff);
+  sh.owner[lane] = real ? make_float4(ia.x, ia.y, ia.z, 0.f)
+                        : make_float4(nan, nan, nan, 0.f);
+  return real;
+}
+
+// The nine spans of cluster c laid end to end: span[s] = [index of its
+// first candidate in the sequence, its cols offset minus that index, its
+// image shift]; span[kNsten].x = the total, which is returned (uniform).
+__device__ __forceinline__ int tile_spans(const PairArgs& a, int c,
+                                          int4* span) {
+  const int lane = threadIdx.x & 31;
+  const int mx = a.mx, my = a.my;
+  const int col = c / (a.cz >> 3);
+  const int cx = col / my;
+  const int cy = col - cx * my;
+  int len = 0, off = 0;
+  float shx = 0.f, shy = 0.f;
+  if (lane < kNsten) {
+    const size_t sb = static_cast<size_t>(c) * kNsten + lane;
+    len = max(a.span_len[sb], 0);
+    // the neighbour column and its periodic image, as the compacting walk
+    // takes them (cx + sx - 1 lies in [-1, mx])
+    int ax = cx + lane / 3 - 1, ay = cy + lane % 3 - 1;
+    const int kx = ax < 0 ? 0 : (ax >= mx ? 2 : 1);
+    const int ky = ay < 0 ? 0 : (ay >= my ? 2 : 1);
+    ax += (1 - kx) * mx;
+    ay += (1 - ky) * my;
+    shx = static_cast<float>(kx - 1) * a.scal[0];
+    shy = static_cast<float>(ky - 1) * a.scal[1];
+    off = (ax * my + ay) * 8 * a.czp + a.span_z0[sb];
+  }
+  int incl = len;                            // inclusive prefix sum
+#pragma unroll
+  for (int d = 1; d < 16; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
+  }
+  const int total = __shfl_sync(kFull, incl, kNsten - 1);
+  if (lane < kNsten) {
+    span[lane] = make_int4(incl - len, off - (incl - len),
+                           __float_as_int(shx), __float_as_int(shy));
+  } else if (lane == kNsten) {
+    span[kNsten] = make_int4(total, 0, 0, 0);
+  }
+  return total;
+}
+
+// The cols offset of candidate k (< total) and its image shift; s is the
+// lane's span cursor, which only moves forward.
+__device__ __forceinline__ int tile_offset(const int4* span, int k, int& s,
+                                           float& shx, float& shy) {
+  while (k >= span[s + 1].x) ++s;
+  const int4 sp = span[s];
+  shx = __int_as_float(sp.z);
+  shy = __int_as_float(sp.w);
+  return sp.y + k;
+}
+
+// The physics of n <= 32 queued hits from `head`, one per lane, added to
+// the lanes' columns of partial sums.  phys(owner, jc, dx, dy, dz, rsq, v)
+// writes a pair's NV values.
+template <class Phys>
+__device__ __forceinline__ void tile_batch(TileShared<Phys::NV>& sh,
+                                           int head, int n, int lane,
+                                           const Phys& phys) {
+  constexpr int NV = Phys::NV;
+  const bool has = lane < n;
+  const float4 e = has ? sh.queue[(head + lane) & (kTileQueue - 1)]
+                       : make_float4(1.f, 0.f, 0.f, 0.f);
+  const int code = __float_as_int(e.w);
+  const int o = code & 7;
+  float v[NV];
+  phys(o, code >> 3, e.x, e.y, e.z, e.x * e.x + e.y * e.y + e.z * e.z, v);
+  if (has) {
+    float* acc = sh.acc + o * (NV * 32) + lane;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) acc[k * 32] += v[k];
+  }
+}
+
+// Walk cluster c's candidates against its 8 i-slots (owner[], which lanes
+// 0..7 have written, tile_owner) and run `phys` on the pairs with
+// 0 < rsq < cutsq (and a valid j-slot when CHECK_VALID) in full warps.
+// Afterwards tile_sum(sh, o, k) is value k of owner o.  Every lane of the
+// warp must call it.
+template <bool CHECK_VALID, class Phys>
+__device__ __forceinline__ void for_each_pair_tile(const PairArgs& a, int c,
+                                                   TileShared<Phys::NV>& sh,
+                                                   const Phys& phys) {
+  constexpr int NV = Phys::NV;
+  const float* __restrict__ cols = a.cols;
+  const int czp = a.czp;
+  const float cutsq = a.scal[2];
+  const int lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;
+  const float nan = __int_as_float(0x7fffffff);
+  const int total = tile_spans(a, c, sh.span);
+#pragma unroll 4
+  for (int i = lane; i < 8 * NV * 32; i += 32) sh.acc[i] = 0.f;
+  __syncwarp();                  // the owners, the spans and the sums
+  int head = 0, tail = 0, s = 0;     // the queue holds [head, tail)
+  float ox[8], oy[8], oz[8];         // the i-slots, in registers
+#pragma unroll
+  for (int o = 0; o < 8; ++o) {
+    const float4 w = sh.owner[o];
+    ox[o] = w.x;
+    oy[o] = w.y;
+    oz[o] = w.z;
+  }
+  for (int k0 = 0; k0 < total; k0 += 32) {
+    const int k = k0 + lane;
+    int jc = 0;
+    float xj = nan, yj = nan, zj = nan;   // past the end: no hit
+    if (k < total) {
+      float shx, shy;
+      jc = tile_offset(sh.span, k, s, shx, shy);
+      xj = cols[jc] + shx;
+      yj = cols[jc + czp] + shy;
+      zj = cols[jc + 2 * czp];
+      if (CHECK_VALID && !(cols[jc + 5 * czp] > 0.5f)) xj = nan;
+    }
+    const int jc8 = jc << 3;
+#pragma unroll
+    for (int o = 0; o < 8; o += 2) {
+      const float ax = ox[o] - xj, ay = oy[o] - yj, az = oz[o] - zj;
+      const float bx = ox[o + 1] - xj, by = oy[o + 1] - yj,
+                  bz = oz[o + 1] - zj;
+      const float ra = ax * ax + ay * ay + az * az;
+      const float rb = bx * bx + by * by + bz * bz;
+      const bool ha = ra < cutsq && ra > 0.f;
+      const bool hb = rb < cutsq && rb > 0.f;
+      const unsigned ma = __ballot_sync(kFull, ha);
+      const unsigned mb = __ballot_sync(kFull, hb);
+      const int na = __popc(ma);
+      if (ha) {
+        sh.queue[(tail + __popc(ma & lt)) & (kTileQueue - 1)] =
+            make_float4(ax, ay, az, __int_as_float(jc8 | o));
+      }
+      if (hb) {
+        sh.queue[(tail + na + __popc(mb & lt)) & (kTileQueue - 1)] =
+            make_float4(bx, by, bz, __int_as_float(jc8 | (o + 1)));
+      }
+      tail += na + __popc(mb);
+      while (tail - head >= 32) {
+        __syncwarp();            // the appends, for every lane
+        tile_batch(sh, head, 32, lane, phys);
+        head += 32;
+        __syncwarp();            // reads done before reuse
+      }
+    }
+  }
+  const int count = tail - head;
+  if (count > 0) {
+    __syncwarp();
+    tile_batch(sh, head, count, lane, phys);
+  }
+  __syncwarp();
+  // each owner's 32 columns, added from a lane-rotated start (no bank
+  // conflicts) in a fixed order; the sum lands in the row's first entry
+  for (int p = lane; p < 8 * NV; p += 32) {
+    float* row = sh.acc + p * 32;
+    float sum = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < 32; ++i) sum += row[(i + lane) & 31];
+    row[0] = sum;
+  }
+  __syncwarp();
+}
+
+template <int NV>
+__device__ __forceinline__ float tile_sum(const TileShared<NV>& sh, int o,
+                                          int k) {
+  return sh.acc[(o * NV + k) * 32];
+}
+
+// The launchers' check of the tile walk's entry code: every cols offset
+// shifted left by 3 fits an int.
+inline bool tile_fits(int mx, int my, int czp) {
+  return static_cast<long long>(mx) * my * 8 * czp <= (1LL << 28);
 }
 
 // pe, virial and inner-cutoff count of one i-slot (observing variants).

@@ -7,13 +7,14 @@
 // (:1633) and compute_rleucg (:1844) call them in passes 1 and 3.  Their
 // plain PyTorch twins are lammps_ucg_dev_tpu_torch/ops/hopper_cv.py:
 // cv_rho_reference and cv_force_reference, which take the same arguments
-// and return the same outputs.  The span walk is K1's (colspan.cuh).
+// and return the same outputs.  Their walks are in colspan.cuh.
 //
 // Inputs as K1's (no coefficient rows): scal [Lx Ly cutsq ...], the spans,
 // ipack rows [x y z c state valid c typ] and the extended columns; c is
 // the per-atom CV weight cvf in pass 3 (attr 3 of the candidates, attr 6
 // of the i-slot), typ (attr 7) the type that indexes `rad`, the proximity
-// radius R per type (PERTYPE) or one radius rad[0] for every atom.
+// radius R per type (PERTYPE, at most kMaxRad entries) or one radius
+// rad[0] for every atom.
 // For every real i-slot and candidate j with 0 < rsq < cutsq, in f32, with
 // r = sqrt(rsq) and t_a = tanh((r - R_a) / (0.1 R_a)):
 //   K5 (rho): rho += 0.5 (1 - t_i); n += 1            out (n_slots, 2)
@@ -28,11 +29,17 @@
 // write zero rows.
 //
 // Bound: FMA/SFU throughput — per in-cutoff pair one sqrt, one or two tanh
-// and two or three IEEE divisions against 12-20 bytes of broadcast j
-// attributes; ~90% of the candidates fail the cutoff test after 10 flops.
-// Design as K1: one thread per i-slot, no atomics, the cutoff test a
-// branch (pad poison never reaches a tally), plain tanhf/sqrtf and IEEE
-// division (no fast-math).  Making it fast is later work.
+// and two or three divisions against 12-20 bytes of j attributes; ~90% of
+// the candidates fail the cutoff test after 10 flops.  K5: one thread per
+// i-slot on the span walk (colspan::for_each_pair), no atomics, the
+// cutoff test a branch (pad poison never reaches a tally).  K6: the tile
+// walk (colspan::for_each_pair_tile), one warp per 8-slot cluster, each
+// candidate loaded once per cluster and tested against its 8 i-slots, the
+// in-cutoff pairs run 32 at a time on full warps; per pair one rsqrtf gives
+// 1/r and r = rsq (1/r), and the divisions by 0.1 R become products with
+// 1/(0.1 R), taken once per i-slot (the owner) and once per type (the
+// partner, a table in shared memory).  tanhf stays as the twin takes it;
+// no fast-math flag.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (ops/cuda_lib.py).  Plain C entry point, loaded
@@ -44,6 +51,9 @@ namespace {
 
 using colspan::kBlock;
 using colspan::PairArgs;
+using colspan::Tile;
+
+constexpr int kMaxRad = 16;   // K6: entries of the per-type radius table
 
 enum GForm : int { kMder = 0, kPder = 1, kW = 2 };
 
@@ -75,39 +85,54 @@ struct RhoTally {
   }
 };
 
+// K6: the physics of one queued pair on the tile walk.  Per-owner data
+// odata[o] = [c_i, R_i, 1/(0.1 R_i), 0]; rad1[t] = [R_t, 1/(0.1 R_t)] per
+// type (PERTYPE).  Values: Fx Fy Fz, then with OBSERVE the six virial sums.
 template <int GFORM, bool OBSERVE, bool PERTYPE>
-struct CvTally {
-  const CvArgs* a;
-  int czp;
-  float ri, ci;
-  float fx = 0.f, fy = 0.f, fz = 0.f;
-  colspan::Observed obs;
+struct CvPair {
+  static constexpr int NV = OBSERVE ? 9 : 3;
 
-  __device__ __forceinline__ float g(float t, float R) const {
+  const float* cols;
+  const float4* odata;    // the warp's per-owner data in shared memory
+  const float2* rad1;     // the per-type radii in shared memory
+  int czp, ntypes1;
+
+  // g of proximity weight tanh t at radius R, inv = 1/(0.1 R)
+  __device__ __forceinline__ static float g(float t, float inv) {
     if constexpr (GFORM == kW) {
       return 0.5f * (1.f - t);
     } else {
       constexpr float sgn = GFORM == kMder ? -0.5f : 0.5f;
-      return sgn * (1.f - t * t) / (0.1f * R);
+      return sgn * (1.f - t * t) * inv;
     }
   }
 
-  __device__ __forceinline__ void operator()(const float* cj, int j, float dx,
-                                             float dy, float dz, float rsq) {
-    const float r = sqrtf(rsq);
-    const float ti = tanhf((r - ri) / (0.1f * ri));
-    float gi = g(ti, ri), gj;
+  __device__ __forceinline__ void operator()(int o, int jc, float dx,
+                                             float dy, float dz, float rsq,
+                                             float (&v)[NV]) const {
+    const float4 od = odata[o];
+    const float rinv = rsqrtf(rsq);
+    const float r = rsq * rinv;
+    const float gi = g(tanhf((r - od.y) * od.z), od.z);
+    float gj = gi;
     if constexpr (PERTYPE) {
-      const float rj = radius_of<true>(*a, cj[7 * czp + j]);
-      gj = g(tanhf((r - rj) / (0.1f * rj)), rj);
-    } else {
-      gj = gi;
+      const int t = min(max(static_cast<int>(cols[jc + 7 * czp]), 0),
+                        ntypes1 - 1);
+      const float2 rj = rad1[t];
+      gj = g(tanhf((r - rj.x) * rj.y), rj.y);
     }
-    const float fcv = (ci * gi + cj[3 * czp + j] * gj) / r;
-    fx += fcv * dx;
-    fy += fcv * dy;
-    fz += fcv * dz;
-    if constexpr (OBSERVE) obs.add(0.f, fcv, dx, dy, dz, false);
+    const float fcv = (od.x * gi + cols[jc + 3 * czp] * gj) * rinv;
+    v[0] = fcv * dx;
+    v[1] = fcv * dy;
+    v[2] = fcv * dz;
+    if constexpr (OBSERVE) {
+      v[3] = fcv * dx * dx;
+      v[4] = fcv * dy * dy;
+      v[5] = fcv * dz * dz;
+      v[6] = fcv * dx * dy;
+      v[7] = fcv * dx * dz;
+      v[8] = fcv * dy * dz;
+    }
   }
 };
 
@@ -126,31 +151,53 @@ cv_rho_kernel(const __grid_constant__ CvArgs a) {
   reinterpret_cast<float2*>(a.p.out)[t] = make_float2(tal.rho, tal.cnt);
 }
 
+// The fast variants at most 64 registers (8 blocks of 128 threads an SM).
 template <int GFORM, bool OBSERVE, bool PERTYPE>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(
+    Tile<CvPair<GFORM, OBSERVE, PERTYPE>::NV>::kThreads, OBSERVE ? 1 : 8)
 cv_force_kernel(const __grid_constant__ CvArgs a) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= a.p.n_slots) return;
-  const float4 ia = reinterpret_cast<const float4*>(a.p.ipack)[2 * t];
-  const float4 ib = reinterpret_cast<const float4*>(a.p.ipack)[2 * t + 1];
-  CvTally<GFORM, OBSERVE, PERTYPE> tal;
-  if (ib.y > 0.5f) {
-    tal.a = &a;
-    tal.czp = a.p.czp;
-    tal.ri = radius_of<PERTYPE>(a, ib.w);
-    tal.ci = ib.z;
-    colspan::for_each_pair<OBSERVE>(a.p, t, ia.x, ia.y, ia.z, tal);
+  using Phys = CvPair<GFORM, OBSERVE, PERTYPE>;
+  constexpr int NV = Phys::NV;
+  __shared__ colspan::TileShared<NV> tiles[Tile<NV>::kWarps];
+  __shared__ float2 rad1[kMaxRad];
+  const int nrad = PERTYPE ? a.p.ntypes1 : 1;
+  for (int k = threadIdx.x; k < nrad; k += blockDim.x) {
+    rad1[k] = make_float2(a.rad[k], 1.f / (0.1f * a.rad[k]));
   }
-  reinterpret_cast<float4*>(a.p.out)[t] =
-      make_float4(tal.fx, tal.fy, tal.fz, 0.f);
-  if constexpr (OBSERVE) tal.obs.store(a.p.part, t);
+  __syncthreads();
+
+  const int cl = blockIdx.x * Tile<NV>::kWarps + (threadIdx.x >> 5);
+  if (cl >= (a.p.n_slots >> 3)) return;   // whole warps
+  colspan::TileShared<NV>& sh = tiles[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  if (lane < 8) {
+    float4 ia, ib;
+    colspan::tile_owner(a.p, cl, sh, ia, ib);
+    const int t = PERTYPE ? min(max(static_cast<int>(ib.w), 0), nrad - 1) : 0;
+    sh.odata[lane] = make_float4(ib.z, rad1[t].x, rad1[t].y, 0.f);
+  }
+  const Phys phys{a.p.cols, sh.odata, rad1, a.p.czp, nrad};
+  colspan::for_each_pair_tile<OBSERVE>(a.p, cl, sh, phys);
+  if (lane >= 8) return;
+  const int t = cl * 8 + lane;
+  const auto r = [&](int k) { return colspan::tile_sum(sh, lane, k); };
+  reinterpret_cast<float4*>(a.p.out)[t] = make_float4(r(0), r(1), r(2), 0.f);
+  if constexpr (OBSERVE) {
+    float4* p = reinterpret_cast<float4*>(a.p.part) + 2 * t;
+    p[0] = make_float4(0.f, r(3), r(4), r(5));
+    p[1] = make_float4(r(6), r(7), r(8), 0.f);
+  }
 }
 
 template <int G, bool O>
 void launch_cv(bool pertype, const CvArgs& a, cudaStream_t st) {
-  const int grid = colspan::grid_of(a.p.n_slots);
-  if (pertype) cv_force_kernel<G, O, true><<<grid, kBlock, 0, st>>>(a);
-  else cv_force_kernel<G, O, false><<<grid, kBlock, 0, st>>>(a);
+  constexpr int NV = CvPair<G, O, false>::NV;
+  const int grid = colspan::tile_grid<NV>(a.p.n_slots);
+  if (pertype) {
+    cv_force_kernel<G, O, true><<<grid, Tile<NV>::kThreads, 0, st>>>(a);
+  } else {
+    cv_force_kernel<G, O, false><<<grid, Tile<NV>::kThreads, 0, st>>>(a);
+  }
 }
 
 template <bool O>
@@ -165,8 +212,8 @@ void launch_cv_g(int gform, bool pertype, const CvArgs& a, cudaStream_t st) {
 // Returns 0 on success, else a cudaError_t code.  mode 0: K5 (rho; out
 // (n_slots, 2), no part, observe must be 0); mode 1: K6 (cv; out
 // (n_slots, 4), part (n_slots, 8) when observe) with gform 0 mder,
-// 1 pder, 2 w.  pertype: the radius comes from rad[typ] (nrad entries),
-// else rad[0] for every atom.
+// 1 pder, 2 w.  pertype: the radius comes from rad[typ] (nrad entries, at
+// most kMaxRad for K6), else rad[0] for every atom.
 extern "C" int density_cv_launch(
     const float* scal, const int* span_z0, const int* span_len,
     const float* ipack, const float* cols, const float* rad, float* out,
@@ -174,7 +221,9 @@ extern "C" int density_cv_launch(
     int mode, int gform, int observe, int pertype, void* stream) {
   if (n_slots <= 0 || (cz & 7) != 0 || nrad < 1 || rad == nullptr
       || mode < 0 || mode > 1 || gform < 0 || gform > 2
-      || (mode == 0 && observe) || (observe && part == nullptr)) {
+      || (mode == 0 && observe) || (observe && part == nullptr)
+      || (mode == 1 && ((pertype && nrad > kMaxRad)
+                        || !colspan::tile_fits(mx, my, czp)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const CvArgs a{PairArgs{scal, span_z0, span_len, ipack, cols, nullptr, out,

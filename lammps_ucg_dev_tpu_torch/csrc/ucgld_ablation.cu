@@ -8,19 +8,22 @@
 //
 // Inputs are K1's without scores (colspan.cuh): scal [Lx Ly cutsq innersq
 // uscale uoff 0 0], the (z0, L) spans, ipack, cols and the six single-type
-// D-form rows [eB eD fA fB fC fD].  One thread owns one i-slot; invalid
-// i-slots write zero rows.  Output (n_slots, 8), per level:
-//   L0  Σ over every candidate of the span walk of x_j + its column's
-//       image shift (column 0).  The TPU's L0 timed its window DMAs and
-//       the xy shift; the port has no windows, so its L0 is the floor of
-//       the span walk itself: the span reads, one load and one add per
-//       candidate, no cutoff test.
-//   L1  + geometry: Σ rsq over 0 < rsq < cutsq (column 0).
+// D-form rows [eB eD fA fB fC fD].  Every level runs on K1's tile walk (one
+// warp per 8-slot cluster, colspan::for_each_pair_tile); slots without a
+// real atom write zero rows.  Output (n_slots, 8), per level:
+//   L0  Σ over every candidate of the cluster's spans of x_j + its
+//       column's image shift (column 0): the walk's span table and one
+//       coalesced load per candidate and cluster, no test, no queue.  The
+//       TPU's L0 timed its window DMAs; the port has no windows.
+//   L1  + geometry, the test against the cluster's 8 i-slots, the queue
+//       and the per-owner sums of full-warp batches: Σ rsq over
+//       0 < rsq < cutsq (column 0).
 //   L2  + the u map and the Chebyshev recurrence: Σ T_{degree-1}(u).
 //   L3  + the six D-form accumulators: Σ (row 0 + row 5).
-//   L4  + the D-form mix: fx fy fz lamf, K1's no-scores variant.
-// Self is excluded by rsq > 0 (the span walk's test), so L1–L4 are sums
-// over pairs whatever the slot geometry.
+//   L4  + the D-form mix: fx fy fz lamf, K1's no-scores variant, from the
+//       same definition (ucgld_phys.cuh), so bit-identical to it.
+// Self is excluded by rsq > 0 (the walk's test), so L1–L4 are sums over
+// pairs whatever the slot geometry.
 //
 // Bound: as K1 — operations from L2 on; L0/L1 are the walk's loads.
 //
@@ -28,53 +31,30 @@
 //        -Xcompiler -fPIC (ops/cuda_lib.py).  Plain C entry point, loaded
 // with ctypes; it returns cudaGetLastError() of the launch.
 
-#include "colspan.cuh"
+#include "ucgld_phys.cuh"
 
 namespace {
 
-using colspan::kBlock;
+using colspan::kFull;
 using colspan::kMaxDeg;
-using colspan::kNsten;
 using colspan::PairArgs;
+using colspan::Tile;
+using colspan::TileShared;
 
 constexpr int kRows = 6;
 
-// L0: every candidate of the nine spans, no cutoff test.
-__device__ __forceinline__ float walk_floor(const PairArgs& a, int t) {
-  const int czp = a.czp, mx = a.mx, my = a.my;
-  const int cpc = a.cz >> 3;
-  const int col = t / a.cz;
-  const int b = (t - col * a.cz) >> 3;
-  const int cx = col / my;
-  const int cy = col - cx * my;
-  const size_t sbase = (static_cast<size_t>(col) * cpc + b) * kNsten;
-  const float Lx = a.scal[0];
-  float acc = 0.f;
-  for (int s = 0; s < kNsten; ++s) {
-    const int len = a.span_len[sbase + s];
-    if (len <= 0) continue;
-    const int ax = cx + s / 3 - 1 + mx;
-    const int ay = cy + s % 3 - 1 + my;
-    const float shx = static_cast<float>(ax / mx - 1) * Lx;
-    const float* cj =
-        a.cols + static_cast<size_t>((ax % mx) * my + ay % my) * 8 * czp;
-    const int j0 = a.span_z0[sbase + s];
-    for (int j = j0; j < j0 + len; ++j) acc += cj[j] + shx;
-  }
-  return acc;
-}
-
+// L1–L3: one value a pair.  odata unused.
 template <int LEVEL>
-struct AblationTally {
+struct AblationPair {
+  static constexpr int NV = 1;
   const float* c;      // coefficient rows in shared memory
-  int degree, czp;
-  float li, uscale, uoff;
-  float fx = 0.f, fy = 0.f, fz = 0.f, lamf = 0.f;
+  int degree;
+  float uscale, uoff;
 
-  __device__ __forceinline__ void operator()(const float* cj, int j, float dx,
-                                             float dy, float dz, float rsq) {
+  __device__ __forceinline__ void operator()(int, int, float, float, float,
+                                             float rsq, float (&v)[1]) const {
     if constexpr (LEVEL == 1) {
-      fx += rsq;
+      v[0] = rsq;
     } else {
       const float u = fmaxf(rsq * uscale + uoff, -1.f);
       if constexpr (LEVEL == 2) {
@@ -85,59 +65,80 @@ struct AblationTally {
           tm2 = tm1;
           tm1 = tk;
         }
-        fx += tm1;
+        v[0] = tm1;
       } else {
         float acc[kRows];
         colspan::series<kRows>(c, degree, u, acc);
-        if constexpr (LEVEL == 3) {
-          fx += acc[0] + acc[5];
-        } else {
-          // [eB eD fA fB fC fD]: K1's no-scores D-form
-          const float lj = cj[3 * czp + j];
-          const float fmix = acc[2] + li * acc[3] + lj * acc[4]
-                             + (li * lj) * acc[5];
-          fx += fmix * dx;
-          fy += fmix * dy;
-          fz += fmix * dz;
-          lamf -= acc[0] + lj * acc[1];
-        }
+        v[0] = acc[0] + acc[5];
       }
     }
   }
 };
 
+// L0: cluster cl's candidate sum, on every lane.
+__device__ __forceinline__ float walk_floor(const PairArgs& a, int cl,
+                                            int4* span) {
+  const int lane = threadIdx.x & 31;
+  const int total = colspan::tile_spans(a, cl, span);
+  __syncwarp();
+  float acc = 0.f;
+  int s = 0;
+  for (int k = lane; k < total; k += 32) {
+    float shx, shy;
+    const int jc = colspan::tile_offset(span, k, s, shx, shy);
+    acc += a.cols[jc] + shx;
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) acc += __shfl_xor_sync(kFull, acc, d);
+  return acc;
+}
+
 template <int LEVEL>
-__global__ void __launch_bounds__(kBlock)
+struct Level {
+  static constexpr int NV = LEVEL == 4 ? 4 : 1;
+};
+
+template <int LEVEL>
+__global__ void __launch_bounds__(Tile<Level<LEVEL>::NV>::kThreads, 8)
 ucgld_ablation_kernel(const __grid_constant__ PairArgs a) {
+  constexpr int NV = Level<LEVEL>::NV;
   __shared__ float c[kRows * kMaxDeg];
+  __shared__ TileShared<NV> tiles[Tile<NV>::kWarps];
   colspan::stage_coef(c, a.coef, kRows * a.degree);
 
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= a.n_slots) return;
-  const float4 ia = reinterpret_cast<const float4*>(a.ipack)[2 * t];
-  const float4 ib = reinterpret_cast<const float4*>(a.ipack)[2 * t + 1];
-  AblationTally<LEVEL> tal;
-  if (ib.y > 0.5f) {   // i-slot holds a real atom
+  const int cl = blockIdx.x * Tile<NV>::kWarps + (threadIdx.x >> 5);
+  if (cl >= (a.n_slots >> 3)) return;     // whole warps
+  TileShared<NV>& sh = tiles[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  float r[4] = {0.f, 0.f, 0.f, 0.f};
+  if constexpr (LEVEL == 4) {
+    colspan::ucgld_tile<false, false, false>(a, c, cl, sh, r);
+  } else {
+    bool real = false;
+    if (lane < 8) {
+      float4 ia, ib;
+      real = colspan::tile_owner(a, cl, sh, ia, ib);
+    }
     if constexpr (LEVEL == 0) {
-      tal.fx = walk_floor(a, t);
+      const float sum = walk_floor(a, cl, sh.span);
+      r[0] = real ? sum : 0.f;
     } else {
-      tal.c = c;
-      tal.degree = a.degree;
-      tal.czp = a.czp;
-      tal.li = ia.w;
-      tal.uscale = a.scal[4];
-      tal.uoff = a.scal[5];
-      colspan::for_each_pair<false>(a, t, ia.x, ia.y, ia.z, tal);
+      const AblationPair<LEVEL> phys{c, a.degree, a.scal[4], a.scal[5]};
+      colspan::for_each_pair_tile<false>(a, cl, sh, phys);
+      if (lane < 8) r[0] = colspan::tile_sum(sh, lane, 0);
     }
   }
-  colspan::store_out(a.out, t, make_float4(tal.fx, tal.fy, tal.fz, tal.lamf),
+  if (lane >= 8) return;
+  colspan::store_out(a.out, cl * 8 + lane,
+                     make_float4(r[0], r[1], r[2], r[3]),
                      make_float4(0.f, 0.f, 0.f, 0.f));
 }
 
 template <int LEVEL>
 void launch(const PairArgs& a, cudaStream_t stream) {
-  ucgld_ablation_kernel<LEVEL>
-      <<<colspan::grid_of(a.n_slots), kBlock, 0, stream>>>(a);
+  constexpr int NV = Level<LEVEL>::NV;
+  ucgld_ablation_kernel<LEVEL><<<colspan::tile_grid<NV>(a.n_slots),
+                                 Tile<NV>::kThreads, 0, stream>>>(a);
 }
 
 }  // namespace
@@ -149,7 +150,7 @@ extern "C" int ucgld_ablation_launch(
     int n_slots, int mx, int my, int cz, int czp, int degree, int level,
     void* stream) {
   if (degree < 2 || degree > kMaxDeg || n_slots <= 0 || (cz & 7) != 0
-      || level < 0 || level > 4) {
+      || level < 0 || level > 4 || !colspan::tile_fits(mx, my, czp)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const PairArgs a{scal, span_z0, span_len, ipack, cols, coef, out, nullptr,

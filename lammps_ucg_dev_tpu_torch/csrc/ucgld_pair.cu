@@ -4,9 +4,9 @@
 // _kernel_colspan (and its window twin _kernel) with style="ucgld"; the
 // per-candidate physics is that file's _phys_tile.  Its plain PyTorch twin
 // is lammps_ucg_dev_tpu_torch/ops/hopper_pair.py:ucgld_pair_reference, which
-// takes the same arguments and returns the same outputs.  The span walk,
+// takes the same arguments and returns the same outputs.  The tile walk,
 // the Chebyshev series and the D-form channels live in colspan.cuh, shared
-// with K2–K4 (bethe_pair.cu).
+// with K2–K7; the pair physics in ucgld_phys.cuh, shared with K7's level 4.
 //
 // What it computes, for every real i-slot of the column list
 // (ops/colpack.py), over each candidate j with 0 < rsq < cutsq:
@@ -19,103 +19,67 @@
 // rows.  Outputs: out [fx fy fz lamf s0 s1 0 0], part (observe).
 //
 // Bound: FMA throughput.  A candidate inside the cutoff costs ~10*degree+60
-// flops against 32 bytes of j attributes, and those bytes are a broadcast:
-// the 8 threads of a cluster read the same addresses, and the column array
-// (~50 MB at 2^20 atoms) mostly stays in L2.  wgmma and TMA do not apply:
-// the work is a variable-length candidate loop with gathers, not a tiled
-// matrix product.  Making it fast — staging a cluster's spans in shared
-// memory, one warp per cluster, skipping the series for the ~90% of
-// candidates outside the cutoff warp-wide — is later work.
+// flops against 32 bytes of j attributes; ~90% of the candidates fail the
+// cutoff test after ~10 flops.  wgmma and TMA do not apply: the work is a
+// variable-length candidate loop with gathers, not a tiled matrix product.
+// Design: the tile walk (colspan::for_each_pair_tile), one warp per 8-slot
+// i-cluster.  Each candidate is loaded once per cluster, by coalesced
+// loads, and tested against the cluster's 8 i-slots; the in-cutoff pairs
+// queue in shared memory and their series and mix run 32 at a time, on
+// full warps, so the ~90% of candidates outside the cutoff skip the series
+// warp-wide.  Sums are taken in queue order: no atomics, and two launches
+// on the same inputs give bit-identical outputs.  The fast variants stay
+// at 64 registers (8 blocks of 128 threads an SM).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (ops/cuda_lib.py).  Plain C entry point, loaded
 // with ctypes; it returns cudaGetLastError() of the launch.
 
-#include "colspan.cuh"
+#include "ucgld_phys.cuh"
 
 namespace {
 
-using colspan::kBlock;
 using colspan::kMaxDeg;
 using colspan::PairArgs;
-
-// The per-candidate physics of one i-slot and its tallies.  OBSERVE: also
-// tally pe/virial/oob.  SCORES: tally the two score channels.  MULTI: the
-// D-form rows [eA eB eC eD fA fB fC fD] of each ordered type pair (ti, tj)
-// (up to 3 actual types); otherwise the host passes those 8 rows (or
-// [eB eD fA fB fC fD] without scores).
-template <bool OBSERVE, bool SCORES, bool MULTI>
-struct UcgldTally {
-  static constexpr int NR = (MULTI || OBSERVE || SCORES) ? 8 : 6;
-  const float* c;      // coefficient rows in shared memory
-  int degree, czp, ntypes1, ti;
-  float li, uscale, uoff, innersq;
-  float fx = 0.f, fy = 0.f, fz = 0.f, lamf = 0.f, s0 = 0.f, s1 = 0.f;
-  colspan::Observed obs;
-
-  __device__ __forceinline__ void operator()(const float* cj, int j, float dx,
-                                             float dy, float dz, float rsq) {
-    const float lj = cj[3 * czp + j];
-    const int tj = MULTI ? static_cast<int>(cj[7 * czp + j]) : 0;
-    float acc[NR];
-    colspan::series<NR>(colspan::pair_rows<MULTI>(c, degree, ntypes1, ti, tj),
-                        degree, fmaxf(rsq * uscale + uoff, -1.f), acc);
-    const colspan::Channels ch = colspan::channels<NR>(acc);
-
-    const float wD = li * lj;
-    const float fmix = ch.fA + li * ch.fB + lj * ch.fC + wD * ch.fD;
-    fx += fmix * dx;
-    fy += fmix * dy;
-    fz += fmix * dz;
-    lamf -= ch.eB + lj * ch.eD;
-    if constexpr (OBSERVE) {
-      obs.add(ch.eA + li * ch.eB + lj * ch.eC + wD * ch.eD, fmix, dx, dy, dz,
-              rsq < innersq);
-    }
-    if constexpr (SCORES) {
-      const float sj = cj[4 * czp + j];
-      s0 -= ch.eA + sj * ch.eC;
-      s1 -= (ch.eA + ch.eB) + sj * (ch.eC + ch.eD);
-    }
-  }
-};
+using colspan::Tile;
+using colspan::UcgldPair;
 
 template <bool OBSERVE, bool SCORES, bool MULTI>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(
+    Tile<UcgldPair<OBSERVE, SCORES, MULTI>::NV>::kThreads, OBSERVE ? 1 : 8)
 ucgld_pair_kernel(const __grid_constant__ PairArgs a) {
-  using Tally = UcgldTally<OBSERVE, SCORES, MULTI>;
-  __shared__ float one[MULTI ? 1 : Tally::NR * kMaxDeg];
+  using Phys = UcgldPair<OBSERVE, SCORES, MULTI>;
+  constexpr int NV = Phys::NV;
+  __shared__ float one[MULTI ? 1 : Phys::NR * kMaxDeg];
   extern __shared__ float pairs[];
-  const float* c = colspan::stage_rows<MULTI>(one, pairs, a, Tally::NR);
+  __shared__ colspan::TileShared<NV> tiles[Tile<NV>::kWarps];
+  const float* c = colspan::stage_rows<MULTI>(one, pairs, a, Phys::NR);
 
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= a.n_slots) return;
-
-  const float4 ia = reinterpret_cast<const float4*>(a.ipack)[2 * t];
-  const float4 ib = reinterpret_cast<const float4*>(a.ipack)[2 * t + 1];
-  Tally tal;
-  if (ib.y > 0.5f) {   // i-slot holds a real atom
-    tal.c = c;
-    tal.degree = a.degree;
-    tal.czp = a.czp;
-    tal.ntypes1 = a.ntypes1;
-    tal.ti = static_cast<int>(ib.w);
-    tal.li = ia.w;
-    tal.innersq = a.scal[3];
-    tal.uscale = a.scal[4];
-    tal.uoff = a.scal[5];
-    colspan::for_each_pair<OBSERVE>(a, t, ia.x, ia.y, ia.z, tal);
+  const int cl = blockIdx.x * Tile<NV>::kWarps + (threadIdx.x >> 5);
+  if (cl >= (a.n_slots >> 3)) return;     // whole warps
+  float r[NV];
+  colspan::ucgld_tile<OBSERVE, SCORES, MULTI>(a, c, cl, tiles[threadIdx.x >> 5],
+                                              r);
+  const int lane = threadIdx.x & 31;
+  if (lane >= 8) return;
+  const int t = cl * 8 + lane;
+  colspan::store_out(a.out, t, make_float4(r[0], r[1], r[2], r[3]),
+                     make_float4(SCORES ? r[4] : 0.f, SCORES ? r[5] : 0.f,
+                                 0.f, 0.f));
+  if constexpr (OBSERVE) {
+    constexpr int o = Phys::NF;
+    float4* p = reinterpret_cast<float4*>(a.part) + 2 * t;
+    p[0] = make_float4(r[o], r[o + 1], r[o + 2], r[o + 3]);
+    p[1] = make_float4(r[o + 4], r[o + 5], r[o + 6], r[o + 7]);
   }
-
-  colspan::store_out(a.out, t, make_float4(tal.fx, tal.fy, tal.fz, tal.lamf),
-                     make_float4(tal.s0, tal.s1, 0.f, 0.f));
-  if constexpr (OBSERVE) tal.obs.store(a.part, t);
 }
 
 template <bool O, bool S, bool M>
 void launch(const PairArgs& a, cudaStream_t stream) {
-  ucgld_pair_kernel<O, S, M><<<colspan::grid_of(a.n_slots), kBlock,
-                               colspan::dyn_bytes<M>(a), stream>>>(a);
+  constexpr int NV = UcgldPair<O, S, M>::NV;
+  ucgld_pair_kernel<O, S, M><<<colspan::tile_grid<NV>(a.n_slots),
+                               Tile<NV>::kThreads, colspan::dyn_bytes<M>(a),
+                               stream>>>(a);
 }
 
 }  // namespace
@@ -130,7 +94,7 @@ extern "C" int ucgld_pair_launch(
     float* part, int n_slots, int mx, int my, int cz, int czp, int degree,
     int ntypes1, int observe, int scores, int multi, void* stream) {
   if (degree < 2 || degree > kMaxDeg || (observe && !scores) || n_slots <= 0
-      || (cz & 7) != 0
+      || (cz & 7) != 0 || !colspan::tile_fits(mx, my, czp)
       || (multi && (ntypes1 < 2 || ntypes1 > colspan::kMaxTypes1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -28,7 +28,8 @@ import dataclasses
 
 import torch
 
-from lammps_ucg_dev_tpu_torch.core.state import ForceOut, SimState
+from lammps_ucg_dev_tpu_torch.core.state import (ForceOut, SimState,
+                                                resolve_device)
 from lammps_ucg_dev_tpu_torch.models import common, density
 from lammps_ucg_dev_tpu_torch.ops.neighbor import NeighborList
 from lammps_ucg_dev_tpu_torch.ops.table import TableBank
@@ -59,9 +60,11 @@ class RLEUCGParams:
 
 def make_params(builder, st, kT: float, feedback: str = "always",
                 conservative_sign: bool = True, dtype=torch.float32,
-                device="cpu") -> RLEUCGParams:
+                device="cuda") -> RLEUCGParams:
     """``builder`` a models.typemap.RLEUCGBuilder, ``st`` its rleucg-dialect
-    StateSettings."""
+    StateSettings; the params live on ``device`` (the card unless told
+    ``device="cpu"``; raises without CUDA)."""
+    device = resolve_device(device)
     if feedback not in FEEDBACK_MODES:
         raise ValueError(f"unknown feedback mode {feedback!r}")
     bank, tabSS, cutsq = builder.build(dtype=dtype, device=device)

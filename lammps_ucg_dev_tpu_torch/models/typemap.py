@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from lammps_ucg_dev_tpu_torch.core.state import resolve_device
 from lammps_ucg_dev_tpu_torch.io.state_settings import StateSettings
 from lammps_ucg_dev_tpu_torch.io.table_io import read_table_file
 from lammps_ucg_dev_tpu_torch.ops.table import BuiltTable, TableBank, build_table
@@ -116,7 +117,10 @@ class TablePairBuilder:
                 if count == 0:
                     raise ValueError("Illegal pair_coeff command")
 
-    def build(self, dtype=torch.float32, device="cpu"):
+    def build(self, dtype=torch.float32, device="cuda"):
+        """(bank, tp) on ``device`` (the card unless told ``device="cpu"``;
+        raises without CUDA)."""
+        device = resolve_device(device)
         st = self.settings
         T, F = st.n_actual_types, st.n_formal_types
         if not self.tables:
@@ -214,9 +218,11 @@ class RLEUCGBuilder:
         if count == 0:
             raise ValueError("Illegal pair_coeff command")
 
-    def build(self, dtype=torch.float32, device="cpu"):
-        """(bank, tabSS, cutsq): tabSS[i, j, si, sj] is the table of
-        substate types (i + si, j + sj), clipped to the last type."""
+    def build(self, dtype=torch.float32, device="cuda"):
+        """(bank, tabSS, cutsq) on ``device`` (the card unless told
+        ``device="cpu"``; raises without CUDA): tabSS[i, j, si, sj] is the
+        table of substate types (i + si, j + sj), clipped to the last type."""
+        device = resolve_device(device)
         st = self.settings
         S = st.n_formal_types
         Smax = int(st.max_states)

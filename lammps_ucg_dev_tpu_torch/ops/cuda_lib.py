@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -124,3 +125,30 @@ def build(names) -> dict[str, NativeLib]:
 def load(name: str) -> NativeLib:
     """Build (if needed) and load ``csrc/<name>.cu``."""
     return build([name])[name]
+
+
+def ptxas_summary(log_text: str) -> list[str]:
+    """One line per compiled kernel of nvcc's ``-Xptxas -v`` report: the
+    kernel with its template arguments, registers, shared memory and
+    spill bytes."""
+    out, name, spill = [], None, ""
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)(I.*E)?E[vP]", m.group(1))
+            targs = re.findall(r"L[bi](\d+)E", k.group(2) or "") if k else []
+            name = (k.group(1) if k else m.group(1)) + (
+                f"<{','.join(targs)}>" if targs else "")
+            spill = ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spills {m.group(1)}/{m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {m.group(2) or 0} B "
+                       f"static smem, {spill}")
+            name = None
+    return out

@@ -1,19 +1,23 @@
 """K7 — the K1 ablation microbench kernel and its twins (port of
 ``_abl_kernel`` in the JAX package's ``tools/kbench.py``).
 
-K7 walks K1's column spans (``csrc/colspan.cuh``) on K1's no-scores inputs
-and stops at one of five physics levels, so the time between K1's bound and
-its measured time can be split by level (the tool that times it is
-``lammps_ucg_dev_tpu_torch/tools/kbench.py``):
+K7 runs K1's tile walk (``csrc/colspan.cuh``, one warp per 8-slot cluster)
+on K1's no-scores inputs and stops at one of five physics levels, so the
+time between K1's bound and its measured time can be split by level (the
+tool that times it is ``lammps_ucg_dev_tpu_torch/tools/kbench.py``):
 
-  L0  the port's walk floor: x of every candidate of the span walk plus
-      its column's image shift (column 0).  The TPU's L0 timed its window
-      DMAs; the port has no windows, so this L0 measures something else:
-      the span reads and one load per candidate.
-  L1  + geometry: Σ rsq over 0 < rsq < cutsq (column 0)
+  L0  the port's walk floor: x of every candidate of the cluster's spans
+      plus its column's image shift (column 0).  The TPU's L0 timed its
+      window DMAs; the port has no windows, so this L0 measures something
+      else: the span table and one coalesced load per candidate and
+      cluster.
+  L1  + geometry, the test against the cluster's 8 i-slots, the queue of
+      hits and the sums of full-warp batches: Σ rsq over 0 < rsq < cutsq
+      (column 0)
   L2  + the u map and the Chebyshev recurrence: Σ T_{degree-1}(u)
   L3  + the six D-form accumulators: Σ (row 0 + row 5)
-  L4  + the D-form mix: fx fy fz lamf (K1 without scores)
+  L4  + the D-form mix: fx fy fz lamf (K1 without scores, from the same
+      definition in ``csrc/ucgld_phys.cuh``: bit-identical to it)
 
 Self is excluded by rsq > 0, so L1–L4 are sums over pairs whatever the slot
 geometry.  The six rows are kbench's ``[eB eD fA fB fC fD]`` from the

@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from lammps_ucg_dev_tpu_torch.core.state import resolve_device
 from lammps_ucg_dev_tpu_torch.io.table_io import BMP, RSQ, RawTable
 from lammps_ucg_dev_tpu_torch.ops.spline import spline, splint
 
@@ -115,7 +116,10 @@ class TableBank:
 
     @staticmethod
     def from_built(tables: list[BuiltTable], style: str,
-                   dtype=torch.float32, device="cpu") -> "TableBank":
+                   dtype=torch.float32, device="cuda") -> "TableBank":
+        """The bank of ``tables`` on ``device`` (the card unless told
+        ``device="cpu"``; raises without CUDA)."""
+        device = resolve_device(device)
         if style != LINEAR:
             raise NotImplementedError(
                 f"table style {style!r} is not ported yet (LINEAR only)")

@@ -5,8 +5,10 @@ Times K7 (``ops/hopper_ablation.py``, ``csrc/ucgld_ablation.cu``) bare, on
 K1's no-scores inputs staged once, at increasing physics levels, to split
 the gap between K1's bound and its measured time:
 
-  L0  the span walk: one load and one add per candidate (no cutoff test)
-  L1  + geometry: dx/dy/dz, rsq, the cutoff test
+  L0  the tile walk's loads: one load and one add per candidate and
+      cluster (no cutoff test)
+  L1  + geometry: dx/dy/dz, rsq and the cutoff test against the cluster's
+      8 i-slots, the queue of hits and the sums of full-warp batches
   L2  + the u map and the Chebyshev recurrence
   L3  + the six D-form accumulators
   L4  + the D-form mix and the force and λ-force tallies (K1 no-scores)
@@ -19,8 +21,8 @@ Usage (needs a CUDA device)::
         [--levels 0,1,2,3,4,prod]
 
 Prints an info line (the card's name and power limit, the geometry), then
-one JSON line per level: ms per launch, ns per atom and ns per CUDA block
-of 128 i-slots.
+one JSON line per level: ms per launch, ns per atom and ns per 128
+i-slots (``ns_block``).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from lammps_ucg_dev_tpu_torch.ops import hopper_ablation as ha
 from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
 from lammps_ucg_dev_tpu_torch.tools.timing import card, cuda_ms
 
-BLOCK = 128            # i-slots per CUDA block of K1 and K7
+BLOCK = 128            # i-slots per unit of ns_block (16 clusters)
 LEVELS = ("0", "1", "2", "3", "4", "prod")
 
 

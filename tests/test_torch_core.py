@@ -211,7 +211,7 @@ def _both_builders(kind, dtype_j, dtype_t):
                               parse_state_settings(settings, "ucgld"))
     for (i, j, ni, nj), ent in zip(coeffs, entries):
         tb.pair_coeff(i, j, ni, nj, ent)
-    tbank, ttp = tb.build(dtype=dtype_t)
+    tbank, ttp = tb.build(dtype=dtype_t, device="cpu")
     return (jbank, jtp), (tbank, ttp)
 
 
@@ -277,3 +277,51 @@ def test_non_linear_tables_not_ported():
     for style in ("spline", "lookup", "bitmap"):
         with pytest.raises(NotImplementedError):
             build_table(tb, style, 1000, 2.5)
+
+
+def _builder_calls():
+    """The four public builders of tensors, each called with no device:
+    {name: call}."""
+    from lammps_ucg_dev_tpu_torch import flagship
+    from lammps_ucg_dev_tpu_torch.models import pair_rleucg
+    from lammps_ucg_dev_tpu_torch.ops.table import TableBank
+
+    def pair_builder():
+        b = ttm.TablePairBuilder("linear", 1000, parse_state_settings(
+            flagship.TWO_STATE_SETTINGS, "ucgld"))
+        b.pair_coeff(1, 1, 2, 2, [(flagship.soft_table(e, 1200), flagship.RC)
+                                  for e in flagship.EPS])
+        return b
+
+    def rleucg_builder():
+        st = parse_state_settings(flagship.RLEUCG_SETTINGS, "rleucg")
+        b = ttm.RLEUCGBuilder("linear", 1000, st)
+        b.pair_coeff("*", "*", flagship.soft_table(0.5, 1200), flagship.RC)
+        return b, st
+
+    return {
+        "TableBank.from_built": lambda: TableBank.from_built(
+            pair_builder().tables, "linear"),
+        "TablePairBuilder.build": lambda: pair_builder().build(),
+        "RLEUCGBuilder.build": lambda: rleucg_builder()[0].build(),
+        "pair_rleucg.make_params": lambda: pair_rleucg.make_params(
+            *rleucg_builder(), 0.8),
+    }
+
+
+@pytest.mark.parametrize("name", ["TableBank.from_built",
+                                  "TablePairBuilder.build",
+                                  "RLEUCGBuilder.build",
+                                  "pair_rleucg.make_params"])
+def test_builders_default_to_the_card(name):
+    """Like the flagship builders and the converters, these four build on
+    the card unless told device="cpu", and raise where there is none."""
+    call = _builder_calls()[name]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        return
+    out = call()
+    first = out[0] if isinstance(out, tuple) else out
+    tensor = first.e if hasattr(first, "e") else first.kT
+    assert tensor.is_cuda

@@ -123,6 +123,57 @@ def test_k1_matches_twin_multitype(device, name, observe, scores):
     kernel_vs_twin(state, cl, params, observe, scores)
 
 
+@pytest.fixture(scope="module")
+def flagship_edges(device):
+    """{kind: (state, params, cl)} of the 4,096-bead flagship fluid at
+    random positions at the tile walk's edges (EDGE_RHO): dilute, where
+    most clusters flush fewer than 32 pairs at the end of their walk;
+    compressed, where one step's tests append more than 64 hits; clumped,
+    with empty spans and clusters that are mostly pads."""
+    sim = flagship.build_sim(n=4096, device=device, kernel=False)
+    out = {}
+    for kind, rho in EDGE_RHO.items():
+        rng = np.random.default_rng(21)
+        n = sim.state.n_atoms
+        L = (n / rho) ** (1 / 3)
+        x = rng.uniform(0.0, L, (n, 3))
+        if kind == "clumped":
+            x[:, 0] *= 0.4
+        state = dataclasses.replace(
+            sim.state, x=torch.as_tensor(x, dtype=torch.float32,
+                                         device=device),
+            box=Box.create([0, 0, 0], [L] * 3, device=device))
+        sel = select_pair_kernel(sim.pair_params, state, flagship.RC, 0.4)
+        assert sel is not None and sel[0] is hp.compute_style
+        _, spec, params = sel
+        cl = colpack.build(state.x, state.box, spec)
+        assert not bool(cl.overflow)
+        out[kind] = (state, params, cl)
+    return out
+
+
+@pytest.mark.parametrize("name,observe,scores", VARIANTS)
+@pytest.mark.parametrize("kind", ["dilute", "compressed", "clumped"])
+def test_k1_matches_twin_at_the_edges(flagship_edges, kind, name, observe,
+                                      scores):
+    state, params, cl = flagship_edges[kind]
+    kernel_vs_twin(state, cl, params, observe, scores)
+
+
+@pytest.mark.parametrize("name,observe,scores", VARIANTS)
+def test_k1_two_launches_bit_identical(flagship_edges, name, observe,
+                                       scores):
+    """The tile walk sums in queue order, which the inputs fix."""
+    state, params, cl = flagship_edges["compressed"]
+    args, kw = hp.kernel_inputs(state, cl, params, params.cheb, observe,
+                                scores)
+    out_a, part_a = hp.ucgld_pair(*args, **kw)
+    out_b, part_b = hp.ucgld_pair(*args, **kw)
+    assert torch.equal(out_a, out_b)
+    if observe:
+        assert torch.equal(part_a, part_b)
+
+
 def test_k1_rejects_wrong_inputs(device):
     sim = flagship.build_sim(n=32768, device=device)
     cl = colpack.build(sim.state.x, sim.state.box, sim.nbr_spec)
@@ -240,11 +291,12 @@ def density_systems(device):
     return out
 
 
-# the compacting walk's edge cases (K3, K4): a dilute system, where most
-# warps flush fewer than 32 pairs at the end of their walk; a compressed
-# one, where i-slots hold more than 64 in-cutoff pairs and the 64-entry
-# queue wraps many times; a clumped one (every bead in 40% of the box in
-# x), with empty spans and i-clusters that are mostly pads
+# the edge cases of the compacting walk (K3, K4) and of the tile walk (K1,
+# K6): a dilute system, where most warps flush fewer than 32 pairs at the
+# end of their walk; a compressed one, where i-slots hold more than 64
+# in-cutoff pairs and the queues wrap many times; a clumped one (every bead
+# in 40% of the box in x), with empty spans and i-clusters that are mostly
+# pads
 EDGE_RHO = {"dilute": 0.05, "compressed": 2.0, "clumped": 0.5}
 
 
@@ -314,12 +366,20 @@ def assert_close(a, b, name):
                                atol=TOL * scale, err_msg=name)
 
 
-def cv_args(sim, cl, weight):
-    p = sim.pair_params
+def cv_inputs_of(state, p, cl, weight):
     cutsq = (p.tp.cutsq if isinstance(p, hd.BetheDensityParams)
              else p.cutsq)[1, 1]
-    return hcv.cv_inputs(sim.state, cl, p.cv_rad, cutsq, p.bank.innersq[0],
+    return hcv.cv_inputs(state, cl, p.cv_rad, cutsq, p.bank.innersq[0],
                          weight)
+
+
+def cv_args(sim, cl, weight):
+    return cv_inputs_of(sim.state, sim.pair_params, cl, weight)
+
+
+def cv_weight(state):
+    return torch.randn(state.n_atoms, generator=torch.Generator(
+        device=state.device).manual_seed(3), device=state.device)
 
 
 @pytest.mark.parametrize("style", ["p3", "p4"])
@@ -354,6 +414,35 @@ def test_k6_matches_twin(density_systems, style, gform, observe):
     assert_close(out_k, out_t, "force")
     if observe:
         assert_close(part_k.sum(0), part_t.sum(0), "virial")
+
+
+@pytest.mark.parametrize("gform,observe", CV_VARIANTS)
+@pytest.mark.parametrize("kind", list(EDGE_RHO))
+@pytest.mark.parametrize("style", ["p3", "p4"])
+def test_k6_matches_twin_at_the_edges(edge_systems, style, kind, gform,
+                                      observe):
+    state, params, cl = edge_systems[style, kind]
+    args, kw = cv_inputs_of(state, params, cl, cv_weight(state))
+    out_k, part_k = hcv.cv_force(*args, gform=gform, observe=observe, **kw)
+    out_t, part_t = hcv.cv_force_reference(*args, gform=gform,
+                                           observe=observe, **kw)
+    torch.cuda.synchronize()
+    assert_close(out_k, out_t, "force")
+    if observe:
+        assert_close(part_k.sum(0), part_t.sum(0), "virial")
+
+
+@pytest.mark.parametrize("gform,observe", CV_VARIANTS)
+@pytest.mark.parametrize("style", ["p3", "p4"])
+def test_k6_two_launches_bit_identical(density_systems, style, gform,
+                                       observe):
+    sim, cl = density_systems[style]
+    args, kw = cv_args(sim, cl, cv_weight(sim.state))
+    out_a, part_a = hcv.cv_force(*args, gform=gform, observe=observe, **kw)
+    out_b, part_b = hcv.cv_force(*args, gform=gform, observe=observe, **kw)
+    assert torch.equal(out_a, out_b)
+    if observe:
+        assert torch.equal(part_a, part_b)
 
 
 @pytest.mark.parametrize("kind", ["deck", *EDGE_RHO])
@@ -554,6 +643,8 @@ def test_k7_level4_is_k1_noscores(k7_inputs):
     scale = float(k1.abs().max())
     np.testing.assert_allclose(l4.cpu().numpy(), k1.cpu().numpy(), rtol=0,
                                atol=TOL * scale)
+    # one definition of the physics on one walk: bit for bit
+    assert torch.equal(l4, k1)
 
 
 def test_k8_matches_twin(device):

@@ -209,7 +209,7 @@ def test_substate_probs_three_state():
     st = parse_state_settings(text, "rleucg")
     b = RLEUCGBuilder("linear", 500, st)
     b.pair_coeff("*", "*", flagship.soft_table(0.5, 600), RC)
-    tp = tpr.make_params(b, st, KT, dtype=torch.float64)
+    tp = tpr.make_params(b, st, KT, dtype=torch.float64, device="cpu")
     assert tp.max_states == 3
     typ = np.array([1, 1, 2, 3], np.int32)
     rho = np.array([4.0, 8.0, 3.0, 5.0])
@@ -261,7 +261,7 @@ def test_p4_force_is_minus_grad(rng, feedback):
     for i, j, e in P4_PAIRS:
         b.pair_coeff(i, j, flagship.soft_table(e, 3000), RC)
     params = tpr.make_params(b, st, KT, feedback=feedback,
-                             dtype=torch.float64)
+                             dtype=torch.float64, device="cpu")
     n, L = 40, 7.0
     typ = np.where(rng.uniform(size=n) < 0.7, 1, 3).astype(np.int32)
     x = helpers.random_fluid(rng, n, L)

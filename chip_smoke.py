@@ -49,7 +49,9 @@ which raises on failure:
 11. the P3 and P4 main paths: setup, one warm block, ten timed blocks of 10
    steps, with every launch count set to 0 just before and read just after;
 12. K8 against its twin at 32,768 and 2^20 (columns, pe, virial and the
-   inner-cutoff count gated apart);
+   inner-cutoff count gated apart; the rows of the i-clusters without
+   atoms, which its grid leaves to the occupied clusters' warps, exactly
+   zero);
 13. the K8 path against the float64 reference pair path on 4,096, at K1's
    Chebyshev gate;
 14. the cluster main path at 2^20: setup, one warm block, five timed blocks
@@ -57,10 +59,10 @@ which raises on failure:
    before and read just after.
 
 Each check of a kernel against its twin also launches the kernel twice
-and requires the same bits (K1, K6 and K7 run on the tile walk of
-``csrc/colspan.cuh``, which sums in queue order).  Each of the four
-column main paths (4, 8, 11) ends with D1, the dangerous-build check: the
-in-cutoff pairs of the column list carried since the last rebuild against
+and requires the same bits (K1, K2, K6, K7 and K8 run on the tile walk of
+``csrc/colspan.cuh``, which sums in queue order).  Each of the five main
+paths (4, 8, 11, 14) ends with D1, the dangerous-build check: the in-cutoff
+pairs of the column or cluster list carried since the last rebuild against
 those of a fresh build on the same positions, printed, not gated.
 
 The line before the last is a JSON object of the kernels on the main paths
@@ -74,6 +76,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import sys
 import time
@@ -444,6 +447,31 @@ def missed_pairs(sim, label: str) -> int:
     return fresh - carried
 
 
+def missed_cluster_pairs(sim, label: str) -> int:
+    """D1 on the cluster path: the in-cutoff pairs (K8's pair rule, by
+    its twin's walk) of the cluster list carried since the last rebuild at
+    ``sim``'s current positions, against a fresh ``clusters.build`` on the
+    same positions, wrapped.  Prints both counts and their difference; does
+    not gate."""
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cluster as hc
+
+    state, params = sim.state, sim.pair_params
+    scal = hc.kernel_scalars(state.box, params, params.cheb)
+
+    def count(cl, st):
+        apack = hc.slot_pack(st, cl)
+        return sum(int(mask.sum())
+                   for *_, mask in hc.cluster_pairs(scal, apack, cl.jcl))
+
+    carried = count(sim._nbr, state)
+    wrapped, fresh_cl = cluster_state(sim)
+    fresh = count(fresh_cl, wrapped)
+    log(f"[D1 {label}] in-cutoff pairs at the block end: carried list "
+        f"{carried}, fresh build {fresh}, difference {fresh - carried} "
+        f"(dangerous builds {sim.dangerous_builds})")
+    return fresh - carried
+
+
 def cluster_state(sim):
     """``sim``'s state wrapped into the box and a fresh cluster list."""
     from lammps_ucg_dev_tpu_torch.ops import clusters
@@ -458,13 +486,29 @@ def cluster_state(sim):
 
 def compare_k8(sim, label: str, kernel_reps: int, twin_reps: int,
                with_bound: bool = False) -> dict:
+    """K8, launched over the list's occupied i-clusters as the path
+    launches it, against its twin; the rows of the i-clusters without atoms
+    must be exactly zero."""
+    import torch
+
     from lammps_ucg_dev_tpu_torch.ops import hopper_cluster as hc
 
     state, cl = cluster_state(sim)
     params = sim.pair_params
     args, kw = hc.kernel_inputs(state, cl, params, params.cheb)
-    res = hold(label, "K8 full", hc.ucgld_cluster,
-               hc.ucgld_cluster_reference, args, kw, kernel_reps, twin_reps)
+    kernel = functools.partial(hc.ucgld_cluster, occupied=cl.occupied)
+    res = hold(label, "K8 full", kernel, hc.ucgld_cluster_reference, args,
+               kw, kernel_reps, twin_reps)
+    empty = torch.ones(cl.n_clusters, dtype=torch.bool, device=state.device)
+    empty[cl.occupied.long()] = False
+    out, part = kernel(*args, **kw)
+    nonzero = sum(int(r.reshape(cl.n_clusters, -1)[empty].ne(0).sum())
+                  for r in (out, part))
+    log(f"[{label}] K8 covers {cl.occupied.shape[0]} of {cl.n_clusters} "
+        f"i-clusters; nonzero entries in the rows of the others: {nonzero}")
+    if nonzero:
+        raise RuntimeError(f"{label} K8 left {nonzero} nonzero entries in "
+                           f"the rows of i-clusters without atoms")
     if with_bound:
         res.update(bound_cluster(args, kw))
     return res
@@ -824,6 +868,7 @@ def run_cluster_main(device: str, card_name: str, blocks: int = 5,
         raise RuntimeError(f"non-finite thermo: {row}")
     if row["oob_low"] != 0:
         raise RuntimeError(f"pairs below the table inner cutoff: {row}")
+    missed_cluster_pairs(sim, f"cluster n={n}")
     return launches, steps_s
 
 

@@ -26,6 +26,7 @@ from lammps_ucg_dev_tpu_torch.models.pair_rleucg import RLEUCGParams
 from lammps_ucg_dev_tpu_torch.models.pair_ucgld import UCGLDParams
 from lammps_ucg_dev_tpu_torch.models.typemap import UCGTypeParams
 from lammps_ucg_dev_tpu_torch.ops.chebtab import ChebBank
+from lammps_ucg_dev_tpu_torch.ops.clusters import CL as CLUSTER_SLOTS
 from lammps_ucg_dev_tpu_torch.ops.clusters import ClusterList
 from lammps_ucg_dev_tpu_torch.ops.table import LINEAR, TableBank
 
@@ -177,13 +178,22 @@ def state_from_numpy(d: dict, device="cuda") -> SimState:
 
 
 def cluster_list_from_numpy(d: dict, device="cuda") -> ClusterList:
-    """``d`` = as_numpy_dict(JAX ClusterList, ``attic/clusters.py``)."""
+    """``d`` = as_numpy_dict(JAX ClusterList, ``attic/clusters.py``).  Each
+    ``jcl`` row is compacted, real entries first (the attic masks a row in
+    place when its stencil holds at most KC clusters), and the occupied
+    i-clusters are found from ``slot_atom``."""
     device = resolve_device(device)
     i64 = torch.int64
+    jcl = np.asarray(d["jcl"])
+    jcl = np.take_along_axis(
+        jcl, np.argsort(jcl >= jcl.shape[0], axis=1, kind="stable"), axis=1)
+    slot_atom = np.asarray(d["slot_atom"])
+    real = (slot_atom < len(d["atom_slot"])).reshape(-1, CLUSTER_SLOTS)
     return ClusterList(
-        jcl=_t(d["jcl"], torch.int32, device),
+        jcl=_t(jcl, torch.int32, device),
         atom_slot=_t(d["atom_slot"], i64, device),
-        slot_atom=_t(d["slot_atom"], i64, device),
+        slot_atom=_t(slot_atom, i64, device),
         x0=_t(d["x0"], _float_dtype(d["x0"]), device),
         overflow=_t(d["overflow"], torch.bool, device),
-        max_occupancy=_t(d["max_occupancy"], i64, device), kc=int(d["kc"]))
+        max_occupancy=_t(d["max_occupancy"], i64, device), kc=int(d["kc"]),
+        occupied=_t(np.flatnonzero(real.any(axis=1)), torch.int32, device))

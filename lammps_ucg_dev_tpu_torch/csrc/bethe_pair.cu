@@ -9,7 +9,7 @@
 // physics is that file's _phys_tile (:260-283 closed form, :340-370
 // scores).  Its plain PyTorch twin is
 // lammps_ucg_dev_tpu_torch/ops/hopper_bethe.py:bethe_pair_reference, which
-// takes the same arguments and returns the same outputs.  The span walk,
+// takes the same arguments and returns the same outputs.  The tile walk,
 // the Chebyshev series and the D-form channels are K1's (colspan.cuh).
 //
 // Inputs as K1's, with ipack attr 6 = pi1 (i-role prior, from ucgl), attr 3
@@ -37,8 +37,14 @@
 // Bound: as K1, FMA throughput — the closed form adds one exp, one sqrt and
 // one division per in-cutoff pair (plus four divisions with SCE) to K1's
 // ~10*degree+60 flops, against 32 bytes of broadcast j attributes.
-// Design as K1: one thread per i-slot, no atomics, plain expf/sqrtf and
-// IEEE division (no fast-math); making it fast is later work.
+// Design as K1: the tile walk (colspan::for_each_pair_tile), one warp per
+// 8-slot i-cluster, each candidate loaded once per cluster and tested
+// against its 8 i-slots, the in-cutoff pairs run 32 at a time on full
+// warps with the owner's prior, SCE denominators and type from shared
+// memory (odata); every variant (OBSERVE x MF x SCE x MULTI) on this one
+// walk, no atomics, bit-identical over two launches.  expf, sqrtf and the
+// divisions stay IEEE (no fast-math), with the f32 edges as they were: the
+// exp clamp at 40, the |aa| < 1e-5 and Q < 0 branches (ROADMAP F3).
 //
 // K3 (STYLE kDBethe) replaces the same TPU kernels with style="dbethe",
 // pass 2 of compute_density (:1633; physics :260-316, scores :366-370):
@@ -91,6 +97,7 @@ using colspan::kFull;
 using colspan::kMaxDeg;
 using colspan::kMaxTypes1;
 using colspan::PairArgs;
+using colspan::Tile;
 
 // The pair style: K2, K3 or K4.
 enum Style : int { kBethe = 0, kDBethe = 1, kRleucg = 2 };
@@ -116,44 +123,49 @@ __device__ __forceinline__ float bethe_p11(float eD, float pi1, float pj1,
   return 2.f * bb * pipj / (Q + sqD);
 }
 
-// K2: the per-candidate physics of one i-slot and its tallies.  OBSERVE:
-// also tally pe/virial/oob.  MF: mean-field p11 = pi1 pj1.  SCE: full-SCE
-// conditional-expectation scores (else pseudolikelihood).  MULTI: the
-// D-form rows of each ordered type pair (ti, tj).
+// K2: the physics of one queued pair on the tile walk.  Values: fx fy fz
+// s0 s1, then with OBSERVE pe, the six virial sums and the inner-cutoff
+// count.  Per-owner data odata[o] = [pi1, p0e, p1e, type_i] with the
+// full-SCE denominators p0e = max(1 - pi1, 1e-6), p1e = max(pi1, 1e-6).
+// MF: mean-field p11 = pi1 pj1.  SCE: full-SCE conditional-expectation
+// scores (else pseudolikelihood).  MULTI: the D-form rows of each ordered
+// type pair (ti, tj).
 template <bool OBSERVE, bool MF, bool SCE, bool MULTI>
-struct BetheTally {
-  static constexpr int NR = 8;
-  const float* c;      // coefficient rows in shared memory
-  int degree, czp, ntypes1, ti, ucg_mask;
-  float pi1, p0e, p1e, kT, uscale, uoff, innersq;
-  float fx = 0.f, fy = 0.f, fz = 0.f, s0 = 0.f, s1 = 0.f;
-  colspan::Observed obs;
+struct BethePair {
+  static constexpr int NF = 5;
+  static constexpr int NV = NF + (OBSERVE ? 8 : 0);
 
-  __device__ __forceinline__ void operator()(const float* cj, int j, float dx,
-                                             float dy, float dz, float rsq) {
-    const float pj1 = cj[3 * czp + j];
-    const int tj = MULTI ? static_cast<int>(cj[7 * czp + j]) : 0;
-    float acc[NR];
-    colspan::series<NR>(colspan::pair_rows<MULTI>(c, degree, ntypes1, ti, tj),
-                        degree, fmaxf(rsq * uscale + uoff, -1.f), acc);
-    const colspan::Channels ch = colspan::channels<NR>(acc);
+  const float* c;          // coefficient rows in shared memory
+  const float* cols;
+  const float4* odata;     // the warp's per-owner data in shared memory
+  int degree, czp, ntypes1, ucg_mask;
+  float kT, uscale, uoff, innersq;
+
+  __device__ __forceinline__ void operator()(int o, int jc, float dx,
+                                             float dy, float dz, float rsq,
+                                             float (&v)[NV]) const {
+    const float4 od = odata[o];
+    const float pi1 = od.x;
+    const float pj1 = cols[jc + 3 * czp];
+    const int ti = MULTI ? static_cast<int>(od.w) : 0;
+    const int tj = MULTI ? static_cast<int>(cols[jc + 7 * czp]) : 0;
+    float acc[8];
+    colspan::series<8>(colspan::pair_rows<MULTI>(c, degree, ntypes1, ti, tj),
+                       degree, fmaxf(rsq * uscale + uoff, -1.f), acc);
+    const colspan::Channels ch = colspan::channels<8>(acc);
 
     float xk, bb;
     const float p11 = bethe_p11<MF>(ch.eD, pi1, pj1, kT, xk, bb);
     const float fmix = ch.fA + pi1 * ch.fB + pj1 * ch.fC + p11 * ch.fD;
-    fx += fmix * dx;
-    fy += fmix * dy;
-    fz += fmix * dz;
-    if constexpr (OBSERVE) {
-      obs.add(ch.eA + pi1 * ch.eB + pj1 * ch.eC + p11 * ch.eD, fmix, dx, dy,
-              dz, rsq < innersq);
-    }
+    v[0] = fmix * dx;
+    v[1] = fmix * dy;
+    v[2] = fmix * dz;
     if constexpr (SCE) {
       const float p00 = 1.f + p11 - pi1 - pj1;
       const float p01 = pj1 - p11;
       const float p10 = pi1 - p11;
-      const float c00 = p00 / p0e, c01 = p01 / p0e;
-      const float c10 = p10 / p1e, c11 = p11 / p1e;
+      const float c00 = p00 / od.y, c01 = p01 / od.y;
+      const float c10 = p10 / od.z, c11 = p11 / od.z;
       float sc0 = c00 * ch.eA + c01 * (ch.eA + ch.eC);
       float sc1 = c10 * (ch.eA + ch.eB)
                   + c11 * ((ch.eA + ch.eB) + (ch.eC + ch.eD));
@@ -162,50 +174,62 @@ struct BetheTally {
         sc0 = ch.eA;
         sc1 = ch.eA + ch.eB;
       }
-      s0 -= sc0;
-      s1 -= sc1;
+      v[3] = -sc0;
+      v[4] = -sc1;
     } else {
-      const float sj = cj[4 * czp + j];
-      s0 -= ch.eA + sj * ch.eC;
-      s1 -= (ch.eA + ch.eB) + sj * (ch.eC + ch.eD);
+      const float sj = cols[jc + 4 * czp];
+      v[3] = -(ch.eA + sj * ch.eC);
+      v[4] = -((ch.eA + ch.eB) + sj * (ch.eC + ch.eD));
+    }
+    if constexpr (OBSERVE) {
+      v[NF] = ch.eA + pi1 * ch.eB + pj1 * ch.eC + p11 * ch.eD;
+      v[NF + 1] = fmix * dx * dx;
+      v[NF + 2] = fmix * dy * dy;
+      v[NF + 3] = fmix * dz * dz;
+      v[NF + 4] = fmix * dx * dy;
+      v[NF + 5] = fmix * dx * dz;
+      v[NF + 6] = fmix * dy * dz;
+      v[NF + 7] = rsq < innersq ? 1.f : 0.f;
     }
   }
 };
 
+// The fast variants at most 64 registers (8 blocks of 128 threads an SM).
 template <bool OBSERVE, bool MF, bool SCE, bool MULTI>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(
+    Tile<BethePair<OBSERVE, MF, SCE, MULTI>::NV>::kThreads, OBSERVE ? 1 : 8)
 bethe_pair_kernel(const __grid_constant__ PairArgs a) {
-  using Tally = BetheTally<OBSERVE, MF, SCE, MULTI>;
-  __shared__ float one[MULTI ? 1 : Tally::NR * kMaxDeg];
+  using Phys = BethePair<OBSERVE, MF, SCE, MULTI>;
+  constexpr int NV = Phys::NV;
+  __shared__ float one[MULTI ? 1 : 8 * kMaxDeg];
   extern __shared__ float pairs[];
-  const float* c = colspan::stage_rows<MULTI>(one, pairs, a, Tally::NR);
+  __shared__ colspan::TileShared<NV> tiles[Tile<NV>::kWarps];
+  const float* c = colspan::stage_rows<MULTI>(one, pairs, a, 8);
 
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= a.n_slots) return;
-
-  const float4 ia = reinterpret_cast<const float4*>(a.ipack)[2 * t];
-  const float4 ib = reinterpret_cast<const float4*>(a.ipack)[2 * t + 1];
-  Tally tal;
-  if (ib.y > 0.5f) {   // i-slot holds a real atom
-    tal.c = c;
-    tal.degree = a.degree;
-    tal.czp = a.czp;
-    tal.ntypes1 = a.ntypes1;
-    tal.ti = static_cast<int>(ib.w);
-    tal.ucg_mask = a.ucg_mask;
-    tal.pi1 = ib.z;
-    tal.p0e = fmaxf(1.f - ib.z, 1e-6f);
-    tal.p1e = fmaxf(ib.z, 1e-6f);
-    tal.kT = a.scal[6];
-    tal.innersq = a.scal[3];
-    tal.uscale = a.scal[4];
-    tal.uoff = a.scal[5];
-    colspan::for_each_pair<OBSERVE>(a, t, ia.x, ia.y, ia.z, tal);
+  const int cl = blockIdx.x * Tile<NV>::kWarps + (threadIdx.x >> 5);
+  if (cl >= (a.n_slots >> 3)) return;     // whole warps
+  colspan::TileShared<NV>& sh = tiles[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  if (lane < 8) {
+    float4 ia, ib;
+    colspan::tile_owner(a.ipack, cl, sh, ia, ib);
+    sh.odata[lane] = make_float4(ib.z, fmaxf(1.f - ib.z, 1e-6f),
+                                 fmaxf(ib.z, 1e-6f), ib.w);
   }
-
-  colspan::store_out(a.out, t, make_float4(tal.fx, tal.fy, tal.fz, 0.f),
-                     make_float4(tal.s0, tal.s1, 0.f, 0.f));
-  if constexpr (OBSERVE) tal.obs.store(a.part, t);
+  const Phys phys{c, a.cols, sh.odata, a.degree, a.czp, a.ntypes1,
+                  a.ucg_mask, a.scal[6], a.scal[4], a.scal[5], a.scal[3]};
+  colspan::for_each_pair_tile<OBSERVE>(a, cl, sh, phys);
+  if (lane >= 8) return;
+  const int t = cl * 8 + lane;
+  const auto r = [&](int k) { return colspan::tile_sum(sh, lane, k); };
+  colspan::store_out(a.out, t, make_float4(r(0), r(1), r(2), 0.f),
+                     make_float4(r(3), r(4), 0.f, 0.f));
+  if constexpr (OBSERVE) {
+    constexpr int o = Phys::NF;
+    float4* p = reinterpret_cast<float4*>(a.part) + 2 * t;
+    p[0] = make_float4(r(o), r(o + 1), r(o + 2), r(o + 3));
+    p[1] = make_float4(r(o + 4), r(o + 5), r(o + 6), r(o + 7));
+  }
 }
 
 // K3 and K4: the physics of one queued pair and the owner's tallies, for
@@ -374,7 +398,9 @@ density_pair_kernel(const __grid_constant__ PairArgs a) {
 
 template <bool O, bool F, bool S, bool M>
 void launch(const PairArgs& a, cudaStream_t stream) {
-  bethe_pair_kernel<O, F, S, M><<<colspan::grid_of(a.n_slots), kBlock,
+  constexpr int NV = BethePair<O, F, S, M>::NV;
+  bethe_pair_kernel<O, F, S, M><<<colspan::tile_grid<NV>(a.n_slots),
+                                  Tile<NV>::kThreads,
                                   colspan::dyn_bytes<M>(a), stream>>>(a);
 }
 
@@ -445,7 +471,8 @@ extern "C" int bethe_pair_launch(
     float* part, int n_slots, int mx, int my, int cz, int czp, int degree,
     int ntypes1, int ucg_mask, int observe, int mf, int sce, int multi,
     void* stream) {
-  if (bad_args(n_slots, cz, czp, mx, my, degree, ntypes1, multi)) {
+  if (bad_args(n_slots, cz, czp, mx, my, degree, ntypes1, multi)
+      || !colspan::tile_fits(mx, my, czp)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const PairArgs a{scal, span_z0, span_len, ipack, cols, coef, out, part,

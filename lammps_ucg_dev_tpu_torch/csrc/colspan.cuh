@@ -1,9 +1,10 @@
 // Shared device code of the column-span pair kernels (K1 ucgld_pair.cu,
-// K2–K4 bethe_pair.cu, K5/K6 density_cv.cu and K7 ucgld_ablation.cu): the
-// walk over a cluster's nine candidate spans (K2, K5), the Chebyshev
-// series of the table channels and the 2x2 state block in D-form, the
-// compacting walk of K3/K4 and the tile walk of K1, K6 and K7 (one warp per
-// 8-slot cluster).  It is the counterpart of the
+// K2–K4 bethe_pair.cu, K5/K6 density_cv.cu and K7 ucgld_ablation.cu) and
+// of the cluster-list kernel K8 (ucgld_cluster.cu): the walk over a
+// cluster's nine candidate spans (K5), the Chebyshev series of the table
+// channels and the 2x2 state block in D-form, the compacting walk of K3/K4
+// and the tile walk of K1, K2, K6, K7 and K8 (one warp per 8-slot cluster,
+// over a source of candidates).  It is the counterpart of the
 // split in lammps_ucg_dev_tpu/ops/pallas_pair.py between the span
 // scaffolding (_kernel_colspan) and the per-candidate physics (_phys_tile),
 // which each style fills in.
@@ -375,28 +376,37 @@ __device__ __forceinline__ void for_each_pair_compact(
   }
 }
 
-// ---- the tile walk (K1, K6, K7) --------------------------------------------
+// ---- the tile walk (K1, K2, K6, K7, K8) ------------------------------------
 //
-// One warp per 8-slot i-cluster.  The cluster's nine spans are laid end to
-// end as one sequence of `total` candidates, and each step takes the next
-// 32 of them, one per lane: the x, y, z rows of a span are read by
-// coalesced loads, once per cluster instead of once per i-slot.  Each lane
-// tests its candidate against the cluster's 8 i-slots (their coordinates
-// held in registers by every lane; NaN for a slot without a real atom,
-// which then passes no test) under the same image shift and the same
-// 0 < rsq < cutsq (and valid j with CHECK_VALID) as for_each_pair.  A hit
+// One warp per 8-slot i-cluster.  The cluster's candidates form one
+// sequence of `total`, and each step takes the next 32 of them, one per
+// lane, by coalesced loads: once per cluster instead of once per i-slot.
+// Where the sequence comes from is the walk's source: the cluster's nine
+// column spans laid end to end (SpanSource: K1, K2, K6, K7), or the 8-slot
+// j-clusters of a cluster-list row (K8, ucgld_cluster.cu).  Each lane tests
+// its candidate against the cluster's 8 i-slots (their coordinates held in
+// registers by every lane; NaN for a slot without a real atom, which then
+// passes no test): rsq < cutsq and the source's own pair rule (SpanSource:
+// rsq > 0 and, with CHECK_VALID, a valid j, as for_each_pair).  A hit
 // (dx, dy, dz, candidate offset << 3 | owner) goes to the warp's queue at
 // the __popc prefix of that owner's ballot, owner by owner, two owners'
 // ballots at a time.  After every second owner, while 32 hits wait, each
-// lane runs the physics of one
-// (Phys, on full warps) and adds its NV values to its own column of
-// per-owner partial sums in shared memory; at the end each owner's 32
-// columns are added in a fixed order.  The step count, ceil(total / 32),
-// is warp-uniform: no lane idles on a shorter cluster, and every _sync
-// intrinsic sees all 32 lanes.  Every sum runs in an order the inputs
-// alone fix, so two launches on the same inputs give bit-identical
-// outputs.  Only hits enter the queue (F2); a lane without one computes on
-// a finite dummy entry whose result is never taken.
+// lane runs the physics of one (Phys, on full warps) and adds its NV values
+// to its own column of per-owner partial sums in shared memory; at the end
+// each owner's 32 columns are added in a fixed order.  The step count,
+// ceil(total / 32), is warp-uniform: no lane idles on a shorter cluster,
+// and every _sync intrinsic sees all 32 lanes.  Every sum runs in an order
+// the inputs alone fix, so two launches on the same inputs give
+// bit-identical outputs.  Only hits enter the queue (F2); a lane without
+// one computes on a finite dummy entry whose result is never taken.
+//
+// A source holds `total` (warp-uniform) and
+//   int fetch(k, xj, yj, zj)      candidate k < total: its offset (what
+//                                 Phys reads its attributes by) and its
+//                                 coordinates, NaN when it is no partner;
+//   void disp(ox, oy, oz, xj, yj, zj, dx, dy, dz)
+//                                 the displacement from i-slot (ox, oy, oz);
+//   bool keep(o, rsq)             its pair rule beyond rsq < cutsq.
 
 constexpr int kTileQueue = 128;  // <= 31 waiting + <= 64 appended per check
 
@@ -424,17 +434,17 @@ inline int tile_grid(int n_slots) {
   return ((n_slots >> 3) + Tile<NV>::kWarps - 1) / Tile<NV>::kWarps;
 }
 
-// Lanes 0..7: the ipack rows of i-slot 8c + lane, whose coordinates go to
-// owner[lane] (NaN unless the slot holds a real atom).  Returns whether it
-// does.
+// Lanes 0..7: the rows (ipack layout, 8 floats a slot) of i-slot
+// 8c + lane, whose coordinates go to owner[lane] (NaN unless the slot
+// holds a real atom).  Returns whether it does.
 template <int NV>
-__device__ __forceinline__ bool tile_owner(const PairArgs& a, int c,
+__device__ __forceinline__ bool tile_owner(const float* ipack, int c,
                                            TileShared<NV>& sh, float4& ia,
                                            float4& ib) {
   const int lane = threadIdx.x & 31;
   const int t = c * 8 + lane;
-  ia = reinterpret_cast<const float4*>(a.ipack)[2 * t];
-  ib = reinterpret_cast<const float4*>(a.ipack)[2 * t + 1];
+  ia = reinterpret_cast<const float4*>(ipack)[2 * t];
+  ib = reinterpret_cast<const float4*>(ipack)[2 * t + 1];
   const bool real = ib.y > 0.5f;
   const float nan = __int_as_float(0x7fffffff);
   sh.owner[lane] = real ? make_float4(ia.x, ia.y, ia.z, 0.f)
@@ -495,6 +505,45 @@ __device__ __forceinline__ int tile_offset(const int4* span, int k, int& s,
   return sp.y + k;
 }
 
+// The tile walk's source over cluster c's nine column spans (span: the
+// warp's table, which the constructor fills).  Candidates carry their
+// column's image shift, so the displacement is a plain difference.
+template <bool CHECK_VALID>
+struct SpanSource {
+  const float* __restrict__ cols;
+  const int4* span;
+  int czp, total, s = 0;
+
+  __device__ __forceinline__ SpanSource(const PairArgs& a, int c, int4* sp)
+      : cols(a.cols), span(sp), czp(a.czp), total(tile_spans(a, c, sp)) {}
+
+  __device__ __forceinline__ int fetch(int k, float& xj, float& yj,
+                                       float& zj) {
+    float shx, shy;
+    const int jc = tile_offset(span, k, s, shx, shy);
+    xj = cols[jc] + shx;
+    yj = cols[jc + czp] + shy;
+    zj = cols[jc + 2 * czp];
+    if (CHECK_VALID && !(cols[jc + 5 * czp] > 0.5f)) {
+      xj = __int_as_float(0x7fffffff);
+    }
+    return jc;
+  }
+
+  __device__ __forceinline__ static void disp(float ox, float oy, float oz,
+                                              float xj, float yj, float zj,
+                                              float& dx, float& dy,
+                                              float& dz) {
+    dx = ox - xj;
+    dy = oy - yj;
+    dz = oz - zj;
+  }
+
+  __device__ __forceinline__ static bool keep(int, float rsq) {
+    return rsq > 0.f;
+  }
+};
+
 // The physics of n <= 32 queued hits from `head`, one per lane, added to
 // the lanes' columns of partial sums.  phys(owner, jc, dx, dy, dz, rsq, v)
 // writes a pair's NV values.
@@ -517,27 +566,24 @@ __device__ __forceinline__ void tile_batch(TileShared<Phys::NV>& sh,
   }
 }
 
-// Walk cluster c's candidates against its 8 i-slots (owner[], which lanes
-// 0..7 have written, tile_owner) and run `phys` on the pairs with
-// 0 < rsq < cutsq (and a valid j-slot when CHECK_VALID) in full warps.
-// Afterwards tile_sum(sh, o, k) is value k of owner o.  Every lane of the
-// warp must call it.
-template <bool CHECK_VALID, class Phys>
-__device__ __forceinline__ void for_each_pair_tile(const PairArgs& a, int c,
-                                                   TileShared<Phys::NV>& sh,
-                                                   const Phys& phys) {
+// Walk the candidates of `src` against the cluster's 8 i-slots (owner[],
+// which lanes 0..7 have written, tile_owner) and run `phys` on the pairs
+// with rsq < cutsq that the source keeps, in full warps.  Afterwards
+// tile_sum(sh, o, k) is value k of owner o.  Every lane of the warp must
+// call it.
+template <class Src, class Phys>
+__device__ __forceinline__ void tile_walk(Src& src, float cutsq,
+                                          TileShared<Phys::NV>& sh,
+                                          const Phys& phys) {
   constexpr int NV = Phys::NV;
-  const float* __restrict__ cols = a.cols;
-  const int czp = a.czp;
-  const float cutsq = a.scal[2];
   const int lane = threadIdx.x & 31;
   const unsigned lt = (1u << lane) - 1u;
   const float nan = __int_as_float(0x7fffffff);
-  const int total = tile_spans(a, c, sh.span);
+  const int total = src.total;
 #pragma unroll 4
   for (int i = lane; i < 8 * NV * 32; i += 32) sh.acc[i] = 0.f;
-  __syncwarp();                  // the owners, the spans and the sums
-  int head = 0, tail = 0, s = 0;     // the queue holds [head, tail)
+  __syncwarp();                  // the owners, the source and the sums
+  int head = 0, tail = 0;            // the queue holds [head, tail)
   float ox[8], oy[8], oz[8];         // the i-slots, in registers
 #pragma unroll
   for (int o = 0; o < 8; ++o) {
@@ -550,24 +596,17 @@ __device__ __forceinline__ void for_each_pair_tile(const PairArgs& a, int c,
     const int k = k0 + lane;
     int jc = 0;
     float xj = nan, yj = nan, zj = nan;   // past the end: no hit
-    if (k < total) {
-      float shx, shy;
-      jc = tile_offset(sh.span, k, s, shx, shy);
-      xj = cols[jc] + shx;
-      yj = cols[jc + czp] + shy;
-      zj = cols[jc + 2 * czp];
-      if (CHECK_VALID && !(cols[jc + 5 * czp] > 0.5f)) xj = nan;
-    }
+    if (k < total) jc = src.fetch(k, xj, yj, zj);
     const int jc8 = jc << 3;
 #pragma unroll
     for (int o = 0; o < 8; o += 2) {
-      const float ax = ox[o] - xj, ay = oy[o] - yj, az = oz[o] - zj;
-      const float bx = ox[o + 1] - xj, by = oy[o + 1] - yj,
-                  bz = oz[o + 1] - zj;
+      float ax, ay, az, bx, by, bz;
+      src.disp(ox[o], oy[o], oz[o], xj, yj, zj, ax, ay, az);
+      src.disp(ox[o + 1], oy[o + 1], oz[o + 1], xj, yj, zj, bx, by, bz);
       const float ra = ax * ax + ay * ay + az * az;
       const float rb = bx * bx + by * by + bz * bz;
-      const bool ha = ra < cutsq && ra > 0.f;
-      const bool hb = rb < cutsq && rb > 0.f;
+      const bool ha = ra < cutsq && src.keep(o, ra);
+      const bool hb = rb < cutsq && src.keep(o + 1, rb);
       const unsigned ma = __ballot_sync(kFull, ha);
       const unsigned mb = __ballot_sync(kFull, hb);
       const int na = __popc(ma);
@@ -606,6 +645,16 @@ __device__ __forceinline__ void for_each_pair_tile(const PairArgs& a, int c,
   __syncwarp();
 }
 
+// The tile walk over cluster c's nine column spans (K1, K2, K6, K7), with
+// 0 < rsq < cutsq (and a valid j-slot when CHECK_VALID) as for_each_pair.
+template <bool CHECK_VALID, class Phys>
+__device__ __forceinline__ void for_each_pair_tile(const PairArgs& a, int c,
+                                                   TileShared<Phys::NV>& sh,
+                                                   const Phys& phys) {
+  SpanSource<CHECK_VALID> src(a, c, sh.span);
+  tile_walk(src, a.scal[2], sh, phys);
+}
+
 template <int NV>
 __device__ __forceinline__ float tile_sum(const TileShared<NV>& sh, int o,
                                           int k) {
@@ -617,30 +666,6 @@ __device__ __forceinline__ float tile_sum(const TileShared<NV>& sh, int o,
 inline bool tile_fits(int mx, int my, int czp) {
   return static_cast<long long>(mx) * my * 8 * czp <= (1LL << 28);
 }
-
-// pe, virial and inner-cutoff count of one i-slot (observing variants).
-struct Observed {
-  float pe = 0.f, v0 = 0.f, v1 = 0.f, v2 = 0.f, v3 = 0.f, v4 = 0.f,
-        v5 = 0.f, oob = 0.f;
-
-  __device__ __forceinline__ void add(float emix, float fmix, float dx,
-                                      float dy, float dz, bool inner) {
-    pe += emix;
-    v0 += fmix * dx * dx;
-    v1 += fmix * dy * dy;
-    v2 += fmix * dz * dz;
-    v3 += fmix * dx * dy;
-    v4 += fmix * dx * dz;
-    v5 += fmix * dy * dz;
-    if (inner) oob += 1.f;
-  }
-
-  __device__ __forceinline__ void store(float* part, int t) const {
-    float4* p = reinterpret_cast<float4*>(part) + 2 * t;
-    p[0] = make_float4(pe, v0, v1, v2);
-    p[1] = make_float4(v3, v4, v5, oob);
-  }
-};
 
 __device__ __forceinline__ void store_out(float* out, int t, float4 lo,
                                           float4 hi) {

@@ -23,7 +23,8 @@
 //                   0.5 (1 - t_a)                      (GFORM w)
 //             fcv = (c_i g_i + c_j g_j) / r;  F += fcv dr   out (n_slots, 4)
 //             [Fx Fy Fz 0]; with OBSERVE also the per-slot virial row in
-//             colspan::Observed's layout (pe and oob 0), valid j only.
+//             [pe vxx vyy vzz vxy vxz vyz oob] layout (pe and oob 0), valid j
+//             only.
 // A plain type's radius is floored at 1e-12, so (r - R)/(0.1 R) ~ 1e13 and
 // tanhf gives exactly 1: w = 0 and g = 0, as on the TPU.  Invalid i-slots
 // write zero rows.
@@ -172,7 +173,7 @@ cv_force_kernel(const __grid_constant__ CvArgs a) {
   const int lane = threadIdx.x & 31;
   if (lane < 8) {
     float4 ia, ib;
-    colspan::tile_owner(a.p, cl, sh, ia, ib);
+    colspan::tile_owner(a.p.ipack, cl, sh, ia, ib);
     const int t = PERTYPE ? min(max(static_cast<int>(ib.w), 0), nrad - 1) : 0;
     sh.odata[lane] = make_float4(ib.z, rad1[t].x, rad1[t].y, 0.f);
   }

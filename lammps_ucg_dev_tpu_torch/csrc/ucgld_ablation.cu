@@ -117,7 +117,7 @@ ucgld_ablation_kernel(const __grid_constant__ PairArgs a) {
     bool real = false;
     if (lane < 8) {
       float4 ia, ib;
-      real = colspan::tile_owner(a, cl, sh, ia, ib);
+      real = colspan::tile_owner(a.ipack, cl, sh, ia, ib);
     }
     if constexpr (LEVEL == 0) {
       const float sum = walk_floor(a, cl, sh.span);

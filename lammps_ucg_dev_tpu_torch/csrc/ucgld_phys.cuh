@@ -1,7 +1,8 @@
 // The table_ucgld pair physics of one queued pair on the tile walk
-// (colspan::for_each_pair_tile): K1's (ucgld_pair.cu) in every variant,
-// and K7's level 4 (ucgld_ablation.cu), which is K1 without scores and
-// must stay bit-identical to it, so both compile this one definition.
+// (colspan::tile_walk): K1's (ucgld_pair.cu) in every variant, K7's level
+// 4 (ucgld_ablation.cu), which is K1 without scores and must stay
+// bit-identical to it, so both compile this one definition, and K8's
+// (ucgld_cluster.cu), which is K1 full on its cluster-list walk.
 //
 // For a pair (i, j) with 0 < rsq < cutsq, u = max(rsq*uscale + uoff, -1)
 // (lower clamp only) and the D-form channels of the pair's rows:
@@ -20,7 +21,10 @@ namespace colspan {
 // data odata[o] = [λ_i, type_i, 0, 0].  MULTI: the D-form rows
 // [eA eB eC eD fA fB fC fD] of each ordered type pair (ti, tj); otherwise
 // those 8 rows, or [eB eD fA fB fC fD] without observables and scores.
-template <bool OBSERVE, bool SCORES, bool MULTI>
+// The candidate's attribute a is cols[jc + a*czp] (K1's columns; K8 reads
+// its slot rows with czp 1).  CLIP: u is also clipped at 1 from above (K8's
+// u map; K1's clamps below only).
+template <bool OBSERVE, bool SCORES, bool MULTI, bool CLIP = false>
 struct UcgldPair {
   static constexpr int NR = (MULTI || OBSERVE || SCORES) ? 8 : 6;
   static constexpr int NF = SCORES ? 6 : 4;
@@ -40,9 +44,10 @@ struct UcgldPair {
     const float lj = cols[jc + 3 * czp];
     const int ti = MULTI ? static_cast<int>(od.y) : 0;
     const int tj = MULTI ? static_cast<int>(cols[jc + 7 * czp]) : 0;
+    float u = fmaxf(rsq * uscale + uoff, -1.f);
+    if constexpr (CLIP) u = fminf(u, 1.f);
     float acc[NR];
-    series<NR>(pair_rows<MULTI>(c, degree, ntypes1, ti, tj), degree,
-               fmaxf(rsq * uscale + uoff, -1.f), acc);
+    series<NR>(pair_rows<MULTI>(c, degree, ntypes1, ti, tj), degree, u, acc);
     const Channels ch = channels<NR>(acc);
 
     const float wD = li * lj;
@@ -82,7 +87,7 @@ __device__ __forceinline__ void ucgld_tile(
   const int lane = threadIdx.x & 31;
   if (lane < 8) {
     float4 ia, ib;
-    tile_owner(a, cl, sh, ia, ib);
+    tile_owner(a.ipack, cl, sh, ia, ib);
     sh.odata[lane] = make_float4(ia.w, ib.w, 0.f, 0.f);
   }
   const Phys phys{c, a.cols, sh.odata, a.degree, a.czp, a.ntypes1,

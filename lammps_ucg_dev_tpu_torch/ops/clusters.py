@@ -20,7 +20,15 @@ cutoff+skin.
 Produced per reneighbor:
     atom_slot (N,)        atom -> slot row
     slot_atom (N_s,)      slot -> atom (N = padding sentinel)
-    jcl (n_scl, KC)       per i-cluster candidate j-cluster ids (pad n_scl)
+    jcl (n_scl, KC)       per i-cluster candidate j-cluster ids, each row's
+                          real entries first, then pads (n_scl)
+    occupied (n_occ,)     the i-clusters that hold atoms, ascending (K8's
+                          grid; its length is read on the host)
+
+Every row is compacted, real entries first, which K8's walk relies on (it
+stops at a row's first pad).  The attic compacts a row only when the
+stencil holds more than KC clusters and otherwise masks it in place; the
+entries are the same, in another order.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ class ClusterList:
     overflow: torch.Tensor       # () bool (cell capacity or KC exceeded)
     max_occupancy: torch.Tensor  # () int — most candidate j-clusters kept
     kc: int
+    occupied: torch.Tensor       # (n_occ,) int32 i-clusters holding atoms
 
     @property
     def n_clusters(self) -> int:
@@ -169,6 +178,12 @@ def build(x: torch.Tensor, box: Box, spec: ClusterSpec) -> ClusterList:
         dist = torch.sqrt(torch.sum(d * d, dim=-1))
         reach = spec.rc + radius[r0:r1, None] + radius[cand]
         mask = (dist < reach) & has_atoms[cand] & has_atoms[r0:r1, None]
+        if cand.shape[1] <= KC:
+            # compact_first masks such rows in place; dead columns up to
+            # KC + 1 make it compact them too
+            extra = (0, KC + 1 - cand.shape[1])
+            cand = torch.nn.functional.pad(cand, extra, value=n_scl)
+            mask = torch.nn.functional.pad(mask, extra, value=False)
         jc, c = nbrmod.compact_first(cand, mask, KC, n_scl)
         jcl_blocks.append(jc)
         count_blocks.append(c)
@@ -176,7 +191,8 @@ def build(x: torch.Tensor, box: Box, spec: ClusterSpec) -> ClusterList:
     return ClusterList(
         jcl=torch.cat(jcl_blocks).to(torch.int32), atom_slot=atom_slot,
         slot_atom=slot_atom, x0=x, overflow=cell_overflow | (mx > KC),
-        max_occupancy=mx, kc=KC)
+        max_occupancy=mx, kc=KC,
+        occupied=torch.nonzero(has_atoms).flatten().to(torch.int32))
 
 
 def as_neighbor_list(cl: ClusterList, n_atoms: int) -> nbrmod.NeighborList:

@@ -135,7 +135,7 @@ def ptxas_summary(log_text: str) -> list[str]:
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(I.*E)?E[vP]", m.group(1))
+            k = re.search(r"([a-z_]+_kernel)(I.*E)?E[vPN]", m.group(1))
             targs = re.findall(r"L[bi](\d+)E", k.group(2) or "") if k else []
             name = (k.group(1) if k else m.group(1)) + (
                 f"<{','.join(targs)}>" if targs else "")

@@ -6,7 +6,9 @@
   launches the hand-written Hopper kernel ``csrc/ucgld_cluster.cu`` (built
   at its first launch, ops/cuda_lib.py) or raises; on CPU tensors it runs
   :func:`ucgld_cluster_reference`, the kernel's plain PyTorch twin.
-  ``ucgld_cluster.launches`` counts kernel launches.
+  ``ucgld_cluster.launches`` counts kernel launches.  The kernel covers
+  only the i-clusters that hold atoms (``occupied``, which the cluster
+  list carries).
 * :func:`compute` is the ForceOut-compatible pair evaluation on a cluster
   list (ops/clusters.py): slot pack → kernel → slot→atom take →
   chemical-potential and 1/kT terms, pe and virial halved (full list,
@@ -16,11 +18,13 @@
 Kernel contract (both the CUDA kernel and the twin):
   scal   (8,) f32   [Lx Ly Lz cutsq innersq lo hi 0]
   apack  (n_slots, 8) f32 slot rows [x y z λ state valid gid 0]
-  jcl    (n_icl, KC) int32 candidate j-clusters of each i-cluster (pad
-         n_icl); n_slots = 8·n_icl
+  jcl    (n_icl, KC) int32 candidate j-clusters of each i-cluster, each
+         row's real entries first, then pads (n_icl), as clusters.build
+         lays them out; n_slots = 8·n_icl
   coef   (8, degree) the Chebyshev rows of the 4 tables in table order
-         [e00 e01 e10 e11 f00 f01 f10 f11], evaluated by Clenshaw with u
-         clipped to [-1, 1] over the fit domain [lo, hi] in r²
+         [e00 e01 e10 e11 f00 f01 f10 f11], evaluated with u clipped to
+         [-1, 1] over the fit domain [lo, hi] in r² (the twin by
+         Clenshaw; the kernel on their D-form rows, as K1)
   out    (n_slots, 8) [fx fy fz lamf s0 s1 0 0]
   part   (n_slots, 8) [pe vxx vyy vzz vxy vxz vyz oob] per i-slot
 A pair counts when rsq < cutsq, both slots hold real atoms, its j-cluster
@@ -42,7 +46,6 @@ from lammps_ucg_dev_tpu_torch.ops.hopper_pair import TWIN_CHUNK_ELEMS, _check
 
 CL = clmod.CL
 MAX_DEGREE = 24
-KC_STEP = 8        # j-clusters the CUDA kernel stages per round (divides KC)
 
 
 def supports(params: UCGLDParams) -> bool:
@@ -189,32 +192,35 @@ def _lib():
     nl = cuda_lib.load("ucgld_cluster")
     fn = nl.lib.ucgld_cluster_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_cuda(scal, apack, jcl, coef, *, degree):
+def _launch_cuda(scal, apack, jcl, coef, occupied, *, degree):
     dev = apack.device
     f32 = torch.float32
     n_icl, kc = jcl.shape
     n_slots = n_icl * CL
     if not 2 <= degree <= MAX_DEGREE:
         raise ValueError(f"degree {degree} outside [2, {MAX_DEGREE}]")
-    if kc % KC_STEP:
-        raise ValueError(f"KC {kc} is not a multiple of {KC_STEP}")
     _check(scal, "scal", f32, (8,), dev)
     _check(apack, "apack", f32, (n_slots, 8), dev)
     _check(jcl, "jcl", torch.int32, (n_icl, kc), dev)
     _check(coef, "coef", f32, (8, degree), dev)
+    if occupied is None:
+        raise ValueError("K8 launches over the occupied i-clusters: pass "
+                         "occupied (ClusterList.occupied)")
+    n_occ = occupied.shape[0]
+    _check(occupied, "occupied", torch.int32, (n_occ,), dev)
     out = torch.empty((n_slots, 8), dtype=f32, device=dev)
     part = torch.empty((n_slots, 8), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib()(scal.data_ptr(), apack.data_ptr(), jcl.data_ptr(),
                     coef.data_ptr(), out.data_ptr(), part.data_ptr(), n_icl,
-                    kc, degree, stream)
+                    kc, degree, stream, occupied.data_ptr(), n_occ)
     if rc != 0:
         raise RuntimeError(f"ucgld_cluster kernel launch failed: CUDA error "
                            f"{rc}")
@@ -222,11 +228,15 @@ def _launch_cuda(scal, apack, jcl, coef, *, degree):
     return out, part
 
 
-def ucgld_cluster(scal, apack, jcl, coef, *, degree: int):
+def ucgld_cluster(scal, apack, jcl, coef, *, degree: int,
+                  occupied: torch.Tensor | None = None):
     """K8: the hand-written kernel on CUDA tensors (launch or raise), its
-    plain twin on CPU tensors.  Returns (out, part)."""
+    plain twin on CPU tensors.  Returns (out, part).  ``occupied``: the
+    i-clusters that hold atoms, ascending (``ClusterList.occupied``), which
+    the kernel's grid covers (required on CUDA); the twin walks every
+    i-cluster and does not read it."""
     if apack.is_cuda:
-        return _launch_cuda(scal, apack, jcl, coef, degree=degree)
+        return _launch_cuda(scal, apack, jcl, coef, occupied, degree=degree)
     if apack.device.type == "cpu":
         return ucgld_cluster_reference(scal, apack, jcl, coef, degree=degree)
     raise ValueError(f"no K8 implementation for device {apack.device}")
@@ -241,7 +251,7 @@ def compute(state: SimState, cl: clmod.ClusterList, params: UCGLDParams,
             cheb: ChebBank) -> ForceOut:
     """Pair evaluation through K8 (always the full variant)."""
     args, kw = kernel_inputs(state, cl, params, cheb)
-    out, part = ucgld_cluster(*args, **kw)
+    out, part = ucgld_cluster(*args, **kw, occupied=cl.occupied)
     tp = params.tp
     f32 = torch.float32
     zero = torch.zeros((), dtype=f32, device=state.device)

@@ -1,18 +1,21 @@
-"""Same-call timing of the tile-walk kernels (K1, K7, K6) built from
-several source trees, on one set of inputs, in turns.
+"""Same-call timing of the tile-walk kernels (K1, K7, K2, K6, K8) built
+from several source trees, on one set of inputs, in turns.
 
     python -m lammps_ucg_dev_tpu_torch.tools.abtime TAG=CSRC [TAG=CSRC ...]
         [--n 1048576] [--reps 20]
 
 Each CSRC is a directory holding ``ucgld_pair.cu``, ``density_cv.cu``,
-``ucgld_ablation.cu`` and their headers (this package's ``csrc/``, or a copy
-of another tree's), optionally followed by ``:FLAG,FLAG``, extra nvcc flags
-for that tag.  Every source of every tag is built at once with
-``cuda_lib.NVCC_FLAGS`` into ``_build/ab/``; this package's wrappers then
-launch each tag's build in turn on the same inputs: K1 in its three variants
-and K7 at L0–L4 on the flagship fluid, K6 fast and full (the paths' g-form,
-``mder``) on the P3 and P4 systems after setup, all at ``--n`` beads.  The
-builds must share this tree's C entry points.
+``ucgld_ablation.cu``, ``bethe_pair.cu``, ``ucgld_cluster.cu`` and their
+headers (this package's ``csrc/``, or a copy of another tree's), optionally
+followed by ``:FLAG,FLAG``, extra nvcc flags for that tag.  Every source of
+every tag is built at once with ``cuda_lib.NVCC_FLAGS`` into
+``_build/ab/``; this package's wrappers then launch each tag's build in
+turn on the same inputs: K1 in its three variants and K7 at L0–L4 on the
+flagship fluid, K2 fast and full on the Bethe system (config 3) after
+setup, K6 fast and full (the paths' g-form, ``mder``) on the P3 and P4
+systems after setup, and K8 on the cluster path's inputs, all at ``--n``
+beads.  The builds must share this tree's C entry points (K8's may end at
+the stream: its occupied list comes after it).
 
 Prints the card's name and power limit and each build's ptxas lines, then
 one line per kernel: each tag's mean ms over its two turns (the tags in
@@ -26,25 +29,32 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import subprocess
 from pathlib import Path
 
 import torch
 
 from lammps_ucg_dev_tpu_torch import flagship
-from lammps_ucg_dev_tpu_torch.ops import cuda_lib
+from lammps_ucg_dev_tpu_torch.ops import clusters, cuda_lib
 from lammps_ucg_dev_tpu_torch.ops import hopper_ablation as ha
+from lammps_ucg_dev_tpu_torch.ops import hopper_bethe as hb
+from lammps_ucg_dev_tpu_torch.ops import hopper_cluster as hc
 from lammps_ucg_dev_tpu_torch.ops import hopper_cv as hcv
 from lammps_ucg_dev_tpu_torch.ops import hopper_density as hd
 from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
 from lammps_ucg_dev_tpu_torch.tools.kbench import staged
 from lammps_ucg_dev_tpu_torch.tools.timing import card, cuda_ms
 
-# (wrapper module, source, C entry point, pointer and int arguments before
-# the stream)
-ENTRIES = ((hp, "ucgld_pair", "ucgld_pair_launch", 8, 10),
-           (hcv, "density_cv", "density_cv_launch", 8, 10),
-           (ha, "ucgld_ablation", "ucgld_ablation_launch", 7, 7))
+P, I = ctypes.c_void_p, ctypes.c_int
+# (wrapper module, source, C entry point, its argument types)
+ENTRIES = ((hp, "ucgld_pair", "ucgld_pair_launch", [P] * 8 + [I] * 10 + [P]),
+           (hcv, "density_cv", "density_cv_launch", [P] * 8 + [I] * 10 + [P]),
+           (ha, "ucgld_ablation", "ucgld_ablation_launch",
+            [P] * 7 + [I] * 7 + [P]),
+           (hb, "bethe_pair", "bethe_pair_launch", [P] * 8 + [I] * 12 + [P]),
+           (hc, "ucgld_cluster", "ucgld_cluster_launch",
+            [P] * 6 + [I] * 3 + [P] * 2 + [I]))
 
 
 def build(tags: dict) -> dict:
@@ -54,7 +64,7 @@ def build(tags: dict) -> dict:
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for tag, (src, flags) in tags.items():
-        for _, name, _, _, _ in ENTRIES:
+        for _, name, _, _ in ENTRIES:
             so = out / f"{name}-{tag}.so"
             cmd = [cuda_lib.find_nvcc(), *cuda_lib.NVCC_FLAGS, *flags, "-o",
                    str(so), str(Path(src) / f"{name}.cu")]
@@ -76,10 +86,9 @@ def build(tags: dict) -> dict:
 def launching(libs: dict):
     """The wrappers launch the kernels of ``libs`` ({source: CDLL})."""
     saved = {}
-    for mod, name, entry, nptr, nint in ENTRIES:
+    for mod, name, entry, argtypes in ENTRIES:
         fn = getattr(libs[name], entry)
-        fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * nint
-                       + [ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         saved[mod] = mod._lib
         mod._lib = (lambda fn=fn: fn)
@@ -141,6 +150,16 @@ def main(argv=None) -> int:
                 libs, a.reps)
     del sim, state, cl
 
+    sim = flagship.build_bethe_sim(n=a.n)
+    sim.setup((0, 10))
+    state, cl = staged(sim)
+    p = sim.pair_params
+    for observe in (False, True):
+        args, kw = hb.kernel_inputs(state, cl, p, p.cheb, observe)
+        compare(f"K2 {hb.variant(observe)}",
+                lambda: hb.bethe_pair(*args, **kw), libs, a.reps)
+    del sim, state, cl
+
     for style, builder in (("P3", flagship.build_density_sim),
                            ("P4", flagship.build_rleucg_sim)):
         sim = builder(n=a.n)
@@ -159,6 +178,16 @@ def main(argv=None) -> int:
                     lambda: hcv.cv_force(*args, **kw, gform="mder",
                                          observe=observe), libs, a.reps)
         del sim, state, cl
+
+    sim = flagship.build_cluster_sim(n=a.n)
+    state = sim.state
+    state = dataclasses.replace(state, x=state.box.wrap(state.x))
+    cl = clusters.build(state.x, state.box, sim.nbr_spec)
+    args, kw = hc.kernel_inputs(state, cl, sim.pair_params,
+                                sim.pair_params.cheb)
+    compare("K8 full", lambda: hc.ucgld_cluster(*args, **kw,
+                                                occupied=cl.occupied),
+            libs, a.reps)
     return 0
 
 

@@ -121,6 +121,38 @@ def test_build_matches_attic_float64(attic, attic_list):
         assert bool(tcl.build(torch.as_tensor(x), tbox, small).overflow)
 
 
+def test_k8_walk_inputs_match_attic_list(attic_list):
+    """K8's host-side inputs: ``occupied``, the i-clusters whose slots hold
+    atoms (its grid), and rows whose real entries come first (its walk
+    stops at the first pad).  The port's build, at the attic's KC and at a
+    KC that holds the whole stencil (where the attic masks rows in place
+    and the port compacts them), and the list ``convert`` carries across."""
+    x, L, spec, jl = attic_list
+    jcl, slot_atom = np.asarray(jl.jcl), np.asarray(jl.slot_atom)
+    n_icl = jcl.shape[0]
+    occupied = np.flatnonzero((slot_atom < N).reshape(n_icl, 8).any(1))
+    real = jcl < n_icl
+    assert not np.any(~real[:, :-1] & real[:, 1:])    # no entry after a pad
+    np.testing.assert_array_equal(np.flatnonzero(real[:, 0]), occupied)
+    tbox = Box.create([0, 0, 0], [L] * 3, dtype=torch.float64, device="cpu")
+    tspec = tcl.make_spec(N, [L] * 3, flagship.RC, 0.4)
+    width = 27 * tspec.clusters_per_cell
+    wide = dataclasses.replace(tspec, kc=-(-(width + 1) // 16) * 16)
+    for sp in (tspec, wide):
+        tl = tcl.build(torch.as_tensor(x), tbox, sp)
+        assert tl.occupied.dtype == torch.int32
+        np.testing.assert_array_equal(tl.occupied.numpy(), occupied)
+        np.testing.assert_array_equal(tl.jcl[:, :spec.kc].numpy(), jcl)
+        assert bool((tl.jcl[:, spec.kc:] == n_icl).all())
+    # an attic row masked in place: its pads spread between its entries
+    d = convert.as_numpy_dict(jl)
+    spread = np.full((n_icl, 2 * spec.kc), n_icl, dtype=jcl.dtype)
+    spread[:, 1::2] = jcl
+    tl = convert.cluster_list_from_numpy(dict(d, jcl=spread), device="cpu")
+    np.testing.assert_array_equal(tl.jcl[:, :spec.kc].numpy(), jcl)
+    np.testing.assert_array_equal(tl.occupied.numpy(), occupied)
+
+
 def test_k8_twin_matches_attic_kernel_interpret(attic, flagship32,
                                                 attic_list):
     _, apk = attic

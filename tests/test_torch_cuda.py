@@ -270,6 +270,63 @@ def test_bethe_main_path_runs_through_k2(device):
     assert bool(((p >= 1e-6) & (p <= 1 - 1e-6)).all())
 
 
+@pytest.fixture(scope="module")
+def bethe_edges(device):
+    """{(kind, multi): (state, params, cl)} of 4,096 beads at random
+    positions at the tile walk's edges (EDGE_RHO): the config-3 Bethe fluid
+    after setup (one actual type) and the 2-type mixed system (MULTI)."""
+    sim = flagship.build_bethe_sim(n=4096, device=device, kernel=False)
+    sim.setup((0, 10))          # priors from ucgp, no longer the sentinel
+    bank, tp, mixed = mixed_system(device, n=4096)
+    out = {}
+    for kind, rho in EDGE_RHO.items():
+        for multi, base, params in (
+                (False, sim.state, sim.pair_params),
+                (True, mixed, pair_bethe.make_params(bank, tp, 0.8))):
+            rng = np.random.default_rng(21)
+            n = base.n_atoms
+            L = (n / rho) ** (1 / 3)
+            x = rng.uniform(0.0, L, (n, 3))
+            if kind == "clumped":
+                x[:, 0] *= 0.4
+            state = dataclasses.replace(
+                base, x=torch.as_tensor(x, dtype=torch.float32,
+                                        device=device),
+                box=Box.create([0, 0, 0], [L] * 3, device=device))
+            sel = select_pair_kernel(params, state, flagship.RC, 0.4)
+            assert sel is not None and sel[0] is hb.compute_style_bethe
+            _, spec, kparams = sel
+            cl = colpack.build(state.x, state.box, spec)
+            assert not bool(cl.overflow)
+            out[kind, multi] = (state, kparams, cl)
+    return out
+
+
+@pytest.mark.parametrize("method,pseudo,observe", BETHE_VARIANTS)
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("kind", ["dilute", "compressed", "clumped"])
+def test_k2_matches_twin_at_the_edges(bethe_edges, kind, multi, method,
+                                      pseudo, observe):
+    state, params, cl = bethe_edges[kind, multi]
+    params = dataclasses.replace(params, method=method, pseudo=pseudo)
+    k2_vs_twin(state, cl, params, observe)
+
+
+@pytest.mark.parametrize("method,pseudo,observe", BETHE_VARIANTS)
+@pytest.mark.parametrize("multi", [False, True])
+def test_k2_two_launches_bit_identical(bethe_edges, multi, method, pseudo,
+                                       observe):
+    """The tile walk sums in queue order, which the inputs fix."""
+    state, params, cl = bethe_edges["compressed", multi]
+    params = dataclasses.replace(params, method=method, pseudo=pseudo)
+    args, kw = hb.kernel_inputs(state, cl, params, params.cheb, observe)
+    out_a, part_a = hb.bethe_pair(*args, **kw)
+    out_b, part_b = hb.bethe_pair(*args, **kw)
+    assert torch.equal(out_a, out_b)
+    if observe:
+        assert torch.equal(part_a, part_b)
+
+
 # ---- K3-K6: the density-CV styles ----------------------------------------
 
 DENSITY_VARIANTS = [(m, o, s) for m in ("bethe", "mf")
@@ -647,17 +704,15 @@ def test_k7_level4_is_k1_noscores(k7_inputs):
     assert torch.equal(l4, k1)
 
 
-def test_k8_matches_twin(device):
-    from lammps_ucg_dev_tpu_torch.ops import clusters
+def k8_vs_twin(args, kw, cl):
+    """K8 (on the list's occupied i-clusters) against its twin: every out
+    column within TOL of its scale, pe, the virial and the inner-cutoff
+    count of the summed per-slot rows, and the rows of the i-clusters
+    without atoms exactly zero.  Returns the kernel's (out, part)."""
     from lammps_ucg_dev_tpu_torch.ops import hopper_cluster as hc
 
-    sim = flagship.build_cluster_sim(n=32768, device=device)
-    state, params = sim.state, sim.pair_params
-    cl = clusters.build(state.x, state.box, sim.nbr_spec)
-    assert not bool(cl.overflow)
-    args, kw = hc.kernel_inputs(state, cl, params, params.cheb)
     before = hc.ucgld_cluster.launches["full"]
-    out_k, part_k = hc.ucgld_cluster(*args, **kw)
+    out_k, part_k = hc.ucgld_cluster(*args, **kw, occupied=cl.occupied)
     assert hc.ucgld_cluster.launches["full"] == before + 1
     out_t, part_t = hc.ucgld_cluster_reference(*args, **kw)
     torch.cuda.synchronize()
@@ -672,10 +727,108 @@ def test_k8_matches_twin(device):
     np.testing.assert_allclose(tk[1:7].numpy(), tt[1:7].numpy(), rtol=0,
                                atol=TOL * vs)
     assert float(tk[7]) == float(tt[7])
+    empty = torch.ones(cl.n_clusters, dtype=torch.bool, device=out_k.device)
+    empty[cl.occupied.long()] = False
+    for rows in (out_k, part_k):
+        assert not bool(rows.reshape(cl.n_clusters, -1)[empty].any())
+    return out_k, part_k
+
+
+def test_k8_matches_twin(device):
+    from lammps_ucg_dev_tpu_torch.ops import clusters
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cluster as hc
+
+    sim = flagship.build_cluster_sim(n=32768, device=device)
+    state, params = sim.state, sim.pair_params
+    cl = clusters.build(state.x, state.box, sim.nbr_spec)
+    assert not bool(cl.overflow)
+    args, kw = hc.kernel_inputs(state, cl, params, params.cheb)
+    k8_vs_twin(args, kw, cl)
     bad = list(args)
     bad[1] = args[1].double()                       # apack in f64
     with pytest.raises(TypeError):
-        hc.ucgld_cluster(*bad, **kw)
+        hc.ucgld_cluster(*bad, **kw, occupied=cl.occupied)
+    with pytest.raises(ValueError):                 # no occupied list
+        hc.ucgld_cluster(*args, **kw)
+
+
+def test_k8_matches_twin_in_a_box_of_three_cells(device):
+    """3 cells a side (512 beads, L 9.49): clusters reach wider than
+    0.49 L - rc, where K8 takes the image per pair, not per candidate."""
+    sim = flagship.build_cluster_sim(n=512, device=device)
+    assert sim.nbr_spec.cells_per_side == (3, 3, 3)
+    args, kw, cl = k8_inputs(sim.state, sim.pair_params, sim.nbr_spec)
+    k8_vs_twin(args, kw, cl)
+
+
+@pytest.fixture(scope="module")
+def cluster_edges(device):
+    """{kind: (state, params, spec)}: 4,096 beads of the flagship fluid at
+    random positions at the tile walk's edges (EDGE_RHO), with a cluster
+    spec whose cells hold the clump's density when clumped."""
+    from lammps_ucg_dev_tpu_torch.ops import clusters
+
+    sim = flagship.build_cluster_sim(n=4096, device=device)
+    out = {}
+    for kind, rho in EDGE_RHO.items():
+        rng = np.random.default_rng(21)
+        n = sim.state.n_atoms
+        L = (n / rho) ** (1 / 3)
+        x = rng.uniform(0.0, L, (n, 3))
+        if kind == "clumped":
+            x[:, 0] *= 0.4
+        state = dataclasses.replace(
+            sim.state, x=torch.as_tensor(x, dtype=torch.float32,
+                                         device=device),
+            box=Box.create([0, 0, 0], [L] * 3, device=device))
+        spec = clusters.make_spec(int(n / 0.4) if kind == "clumped" else n,
+                                  [L] * 3, flagship.RC, 0.4)
+        out[kind] = (state, sim.pair_params, spec)
+    return out
+
+
+def k8_inputs(state, params, spec, **spec_kw):
+    """(args, kw, cl) of K8 on a fresh cluster list of ``state``."""
+    from lammps_ucg_dev_tpu_torch.ops import clusters
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cluster as hc
+
+    cl = clusters.build(state.x, state.box,
+                        dataclasses.replace(spec, **spec_kw))
+    args, kw = hc.kernel_inputs(state, cl, params, params.cheb)
+    return args, kw, cl
+
+
+@pytest.mark.parametrize("kind", ["dilute", "compressed", "clumped"])
+def test_k8_matches_twin_at_the_edges(cluster_edges, kind):
+    args, kw, cl = k8_inputs(*cluster_edges[kind])
+    assert not bool(cl.overflow)
+    k8_vs_twin(args, kw, cl)
+
+
+def test_k8_rows_of_pads_and_rows_filled_to_kc(cluster_edges):
+    """A row that holds only pads (its i-cluster still has atoms) walks
+    nothing; a row filled to KC, with no pad to stop at, walks all of it."""
+    args, kw, cl = k8_inputs(*cluster_edges["compressed"])
+    jcl = args[2].clone()
+    first = cl.occupied[:5].long()
+    jcl[first] = cl.n_clusters
+    out, part = k8_vs_twin((*args[:2], jcl, args[3]), kw, cl)
+    assert not bool(out.reshape(cl.n_clusters, -1)[first].any())
+    assert not bool(part.reshape(cl.n_clusters, -1)[first].any())
+    # a KC of 16 overflows: many rows hold 16 real entries, the first 16
+    args, kw, cl = k8_inputs(*cluster_edges["compressed"], kc=16)
+    assert bool((cl.jcl < cl.n_clusters).all(1).any())
+    k8_vs_twin(args, kw, cl)
+
+
+def test_k8_two_launches_bit_identical(cluster_edges):
+    """Sums in queue order, which the inputs fix."""
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cluster as hc
+
+    args, kw, cl = k8_inputs(*cluster_edges["compressed"])
+    out_a, part_a = hc.ucgld_cluster(*args, **kw, occupied=cl.occupied)
+    out_b, part_b = hc.ucgld_cluster(*args, **kw, occupied=cl.occupied)
+    assert torch.equal(out_a, out_b) and torch.equal(part_a, part_b)
 
 
 def test_cluster_path_runs_through_k8_and_refuses_unsupported(device):

@@ -59,8 +59,9 @@ which raises on failure:
    before and read just after.
 
 Each check of a kernel against its twin also launches the kernel twice
-and requires the same bits (K1, K2, K6, K7 and K8 run on the tile walk of
-``csrc/colspan.cuh``, which sums in queue order).  Each of the five main
+and requires the same bits (K1, K2, K5, K6, K7 and K8 run on the tile walk
+of ``csrc/colspan.cuh``, K3 and K4 on its compacting walk; both sum in an
+order the inputs alone fix).  Each of the five main
 paths (4, 8, 11, 14) ends with D1, the dangerous-build check: the in-cutoff
 pairs of the column or cluster list carried since the last rebuild against
 those of a fresh build on the same positions, printed, not gated.

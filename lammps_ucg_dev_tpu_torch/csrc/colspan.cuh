@@ -1,10 +1,10 @@
 // Shared device code of the column-span pair kernels (K1 ucgld_pair.cu,
 // K2–K4 bethe_pair.cu, K5/K6 density_cv.cu and K7 ucgld_ablation.cu) and
-// of the cluster-list kernel K8 (ucgld_cluster.cu): the walk over a
-// cluster's nine candidate spans (K5), the Chebyshev series of the table
-// channels and the 2x2 state block in D-form, the compacting walk of K3/K4
-// and the tile walk of K1, K2, K6, K7 and K8 (one warp per 8-slot cluster,
-// over a source of candidates).  It is the counterpart of the
+// of the cluster-list kernel K8 (ucgld_cluster.cu): the Chebyshev series
+// of the table channels and the 2x2 state block in D-form, the compacting
+// walk of K3/K4 (one thread per i-slot over its cluster's nine candidate
+// spans) and the tile walk of K1, K2, K5, K6, K7 and K8 (one warp per
+// 8-slot cluster, over a source of candidates).  It is the counterpart of the
 // split in lammps_ucg_dev_tpu/ops/pallas_pair.py between the span
 // scaffolding (_kernel_colspan) and the per-candidate physics (_phys_tile),
 // which each style fills in.
@@ -22,8 +22,8 @@
 //          pair (ti, tj), zero where a state pair has no table
 //   out    (n_slots, 8) per-slot tallies; part (n_slots, 8) per-slot
 //          [pe vxx vyy vzz vxy vxz vyz oob] (observing variants)
-// One thread (one warp in the tile walk) owns one i-slot (one 8-slot
-// cluster) and writes only its own rows: no atomics.
+// One thread of the compacting walk owns one i-slot, one warp of the tile
+// walk one 8-slot cluster, and each writes only its own rows: no atomics.
 
 #pragma once
 
@@ -148,70 +148,27 @@ __device__ __forceinline__ Channels channels(const float (&acc)[NR]) {
   return ch;
 }
 
-// Walk every candidate j of i-slot t at (xi, yi, zi): its 8-slot cluster
-// owns nine spans [z0, z0+L), one per column of the 3x3 x-y stencil, each
-// with that column's periodic image shift (colpack.stencil).  visit(cj, j,
-// dx, dy, dz, rsq) runs for 0 < rsq < cutsq (and a valid j-slot when
-// CHECK_VALID); cj[a*czp + j] is attribute a of the candidate.  The cutoff
-// test is a branch, so the poisoned pad slots (1e17) never reach a tally.
-// `visit` is a tally struct whose __forceinline__ operator() holds the
-// style's physics, so its accumulators stay in registers.
-template <bool CHECK_VALID, class Visit>
-__device__ __forceinline__ void for_each_pair(const PairArgs& a, int t,
-                                              float xi, float yi, float zi,
-                                              Visit& visit) {
-  const float* __restrict__ cols = a.cols;
-  const float Lx = a.scal[0], Ly = a.scal[1], cutsq = a.scal[2];
-  const int czp = a.czp, mx = a.mx, my = a.my;
-  const int cpc = a.cz >> 3;
-  const int col = t / a.cz;
-  const int b = (t - col * a.cz) >> 3;
-  const int cx = col / my;
-  const int cy = col - cx * my;
-  const size_t sbase = (static_cast<size_t>(col) * cpc + b) * kNsten;
-
-  for (int s = 0; s < kNsten; ++s) {
-    const int len = a.span_len[sbase + s];
-    if (len <= 0) continue;
-    const int ax = cx + s / 3 - 1 + mx;
-    const int ay = cy + s % 3 - 1 + my;
-    const float shx = static_cast<float>(ax / mx - 1) * Lx;
-    const float shy = static_cast<float>(ay / my - 1) * Ly;
-    const float* cj =
-        cols + static_cast<size_t>((ax % mx) * my + ay % my) * 8 * czp;
-    const int j0 = a.span_z0[sbase + s];
-    for (int j = j0; j < j0 + len; ++j) {
-      const float dx = xi - (cj[j] + shx);
-      const float dy = yi - (cj[czp + j] + shy);
-      const float dz = zi - cj[2 * czp + j];
-      const float rsq = dx * dx + dy * dy + dz * dz;
-      if (!(rsq < cutsq && rsq > 0.f)) continue;
-      if (CHECK_VALID && !(cj[5 * czp + j] > 0.5f)) continue;
-      visit(cj, j, dx, dy, dz, rsq);
-    }
-  }
-}
-
 // ---- the compacting walk (K3, K4) ------------------------------------------
 //
-// for_each_pair runs a pair's physics in the lane that owns the i-slot, so
-// a warp runs it whenever any of its 32 lanes passes the cutoff test: ~97%
-// of candidate steps when ~10% of candidates pass, with ~3 lanes active.
-// Here each lane still walks its own i-slot's nine spans, but a lane that
-// passes appends the pair to its warp's queue in shared memory (at the
-// __popc prefix of the step's __ballot_sync), and whenever 32 pairs wait,
-// each of the 32 lanes runs the physics of one of them.  Each owner lane
-// then adds, in queue order (that is, in its own walk order), the
-// contributions of the entries that are its own: a deterministic sum in
-// the order for_each_pair takes.  Lanes whose walk ends early (shorter
-// spans, invalid or absent i-slots) step on with a false test, so every
-// _sync intrinsic sees all 32 lanes.  Only pairs that pass the test enter
-// the queue (F2: the poisoned pad slots never do).  A lane tests two
-// candidates a step, so the loop, the queue's bookkeeping and the batch
-// test are paid once for two.  An entry is two words (one 8-byte store):
-// the candidate's offset in cols and the owner lane with the stencil
-// column's image shift, from which the batch takes the pair's geometry
-// again, as the walk computed it.
+// Each lane walks the candidates of its own i-slot t: t's 8-slot cluster
+// owns nine spans [z0, z0+L), one per column of the 3x3 x-y stencil, each
+// with that column's periodic image shift (colpack.stencil).  A lane that
+// ran a pair's physics itself would hold its warp in the physics whenever
+// any of its 32 lanes passes the cutoff test: ~97% of candidate steps when
+// ~10% of candidates pass, with ~3 lanes active.  So a lane that passes
+// appends the pair to its warp's queue in shared memory (at the __popc
+// prefix of the step's __ballot_sync), and whenever 32 pairs wait, each of
+// the 32 lanes runs the physics of one of them.  Each owner lane then adds,
+// in queue order (that is, in its own walk order), the contributions of
+// the entries that are its own: a sum in an order the inputs alone fix.
+// Lanes whose walk ends early (shorter spans, invalid or absent i-slots)
+// step on with a false test, so every _sync intrinsic sees all 32 lanes.
+// Only pairs that pass the test enter the queue (F2: the poisoned pad
+// slots, at 1e17, never do).  A lane tests two candidates a step, so the
+// loop, the queue's bookkeeping and the batch test are paid once for two.
+// An entry is two words (one 8-byte store): the candidate's offset in cols
+// and the owner lane with the stencil column's image shift, from which the
+// batch takes the pair's geometry again, as the walk computed it.
 
 constexpr int kQueue = 128;  // <= 31 waiting + <= 64 appended a step
 constexpr unsigned kFull = 0xffffffffu;
@@ -284,10 +241,10 @@ __device__ __forceinline__ void run_batch(const PairArgs& a,
   }
 }
 
-// Walk every candidate j of i-slot t at (xi, yi, zi) (none when !real) as
-// for_each_pair does, and run `phys` on the pairs with 0 < rsq < cutsq
-// (and a valid j-slot when CHECK_VALID) in full warps.  Every lane of the
-// warp must call it.
+// Walk every candidate j of i-slot t at (xi, yi, zi) (none when !real), the
+// nine spans in stencil order, and run `phys` on the pairs with
+// 0 < rsq < cutsq (and a valid j-slot when CHECK_VALID) in full warps.
+// Every lane of the warp must call it.
 template <bool CHECK_VALID, class Phys>
 __device__ __forceinline__ void for_each_pair_compact(
     const PairArgs& a, int t, bool real, float xi, float yi, float zi,
@@ -376,18 +333,18 @@ __device__ __forceinline__ void for_each_pair_compact(
   }
 }
 
-// ---- the tile walk (K1, K2, K6, K7, K8) ------------------------------------
+// ---- the tile walk (K1, K2, K5, K6, K7, K8) --------------------------------
 //
 // One warp per 8-slot i-cluster.  The cluster's candidates form one
 // sequence of `total`, and each step takes the next 32 of them, one per
 // lane, by coalesced loads: once per cluster instead of once per i-slot.
 // Where the sequence comes from is the walk's source: the cluster's nine
-// column spans laid end to end (SpanSource: K1, K2, K6, K7), or the 8-slot
-// j-clusters of a cluster-list row (K8, ucgld_cluster.cu).  Each lane tests
-// its candidate against the cluster's 8 i-slots (their coordinates held in
-// registers by every lane; NaN for a slot without a real atom, which then
-// passes no test): rsq < cutsq and the source's own pair rule (SpanSource:
-// rsq > 0 and, with CHECK_VALID, a valid j, as for_each_pair).  A hit
+// column spans laid end to end (SpanSource: K1, K2, K5, K6, K7), or the
+// 8-slot j-clusters of a cluster-list row (K8, ucgld_cluster.cu).  Each
+// lane tests its candidate against the cluster's 8 i-slots (their
+// coordinates held in registers by every lane; NaN for a slot without a
+// real atom, which then passes no test): rsq < cutsq and the source's own
+// pair rule (SpanSource: rsq > 0 and, with CHECK_VALID, a valid j).  A hit
 // (dx, dy, dz, candidate offset << 3 | owner) goes to the warp's queue at
 // the __popc prefix of that owner's ballot, owner by owner, two owners'
 // ballots at a time.  After every second owner, while 32 hits wait, each
@@ -645,8 +602,8 @@ __device__ __forceinline__ void tile_walk(Src& src, float cutsq,
   __syncwarp();
 }
 
-// The tile walk over cluster c's nine column spans (K1, K2, K6, K7), with
-// 0 < rsq < cutsq (and a valid j-slot when CHECK_VALID) as for_each_pair.
+// The tile walk over cluster c's nine column spans (K1, K2, K5, K6, K7),
+// with 0 < rsq < cutsq and, when CHECK_VALID, a valid j-slot.
 template <bool CHECK_VALID, class Phys>
 __device__ __forceinline__ void for_each_pair_tile(const PairArgs& a, int c,
                                                    TileShared<Phys::NV>& sh,

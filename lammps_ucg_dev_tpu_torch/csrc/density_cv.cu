@@ -13,8 +13,8 @@
 // ipack rows [x y z c state valid c typ] and the extended columns; c is
 // the per-atom CV weight cvf in pass 3 (attr 3 of the candidates, attr 6
 // of the i-slot), typ (attr 7) the type that indexes `rad`, the proximity
-// radius R per type (PERTYPE, at most kMaxRad entries) or one radius
-// rad[0] for every atom.
+// radius R per type (PERTYPE; K6 at most kMaxRad entries, K5 any number)
+// or one radius rad[0] for every atom.
 // For every real i-slot and candidate j with 0 < rsq < cutsq, in f32, with
 // r = sqrt(rsq) and t_a = tanh((r - R_a) / (0.1 R_a)):
 //   K5 (rho): rho += 0.5 (1 - t_i); n += 1            out (n_slots, 2)
@@ -31,16 +31,21 @@
 //
 // Bound: FMA/SFU throughput — per in-cutoff pair one sqrt, one or two tanh
 // and two or three divisions against 12-20 bytes of j attributes; ~90% of
-// the candidates fail the cutoff test after 10 flops.  K5: one thread per
-// i-slot on the span walk (colspan::for_each_pair), no atomics, the
-// cutoff test a branch (pad poison never reaches a tally).  K6: the tile
-// walk (colspan::for_each_pair_tile), one warp per 8-slot cluster, each
-// candidate loaded once per cluster and tested against its 8 i-slots, the
-// in-cutoff pairs run 32 at a time on full warps; per pair one rsqrtf gives
-// 1/r and r = rsq (1/r), and the divisions by 0.1 R become products with
-// 1/(0.1 R), taken once per i-slot (the owner) and once per type (the
-// partner, a table in shared memory).  tanhf stays as the twin takes it;
-// no fast-math flag.
+// the candidates fail the cutoff test after 10 flops.  Both kernels run on
+// the tile walk (colspan::for_each_pair_tile): one warp per 8-slot cluster,
+// each candidate loaded once per cluster and tested against its 8 i-slots
+// (K5 reads no attribute of j beyond x y z, and no validity), the in-cutoff
+// pairs run 32 at a time on full warps, each lane's values summed into its
+// own column of per-owner partial sums, added in a fixed order at the end
+// (no atomics; two launches give the same bits).  Per pair one rsqrtf
+// gives 1/r and r = rsq (1/r), and the divisions by 0.1 R become products
+// with 1/(0.1 R), taken once per i-slot (the owner) and, in K6, once per
+// type (the partner, a table in shared memory).  K5's count is a sum of
+// ones in f32, exact below 2^24.  tanhf stays as the twin takes it; no
+// fast-math flag.  K5's physics is so cheap that the walk sets its pace:
+// two other ways of getting the hits to the physics (one prefix sum of the
+// lanes' hit masks a step; no queue, each lane running its own hits) were
+// slower on it (PERF.md §6).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (ops/cuda_lib.py).  Plain C entry point, loaded
@@ -50,7 +55,6 @@
 
 namespace {
 
-using colspan::kBlock;
 using colspan::PairArgs;
 using colspan::Tile;
 
@@ -73,16 +77,20 @@ __device__ __forceinline__ float radius_of(const CvArgs& a, float tv) {
   }
 }
 
-struct RhoTally {
-  float ri;
-  float rho = 0.f, cnt = 0.f;
+// K5: the physics of one hit on the tile walk.  Per-owner data odata[o] =
+// [R_i, 1/(0.1 R_i), 0, 0].  Values: the weight w and 1 (the count).
+struct RhoPair {
+  static constexpr int NV = 2;
 
-  __device__ __forceinline__ void operator()(const float*, int, float, float,
-                                             float, float rsq) {
-    const float r = sqrtf(rsq);
-    const float t = tanhf((r - ri) / (0.1f * ri));
-    rho += 0.5f * (1.f - t);
-    cnt += 1.f;
+  const float4* odata;    // the warp's per-owner data in shared memory
+
+  __device__ __forceinline__ void operator()(int o, int, float, float, float,
+                                             float rsq,
+                                             float (&v)[NV]) const {
+    const float4 od = odata[o];
+    const float r = rsq * rsqrtf(rsq);
+    v[0] = 0.5f * (1.f - tanhf((r - od.x) * od.y));
+    v[1] = 1.f;
   }
 };
 
@@ -137,19 +145,27 @@ struct CvPair {
   }
 };
 
+// K5: 56 registers, 4 warps a block (2 and 8 are slower, and so is
+// capping the registers for more blocks: PERF.md §6).
 template <bool PERTYPE>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(Tile<RhoPair::NV>::kThreads)
 cv_rho_kernel(const __grid_constant__ CvArgs a) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= a.p.n_slots) return;
-  const float4 ia = reinterpret_cast<const float4*>(a.p.ipack)[2 * t];
-  const float4 ib = reinterpret_cast<const float4*>(a.p.ipack)[2 * t + 1];
-  RhoTally tal;
-  if (ib.y > 0.5f) {   // i-slot holds a real atom
-    tal.ri = radius_of<PERTYPE>(a, ib.w);
-    colspan::for_each_pair<false>(a.p, t, ia.x, ia.y, ia.z, tal);
+  constexpr int NV = RhoPair::NV;
+  __shared__ colspan::TileShared<NV> tiles[Tile<NV>::kWarps];
+  const int cl = blockIdx.x * Tile<NV>::kWarps + (threadIdx.x >> 5);
+  if (cl >= (a.p.n_slots >> 3)) return;   // whole warps
+  colspan::TileShared<NV>& sh = tiles[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  if (lane < 8) {
+    float4 ia, ib;
+    colspan::tile_owner(a.p.ipack, cl, sh, ia, ib);
+    const float ri = radius_of<PERTYPE>(a, ib.w);
+    sh.odata[lane] = make_float4(ri, 1.f / (0.1f * ri), 0.f, 0.f);
   }
-  reinterpret_cast<float2*>(a.p.out)[t] = make_float2(tal.rho, tal.cnt);
+  colspan::for_each_pair_tile<false>(a.p, cl, sh, RhoPair{sh.odata});
+  if (lane >= 8) return;
+  reinterpret_cast<float2*>(a.p.out)[cl * 8 + lane] = make_float2(
+      colspan::tile_sum(sh, lane, 0), colspan::tile_sum(sh, lane, 1));
 }
 
 // The fast variants at most 64 registers (8 blocks of 128 threads an SM).
@@ -214,7 +230,9 @@ void launch_cv_g(int gform, bool pertype, const CvArgs& a, cudaStream_t st) {
 // (n_slots, 2), no part, observe must be 0); mode 1: K6 (cv; out
 // (n_slots, 4), part (n_slots, 8) when observe) with gform 0 mder,
 // 1 pder, 2 w.  pertype: the radius comes from rad[typ] (nrad entries, at
-// most kMaxRad for K6), else rad[0] for every atom.
+// most kMaxRad for K6, any number for K5), else rad[0] for every atom.
+// Both walk the tile walk, so every cols offset shifted left by 3 must fit
+// an int (colspan::tile_fits).
 extern "C" int density_cv_launch(
     const float* scal, const int* span_z0, const int* span_len,
     const float* ipack, const float* cols, const float* rad, float* out,
@@ -223,18 +241,22 @@ extern "C" int density_cv_launch(
   if (n_slots <= 0 || (cz & 7) != 0 || nrad < 1 || rad == nullptr
       || mode < 0 || mode > 1 || gform < 0 || gform > 2
       || (mode == 0 && observe) || (observe && part == nullptr)
-      || (mode == 1 && ((pertype && nrad > kMaxRad)
-                        || !colspan::tile_fits(mx, my, czp)))) {
+      || !colspan::tile_fits(mx, my, czp)
+      || (mode == 1 && pertype && nrad > kMaxRad)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const CvArgs a{PairArgs{scal, span_z0, span_len, ipack, cols, nullptr, out,
                           part, n_slots, mx, my, cz, czp, 0, nrad, 0},
                  rad};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int grid = colspan::grid_of(n_slots);
   if (mode == 0) {
-    if (pertype) cv_rho_kernel<true><<<grid, kBlock, 0, st>>>(a);
-    else cv_rho_kernel<false><<<grid, kBlock, 0, st>>>(a);
+    constexpr int NV = RhoPair::NV;
+    const int grid = colspan::tile_grid<NV>(n_slots);
+    if (pertype) {
+      cv_rho_kernel<true><<<grid, Tile<NV>::kThreads, 0, st>>>(a);
+    } else {
+      cv_rho_kernel<false><<<grid, Tile<NV>::kThreads, 0, st>>>(a);
+    }
   } else if (observe) {
     launch_cv_g<true>(gform, pertype, a, st);
   } else {

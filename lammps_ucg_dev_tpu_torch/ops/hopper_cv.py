@@ -12,12 +12,18 @@ On CUDA tensors each wrapper launches the hand-written Hopper kernel
 ``csrc/density_cv.cu`` (built at its first launch, ops/cuda_lib.py) or
 raises; on CPU tensors it runs its plain PyTorch twin
 (:func:`cv_rho_reference`, :func:`cv_force_reference`).  ``.launches``
-counts kernel launches.
+counts kernel launches.  Both kernels run on the tile walk of
+``csrc/colspan.cuh``: one warp per 8-slot cluster of i-slots tests each
+candidate of the cluster's nine spans once against all 8, and runs the
+in-cutoff pairs 32 at a time; each sum runs in an order the inputs alone
+fix, so two launches on the same inputs give the same bits, and K5's count
+is exact.
 
 Kernel contract (both the CUDA kernels and the twins) — K1's inputs
 (ops/hopper_pair.py) without coefficient rows, plus
-  rad    (nrad,) f32 proximity radius per type (``pertype``; index = attr 7)
-         or one radius for every atom (nrad 1)
+  rad    (nrad,) f32 proximity radius per type (``pertype``; index = attr 7;
+         K6 at most 16 entries, K5 any number) or one radius for every
+         atom (nrad 1)
   ipack  (n_slots, 8) f32 [x y z c state valid c typ], c = the CV weight
          cvf (pass 3; unused by K5)
   K5 out (n_slots, 2) [ρ n_real]

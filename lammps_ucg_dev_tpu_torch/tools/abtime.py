@@ -1,21 +1,22 @@
-"""Same-call timing of the tile-walk kernels (K1, K7, K2, K6, K8) built
+"""Same-call timing of the tile-walk kernels (K1, K7, K2, K5, K6, K8) built
 from several source trees, on one set of inputs, in turns.
 
     python -m lammps_ucg_dev_tpu_torch.tools.abtime TAG=CSRC [TAG=CSRC ...]
-        [--n 1048576] [--reps 20]
+        [--n 1048576] [--reps 20] [--only K5,K6]
 
 Each CSRC is a directory holding ``ucgld_pair.cu``, ``density_cv.cu``,
 ``ucgld_ablation.cu``, ``bethe_pair.cu``, ``ucgld_cluster.cu`` and their
 headers (this package's ``csrc/``, or a copy of another tree's), optionally
-followed by ``:FLAG,FLAG``, extra nvcc flags for that tag.  Every source of
-every tag is built at once with ``cuda_lib.NVCC_FLAGS`` into
-``_build/ab/``; this package's wrappers then launch each tag's build in
-turn on the same inputs: K1 in its three variants and K7 at L0–L4 on the
-flagship fluid, K2 fast and full on the Bethe system (config 3) after
-setup, K6 fast and full (the paths' g-form, ``mder``) on the P3 and P4
-systems after setup, and K8 on the cluster path's inputs, all at ``--n``
-beads.  The builds must share this tree's C entry points (K8's may end at
-the stream: its occupied list comes after it).
+followed by ``:FLAG,FLAG``, extra nvcc flags for that tag.  The sources of
+the kernels timed (``--only``, default all) are built for every tag at
+once with ``cuda_lib.NVCC_FLAGS`` into ``_build/ab/``; this package's
+wrappers then launch each tag's build in turn on the same inputs: K1 in
+its three variants and K7 at L0–L4 on the flagship fluid, K2 fast and full
+on the Bethe system (config 3) after setup, K5 and K6 fast and full (the
+paths' g-form, ``mder``) on the P3 and P4 systems after setup, and K8 on
+the cluster path's inputs, all at ``--n`` beads.  The builds must share
+this tree's C entry points (K8's may end at the stream: its occupied list
+comes after it).
 
 Prints the card's name and power limit and each build's ptxas lines, then
 one line per kernel: each tag's mean ms over its two turns (the tags in
@@ -47,24 +48,30 @@ from lammps_ucg_dev_tpu_torch.tools.kbench import staged
 from lammps_ucg_dev_tpu_torch.tools.timing import card, cuda_ms
 
 P, I = ctypes.c_void_p, ctypes.c_int
-# (wrapper module, source, C entry point, its argument types)
-ENTRIES = ((hp, "ucgld_pair", "ucgld_pair_launch", [P] * 8 + [I] * 10 + [P]),
-           (hcv, "density_cv", "density_cv_launch", [P] * 8 + [I] * 10 + [P]),
-           (ha, "ucgld_ablation", "ucgld_ablation_launch",
+# (kernels, wrapper module, source, C entry point, its argument types)
+ENTRIES = ((("K1",), hp, "ucgld_pair", "ucgld_pair_launch",
+            [P] * 8 + [I] * 10 + [P]),
+           (("K5", "K6"), hcv, "density_cv", "density_cv_launch",
+            [P] * 8 + [I] * 10 + [P]),
+           (("K7",), ha, "ucgld_ablation", "ucgld_ablation_launch",
             [P] * 7 + [I] * 7 + [P]),
-           (hb, "bethe_pair", "bethe_pair_launch", [P] * 8 + [I] * 12 + [P]),
-           (hc, "ucgld_cluster", "ucgld_cluster_launch",
+           (("K2",), hb, "bethe_pair", "bethe_pair_launch",
+            [P] * 8 + [I] * 12 + [P]),
+           (("K8",), hc, "ucgld_cluster", "ucgld_cluster_launch",
             [P] * 6 + [I] * 3 + [P] * 2 + [I]))
 
 
-def build(tags: dict) -> dict:
-    """{tag: {source: CDLL}} from {tag: (csrc directory, extra flags)},
-    one nvcc per source and tag, all started together."""
+def build(tags: dict, only: set) -> dict:
+    """{tag: {source: CDLL}} from {tag: (csrc directory, extra flags)}, the
+    sources of the kernels in ``only``: one nvcc per source and tag, all
+    started together."""
     out = cuda_lib.BUILD_DIR / "ab"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for tag, (src, flags) in tags.items():
-        for _, name, _, _ in ENTRIES:
+        for kernels, _, name, _, _ in ENTRIES:
+            if not only & set(kernels):
+                continue
             so = out / f"{name}-{tag}.so"
             cmd = [cuda_lib.find_nvcc(), *cuda_lib.NVCC_FLAGS, *flags, "-o",
                    str(so), str(Path(src) / f"{name}.cu")]
@@ -86,7 +93,9 @@ def build(tags: dict) -> dict:
 def launching(libs: dict):
     """The wrappers launch the kernels of ``libs`` ({source: CDLL})."""
     saved = {}
-    for mod, name, entry, argtypes in ENTRIES:
+    for _, mod, name, entry, argtypes in ENTRIES:
+        if name not in libs:
+            continue
         fn = getattr(libs[name], entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -125,7 +134,10 @@ def main(argv=None) -> int:
     ap.add_argument("tags", nargs="+", help="TAG=CSRC[:FLAG,FLAG]")
     ap.add_argument("--n", type=int, default=2**20)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default="K1,K7,K2,K5,K6,K8",
+                    help="comma-separated kernels to time")
     a = ap.parse_args(argv)
+    only = set(a.only.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("abtime: no CUDA device")
     tags = {}
@@ -133,52 +145,64 @@ def main(argv=None) -> int:
         tag, _, rest = arg.partition("=")
         src, _, flags = rest.partition(":")
         tags[tag] = (src, [f for f in flags.split(",") if f])
-    libs = build(tags)
+    libs = build(tags, only)
     print(card(), flush=True)
 
-    sim = flagship.build_sim(n=a.n, reneigh_every=20)
-    state, cl = staged(sim)
-    p = sim.pair_params
-    for observe, scores in ((False, False), (False, True), (True, True)):
-        args, kw = hp.kernel_inputs(state, cl, p, p.cheb, observe, scores)
-        compare(f"K1 {hp.variant(observe, scores)}",
-                lambda: hp.ucgld_pair(*args, **kw), libs, a.reps)
-    args, kw = ha.kernel_inputs(state, cl, p, p.cheb)
-    for level in ha.LEVELS:
-        compare(f"K7 L{level}", lambda: ha.ucgld_ablation(*args, **kw,
-                                                          level=level),
-                libs, a.reps)
-    del sim, state, cl
+    if only & {"K1", "K7"}:
+        sim = flagship.build_sim(n=a.n, reneigh_every=20)
+        state, cl = staged(sim)
+        p = sim.pair_params
+        variants = ((False, False), (False, True), (True, True))
+        for observe, scores in variants if "K1" in only else ():
+            args, kw = hp.kernel_inputs(state, cl, p, p.cheb, observe,
+                                        scores)
+            compare(f"K1 {hp.variant(observe, scores)}",
+                    lambda: hp.ucgld_pair(*args, **kw), libs, a.reps)
+        args, kw = ha.kernel_inputs(state, cl, p, p.cheb)
+        for level in ha.LEVELS if "K7" in only else ():
+            compare(f"K7 L{level}", lambda: ha.ucgld_ablation(*args, **kw,
+                                                              level=level),
+                    libs, a.reps)
+        del sim, state, cl
 
-    sim = flagship.build_bethe_sim(n=a.n)
-    sim.setup((0, 10))
-    state, cl = staged(sim)
-    p = sim.pair_params
-    for observe in (False, True):
-        args, kw = hb.kernel_inputs(state, cl, p, p.cheb, observe)
-        compare(f"K2 {hb.variant(observe)}",
-                lambda: hb.bethe_pair(*args, **kw), libs, a.reps)
-    del sim, state, cl
+    if "K2" in only:
+        sim = flagship.build_bethe_sim(n=a.n)
+        sim.setup((0, 10))
+        state, cl = staged(sim)
+        p = sim.pair_params
+        for observe in (False, True):
+            args, kw = hb.kernel_inputs(state, cl, p, p.cheb, observe)
+            compare(f"K2 {hb.variant(observe)}",
+                    lambda: hb.bethe_pair(*args, **kw), libs, a.reps)
+        del sim, state, cl
 
-    for style, builder in (("P3", flagship.build_density_sim),
-                           ("P4", flagship.build_rleucg_sim)):
+    density = (("P3", flagship.build_density_sim),
+               ("P4", flagship.build_rleucg_sim))
+    for style, builder in density if only & {"K5", "K6"} else ():
         sim = builder(n=a.n)
         sim.setup((0, 10))
         state, cl = staged(sim)
         p = sim.pair_params
         cutsq = (p.tp.cutsq if isinstance(p, hd.BetheDensityParams)
                  else p.cutsq)[1, 1]
+        if "K5" in only:
+            args, kw = hcv.cv_inputs(state, cl, p.cv_rad, cutsq,
+                                     p.bank.innersq[0], None)
+            compare(f"{style} K5", lambda: hcv.cv_rho(*args, **kw), libs,
+                    a.reps)
         w = torch.randn(state.n_atoms, device=state.device,
                         generator=torch.Generator(
                             device=state.device).manual_seed(3))
         args, kw = hcv.cv_inputs(state, cl, p.cv_rad, cutsq,
                                  p.bank.innersq[0], w)
-        for observe in (False, True):
+        for observe in (False, True) if "K6" in only else ():
             compare(f"{style} K6 {'full' if observe else 'fast'}",
                     lambda: hcv.cv_force(*args, **kw, gform="mder",
                                          observe=observe), libs, a.reps)
         del sim, state, cl
 
+    if "K8" not in only:
+        return 0
     sim = flagship.build_cluster_sim(n=a.n)
     state = sim.state
     state = dataclasses.replace(state, x=state.box.wrap(state.x))

@@ -357,32 +357,41 @@ def density_systems(device):
 EDGE_RHO = {"dilute": 0.05, "compressed": 2.0, "clumped": 0.5}
 
 
+def random_system(sim, rho, clumped=False):
+    """(state, params, cl) of ``sim``'s beads at random positions (seed 21)
+    at density ``rho``, every bead in 40% of the box in x when
+    ``clumped``."""
+    device = sim.state.device
+    rng = np.random.default_rng(21)
+    n = sim.state.n_atoms
+    L = (n / rho) ** (1 / 3)
+    x = rng.uniform(0.0, L, (n, 3))
+    if clumped:
+        x[:, 0] *= 0.4
+    state = dataclasses.replace(
+        sim.state, x=torch.as_tensor(x, dtype=torch.float32, device=device),
+        box=Box.create([0, 0, 0], [L] * 3, device=device))
+    sel = select_pair_kernel(sim.pair_params, state, flagship.RC, 0.4)
+    assert sel is not None
+    _, spec, params = sel
+    cl = colpack.build(state.x, state.box, spec)
+    assert not bool(cl.overflow)
+    return state, params, cl
+
+
+DENSITY_BUILDERS = {"p3": flagship.build_density_sim,
+                    "p4": flagship.build_rleucg_sim}
+
+
 @pytest.fixture(scope="module")
 def edge_systems(device):
     """{(style, kind): (state, params, cl)} of 4,096 beads of the P3 or P4
     system at random positions."""
     out = {}
-    for style, build in (("p3", flagship.build_density_sim),
-                         ("p4", flagship.build_rleucg_sim)):
+    for style, build in DENSITY_BUILDERS.items():
         sim = build(n=4096, device=device, kernel=False)
         for kind, rho in EDGE_RHO.items():
-            rng = np.random.default_rng(21)
-            n = sim.state.n_atoms
-            L = (n / rho) ** (1 / 3)
-            x = rng.uniform(0.0, L, (n, 3))
-            if kind == "clumped":
-                x[:, 0] *= 0.4
-            state = dataclasses.replace(
-                sim.state, x=torch.as_tensor(x, dtype=torch.float32,
-                                             device=device),
-                box=Box.create([0, 0, 0], [L] * 3, device=device))
-            sel = select_pair_kernel(sim.pair_params, state, flagship.RC,
-                                     0.4)
-            assert sel is not None
-            _, spec, params = sel
-            cl = colpack.build(state.x, state.box, spec)
-            assert not bool(cl.overflow)
-            out[style, kind] = (state, params, cl)
+            out[style, kind] = random_system(sim, rho, kind == "clumped")
     return out
 
 
@@ -439,19 +448,76 @@ def cv_weight(state):
         device=state.device).manual_seed(3), device=state.device)
 
 
-@pytest.mark.parametrize("style", ["p3", "p4"])
-def test_k5_matches_twin(density_systems, style):
-    sim, cl = density_systems[style]
-    args, kw = cv_args(sim, cl, None)
+PLAIN_TYPE = {"p3": 1, "p4": 3}
+
+
+def k5_vs_twin(args, kw, plain_type):
+    """K5 against its twin: ρ within TOL of its scale, n exact, the rows of
+    i-slots without a real atom zero, and exactly zero ρ for a plain type
+    (its radius floored at 1e-12)."""
     before = hcv.cv_rho.launches["rho"]
     out_k = hcv.cv_rho(*args, **kw)
     assert hcv.cv_rho.launches["rho"] == before + 1
     out_t = hcv.cv_rho_reference(*args, **kw)
+    torch.cuda.synchronize()
     assert_close(out_k[:, 0], out_t[:, 0], "rho")
     assert torch.equal(out_k[:, 1], out_t[:, 1])
-    # plain types: the floored radius gives exactly zero density
-    plain = (args[3][:, 7] == (1 if style == "p3" else 3)) & (args[3][:, 5] > 0)
+    ipack = args[3]
+    real = ipack[:, 5] > 0.5
+    assert bool((out_k[~real] == 0).all())
+    plain = (ipack[:, 7] == plain_type) & real
+    assert bool(plain.any())
     assert float(out_k[plain, 0].abs().max()) == 0.0
+    assert float(out_k[:, 1].sum()) > 0
+
+
+@pytest.mark.parametrize("style", ["p3", "p4"])
+def test_k5_matches_twin(density_systems, style):
+    sim, cl = density_systems[style]
+    args, kw = cv_args(sim, cl, None)
+    k5_vs_twin(args, kw, PLAIN_TYPE[style])
+
+
+@pytest.mark.parametrize("kind", list(EDGE_RHO))
+@pytest.mark.parametrize("style", ["p3", "p4"])
+def test_k5_matches_twin_at_the_edges(edge_systems, style, kind):
+    state, params, cl = edge_systems[style, kind]
+    args, kw = cv_inputs_of(state, params, cl, None)
+    k5_vs_twin(args, kw, PLAIN_TYPE[style])
+
+
+@pytest.mark.parametrize("kind", ["deck", *EDGE_RHO])
+@pytest.mark.parametrize("style", ["p3", "p4"])
+def test_k5_two_launches_bit_identical(density_systems, edge_systems, style,
+                                       kind):
+    state, params, cl = system_of(density_systems, edge_systems, style, kind)
+    args, kw = cv_inputs_of(state, params, cl, None)
+    assert torch.equal(hcv.cv_rho(*args, **kw), hcv.cv_rho(*args, **kw))
+
+
+def test_k5_takes_any_number_of_radii(density_systems):
+    """K5 reads only the i-slot's radius, so its table may hold more
+    entries than K6's 16: 20 radii, type 1 a plain one."""
+    sim, cl = density_systems["p3"]
+    args, kw = cv_args(sim, cl, None)
+    dev = sim.state.device
+    rad = torch.linspace(0.9, 1.4, 20, device=dev)
+    rad[1] = hcv.R_FLOOR
+    ipack = args[3].clone()
+    ipack[:, 7] = (torch.arange(ipack.shape[0], device=dev) % 19 + 1).float()
+    args = (*args[:3], ipack, args[4], rad)
+    k5_vs_twin(args, dict(kw, pertype=True), 1)
+
+
+@pytest.mark.parametrize("style", ["p3", "p4"])
+def test_k5_cluster_count_not_a_multiple_of_the_block(device, style):
+    """4,096 beads at ρ 0.2: 1,134 i-clusters, so the last block of K5's
+    grid holds fewer clusters than warps."""
+    sim = DENSITY_BUILDERS[style](n=4096, device=device, kernel=False)
+    state, params, cl = random_system(sim, 0.2)
+    args, kw = cv_inputs_of(state, params, cl, None)
+    assert (args[3].shape[0] // 8) % 4 != 0
+    k5_vs_twin(args, kw, PLAIN_TYPE[style])
 
 
 @pytest.mark.parametrize("gform,observe", CV_VARIANTS)

@@ -56,7 +56,20 @@ which raises on failure:
    Chebyshev gate;
 14. the cluster main path at 2^20: setup, one warm block, five timed blocks
    of 20 steps, K8 on every step, with its launch count set to 0 just
-   before and read just after.
+   before and read just after;
+15. the slot-major interior against the atom-ordered one: each column
+   style (UCG-LD under ``ucgstate ld`` and ``default``, Bethe, P3, P4) at
+   32,768 beads, two blocks through ``Simulation``, once as the driver
+   chooses (``_slot_ok`` must be true) and once with ``_slot_ok`` set
+   false: x, v, λ, λ-velocity, ucgp, ucgstate, f, the λ-force and pe must
+   be the same bits, and every kernel's launches the same; UCG-LD's
+   interior must launch K1 without scores under ``ld`` and with them
+   under ``default``, and not the other variant.
+
+The column main paths (4, 8, 11) and the drift leg (5) run slot-major, as
+the JAX package's main path does; each column main path also prints one
+reading of its steps/s with the atom-ordered interior (``_slot_ok`` set
+false), the same number of timed blocks after a warm one, not gated.
 
 Each check of a kernel against its twin also launches the kernel twice
 and requires the same bits (K1, K2, K5, K6, K7 and K8 run on the tile walk
@@ -776,6 +789,8 @@ def run_density_main(device: str, style: str, card_name: str,
     if sim.pair_compute is not fn:
         raise RuntimeError(f"select_pair_kernel did not choose the {style} "
                            f"kernel path at {n}")
+    if not sim._slot_ok:
+        raise RuntimeError(f"{style}: the slot-major interior is off")
     nre = sim.cfg.reneigh_every
     window = (0, (blocks + 1) * nre)
     counters = {"cv_rho": hcv.cv_rho, "cv_force": hcv.cv_force,
@@ -820,6 +835,7 @@ def run_density_main(device: str, style: str, card_name: str,
                 and bool((p[~ucg] == 1.0).all())):
             raise RuntimeError(f"ucgp outside [1e-6, 1-1e-6]: {p_lo}, {p_hi}")
     log(msg)
+    atom_order_reading(sim, f"{style} main n={n}", blocks, window, card_name)
     return launches, steps_s
 
 
@@ -873,6 +889,105 @@ def run_cluster_main(device: str, card_name: str, blocks: int = 5,
     return launches, steps_s
 
 
+def atom_order_reading(sim, label: str, blocks: int, window,
+                       card_name: str) -> float:
+    """steps/s of ``sim`` over ``blocks`` timed blocks after a warm one with
+    the atom-ordered interior (``_slot_ok`` false), printed beside the
+    slot-major main path's, not gated; ``_slot_ok`` is restored after."""
+    import torch
+
+    slot_ok, sim._slot_ok = sim._slot_ok, False
+    try:
+        sim.run_fused(1, run_window=window)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run_fused(blocks, run_window=window)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sim._slot_ok = slot_ok
+    steps_s = blocks * sim.cfg.reneigh_every / wall
+    log(f"[{label} atom-ordered interior] {blocks * sim.cfg.reneigh_every} "
+        f"steps in {wall:.3f} s = {steps_s:.2f} steps/s on {card_name} "
+        f"(not gated)")
+    return steps_s
+
+
+def launch_counters():
+    """{name: wrapper} of every kernel wrapper a column path launches."""
+    from lammps_ucg_dev_tpu_torch.ops import hopper_bethe as hb
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cv as hcv
+    from lammps_ucg_dev_tpu_torch.ops import hopper_density as hd
+    from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+    from lammps_ucg_dev_tpu_torch.ops import hopper_rleucg as hr
+
+    return {"ucgld_pair": hp.ucgld_pair, "bethe_pair": hb.bethe_pair,
+            "dbethe_pair": hd.dbethe_pair, "rleucg_pair": hr.rleucg_pair,
+            "cv_rho": hcv.cv_rho, "cv_force": hcv.cv_force}
+
+
+def slot_vs_atom(device: str, label: str, build, mode: str | None,
+                 k1_interior: str | None = None, n: int = 32768) -> None:
+    """Phase 15 for one column style: two blocks through ``Simulation``,
+    slot-major (``_slot_ok`` must be true) and atom-ordered (``_slot_ok``
+    set false), from the same built state and the same generator seed:
+    identical bits in every dynamic field and in f, the λ-force and pe,
+    and the same launches of every kernel.  ``k1_interior``: the K1
+    variant the interior steps must launch ("noscores" under ``ucgstate
+    ld``, "fast" under ``default``), and the other interior variant none.
+    Raises on a difference."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch.fixes import ucgstate as fs
+
+    fields = ("x", "v", "ucgl", "ucgvl", "ucgp", "ucgstate")
+    counters = launch_counters()
+    got = {}
+    for slot in (True, False):
+        sim = build(n=n, device=device)
+        if mode is not None:
+            sim.cfg = dataclasses.replace(sim.cfg,
+                                          ucgstate=fs.UCGStateCfg(mode=mode))
+        if not sim._slot_ok:
+            raise RuntimeError(f"{label}: the driver did not choose the "
+                               f"slot-major interior")
+        sim._slot_ok = slot
+        window = (0, 2 * sim.cfg.reneigh_every)
+        sim.setup(window)
+        for c in counters.values():
+            for k in c.launches:
+                c.launches[k] = 0
+        t0 = time.perf_counter()
+        sim.run_fused(2, run_window=window)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: {k: v for k, v in c.launches.items() if v}
+                    for name, c in counters.items()}
+        launches = {k: v for k, v in launches.items() if v}
+        st, fo = sim.state, sim._fcarry
+        got[slot] = ({f: getattr(st, f) for f in fields}
+                     | {"f": fo.f, "ucgforce": fo.ucgforce, "pe": fo.pe},
+                     launches, wall)
+    (a, la, wa), (b, lb, wb) = got[True], got[False]
+    diff = {k: float((a[k].double() - b[k].double()).abs().max())
+            for k in a if not torch.equal(a[k], b[k])}
+    log(f"[slot vs atom order, {label} n={n}] 2 blocks: slot-major "
+        f"{wa:.3f} s, atom-ordered {wb:.3f} s; fields that differ "
+        f"{json.dumps(diff)}; launches {json.dumps(la)}")
+    if diff:
+        raise RuntimeError(f"{label}: the slot-major interior differs from "
+                           f"the atom-ordered one: {diff}")
+    if la != lb or not la:
+        raise RuntimeError(f"{label}: launches differ: slot-major {la}, "
+                           f"atom-ordered {lb}")
+    if k1_interior is not None:
+        k1 = la.get("ucgld_pair", {})
+        other = "fast" if k1_interior == "noscores" else "noscores"
+        if not k1.get(k1_interior) or k1.get(other):
+            raise RuntimeError(f"{label}: the interior launched K1 {k1}, "
+                               f"not the {k1_interior} variant alone")
+
+
 def finite_row(row: dict) -> bool:
     return all(v == v and abs(v) != float("inf")
                for v in row.values() if isinstance(v, float))
@@ -917,6 +1032,8 @@ def main() -> int:
     sim = flagship.build_sim(n=2**20, device=device, reneigh_every=20)
     if sim.pair_compute is not hp.compute_style:
         raise RuntimeError("select_pair_kernel did not choose K1 at 2^20")
+    if not sim._slot_ok:
+        raise RuntimeError("UCG-LD: the slot-major interior is off")
     k1 = compare_k1(sim, "n=2^20", kernel_reps=20, twin_reps=1,
                     with_bound=True)
     k7 = compare_k7(sim, "n=2^20", kernel_reps=20, twin_reps=1,
@@ -965,11 +1082,14 @@ def main() -> int:
     if row["oob_low"] != 0:
         raise RuntimeError(f"pairs below the table inner cutoff: {row}")
     missed_pairs(sim, "UCG-LD n=2^20")
+    atom_order_reading(sim, "UCG-LD main n=2^20", blocks, window, card_name)
     del sim
 
     # ---- 5. NVE drift (bench.run_drift protocol) -------------------------
     ds = flagship.build_sim(n=32768, device=device, reneigh_every=10)
     ds.cfg = dataclasses.replace(ds.cfg, langevin=None, dt=0.002)
+    if not ds._slot_ok:
+        raise RuntimeError("drift leg: the slot-major interior is off")
     tp = ds.pair_params.tp
 
     def hamiltonian():
@@ -1021,6 +1141,8 @@ def main() -> int:
 
     # ---- 8. the Bethe main path -----------------------------------------
     sim = flagship.build_bethe_sim(n=2**20, device=device)
+    if not sim._slot_ok:
+        raise RuntimeError("Bethe: the slot-major interior is off")
     blocks, nre = 20, sim.cfg.reneigh_every
     window = (0, (blocks + 1) * nre)
     for k in hb.bethe_pair.launches:
@@ -1052,6 +1174,7 @@ def main() -> int:
     if not (p_lo >= 1e-6 and p_hi <= 1 - 1e-6):
         raise RuntimeError(f"ucgp outside [1e-6, 1-1e-6]: {p_lo}, {p_hi}")
     missed_pairs(sim, "Bethe n=2^20")
+    atom_order_reading(sim, "Bethe main n=2^20", blocks, window, card_name)
     del sim
 
     # ---- 9. K5, K3/K4 and K6 vs their twins --------------------------------
@@ -1095,6 +1218,19 @@ def main() -> int:
 
     # ---- 14. the cluster main path --------------------------------------
     k8_launches, _ = run_cluster_main(device, card_name)
+
+    # ---- 15. the slot-major interior against the atom-ordered one --------
+    for label, build, mode, k1_interior in (
+            ("UCG-LD ld", functools.partial(flagship.build_sim,
+                                            reneigh_every=20), None,
+             "noscores"),
+            ("UCG-LD default", functools.partial(flagship.build_sim,
+                                                 reneigh_every=20),
+             "default", "fast"),
+            ("Bethe", flagship.build_bethe_sim, None, None),
+            ("P3", flagship.build_density_sim, None, None),
+            ("P4", flagship.build_rleucg_sim, None, None)):
+        slot_vs_atom(device, label, build, mode, k1_interior)
 
     log(f"K1 fast variant (not on the UCG-LD main path under ucgstate ld): "
         f"{json.dumps(k1['fast'], default=float)}")

@@ -99,6 +99,10 @@ class SimState:
     ucgml: torch.Tensor      # (N,)
     ucgp: torch.Tensor       # (N,)
     box: Box
+    n_total: int = 0         # the atom count when the arrays hold another
+                             # number of rows (the slot-major interior's
+                             # n_slots); 0 = the rows are the atoms.  Tag-
+                             # keyed draws size their stream by it.
 
     @property
     def n_atoms(self) -> int:
@@ -107,7 +111,7 @@ class SimState:
     @property
     def rng_n(self) -> int:
         """Length of tag-keyed per-atom random streams (the atom count)."""
-        return self.x.shape[0]
+        return self.n_total or self.x.shape[0]
 
     @property
     def device(self) -> torch.device:
@@ -158,6 +162,30 @@ class ForceOut:
     oob_high: torch.Tensor | None = None   # pairs beyond the table outer end
     ucgp: torch.Tensor | None = None       # (N,) posterior of a style that
                                            # computes it in the pass (P3)
+
+    def __add__(self, other: "ForceOut") -> "ForceOut":
+        """Sum of two force passes; ``other``'s posterior wins."""
+        def add_opt(a, b):
+            if a is None:
+                return b
+            return a if b is None else a + b
+
+        return ForceOut(
+            f=self.f + other.f, ucgforce=self.ucgforce + other.ucgforce,
+            scores=self.scores + other.scores, pe=self.pe + other.pe,
+            virial=self.virial + other.virial,
+            oob_low=add_opt(self.oob_low, other.oob_low),
+            oob_high=add_opt(self.oob_high, other.oob_high),
+            ucgp=other.ucgp if other.ucgp is not None else self.ucgp)
+
+    @staticmethod
+    def zeros(n: int, n_states: int = 2, dtype=torch.float32,
+              device="cpu") -> "ForceOut":
+        def z(*shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return ForceOut(f=z(n, 3), ucgforce=z(n), scores=z(n, n_states),
+                        pe=z(), virial=z(6))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,5 @@
-"""``fix ucgld/langevin`` — Langevin thermostat acting on λ only (port of
-``lammps_ucg_dev_tpu/fixes/langevin.py``; the velocity Langevin is not
-ported yet).
+"""``fix ucgld/langevin`` — Langevin thermostat acting on λ — and the stock
+velocity ``fix langevin`` (port of ``lammps_ucg_dev_tpu/fixes/langevin.py``).
 
 Reference (``UCG/fix_ucgld_langevin.cpp``):
     post_force:  ucgforce += γ1 v_λ + γ2 √T (uniform - 0.5)        (:273-296)
@@ -8,6 +7,10 @@ Reference (``UCG/fix_ucgld_langevin.cpp``):
     γ2 = √m_λ / ftm2v · √(24 k_B / (period · dt · mvv2e))          (:166-167)
     temperature ramp T(t) = Tstart + (t-t0)/(t1-t0) (Tstop-Tstart) (:318-331)
     end_of_step: λ-temperature = Σ m_λ v_λ² mvv2e / (k_B N)        (:303-312)
+
+The velocity thermostat follows the same conventions on each component of
+v (stock fix_langevin, which the λ fix copies): γ1 = -m / damp / ftm2v,
+γ2 = √(24 k_B T m / (damp dt mvv2e)) / ftm2v.
 
 The noise is a uniform draw per atom TAG over the global tag space, so the
 stream does not depend on storage order.  The caller draws it (the
@@ -60,6 +63,37 @@ def post_force(uniform_by_tag: torch.Tensor, state: SimState, tT: float,
     if cfg.group is not None:
         g = torch.as_tensor(cfg.group, dtype=torch.bool, device=state.device)
         out = torch.where(g[state.tag.long() - 1], out, torch.zeros_like(out))
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class VLangevinCfg:
+    """Stock ``fix langevin`` on the particle velocities (the thermostat the
+    reference's production decks run under; pair styles read kT from it
+    when no λ-Langevin exists, ``SimConfig.kT``)."""
+
+    t_start: float
+    t_stop: float
+    damp: float
+    group: "object | None" = None   # per-TAG bool mask; None = all
+
+
+def post_force_v(uniform_by_tag: torch.Tensor, state: SimState,
+                 mass: torch.Tensor, tT: float, dt: float,
+                 u: units_mod.UnitSystem, cfg: VLangevinCfg) -> torch.Tensor:
+    """(N, 3) force increment of the velocity thermostat (drag + uniform
+    kick per component).  ``uniform_by_tag`` is (rng_n, 3) U[0, 1) indexed
+    by tag - 1; ``mass`` the (N,) per-atom mass."""
+    gamma1 = -mass / cfg.damp / u.ftm2v
+    gamma2 = (torch.sqrt(mass) / u.ftm2v
+              * math.sqrt(24.0 * u.boltz / cfg.damp / dt / u.mvv2e)
+              * float(np.sqrt(np.float32(tT))))
+    un = uniform_by_tag[state.tag.long() - 1]
+    out = gamma1[:, None] * state.v + gamma2[:, None] * (un - 0.5)
+    if cfg.group is not None:
+        g = torch.as_tensor(cfg.group, dtype=torch.bool, device=state.device)
+        out = torch.where(g[state.tag.long() - 1][:, None], out,
+                          torch.zeros_like(out))
     return out
 
 

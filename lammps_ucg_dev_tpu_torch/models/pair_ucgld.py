@@ -14,7 +14,9 @@ Physics (PairTable_UCGLD::compute, ``UCG/pair_table_ucgld.cpp:111-541``):
 Full neighbor list, per-atom-owned tallies, evaluated in row chunks
 (``params.chunk``) so the (rows, K, 2, 2) working set stays bounded.  This
 path is the CPU default and the float64 oracle of the hand-written kernel
-path (ops/hopper_pair.py).
+path (ops/hopper_pair.py).  :func:`potential_energy` is the mixed energy as
+a function of (x, λ), so ``torch.autograd`` can check f = −∂E/∂x and
+ucgforce = −∂E/∂λ.
 """
 
 from __future__ import annotations
@@ -92,3 +94,26 @@ def compute(state: SimState, nbr: NeighborList,
     scores = torch.where(is_ucg[:, None], scores, zero)
     return ForceOut(f=f, ucgforce=ucgforce, scores=scores, pe=pe,
                     virial=virial, oob_low=oob_lo, oob_high=oob_hi)
+
+
+def potential_energy(x: torch.Tensor, lam: torch.Tensor, state: SimState,
+                     nbr: NeighborList, params: UCGLDParams) -> torch.Tensor:
+    """Mixed potential energy as a function of (x, λ), with the λ
+    chemical-potential term E_μ = Σ_i λ_i (μ1 − μ0) over the UCG atoms;
+    differentiable in both."""
+    bank, tp = params.bank, params.tp
+    typ = state.typ
+    n = x.shape[0]
+    valid = nbr.idx < n
+    jc = torch.where(valid, nbr.idx, torch.zeros_like(nbr.idx))
+    dr = state.box.min_image(x[:, None, :] - x[jc])
+    rsq = torch.sum(dr * dr, dim=-1)
+    ti, tj = typ[:, None], typ[jc]
+    within = valid & (rsq < common.take2d(tp.cutsq, ti.expand_as(tj), tj))
+    e4 = common.eval_state_block(bank, tp, ti, tj, rsq, within)[0]
+    wi = common.lambda_weights(tp, typ, lam)
+    emix = common.mix(e4, wi, wi[jc])
+    is_ucg = tp.n_states[typ] > 1
+    e_mu = torch.sum(torch.where(is_ucg, lam * tp.mu_diff[typ],
+                                 torch.zeros_like(lam)))
+    return 0.5 * torch.sum(emix) + e_mu

@@ -14,12 +14,23 @@
 Extended slot space: column c owns rows [c*czp, (c+1)*czp) =
 [gz ghost-bottom | count real | <= gzt ghost-top copies | pads].  The real
 slot space (kernel i-side and outputs) is the (ncol*cz,) region at offsets
-[gz, gz+cz) of each column.
+[gz, gz+cz) of each column.  The top copies sit at rows gz + count + rank,
+so they may land inside the real region, on its pad slots.
+
+Two ways to fill the kernels' inputs each step:
+
+* :func:`pack` gathers every extended row from atom-ordered arrays (the
+  blocks' full steps);
+* :func:`pack_slots` takes the i-side rows already in real-slot order (the
+  slot-major interior of ``Simulation``, whose per-atom state stays in
+  that order for a block's interior steps, :func:`slot_atom_real`) and
+  refreshes only the ghost rows, from the block-fixed index sets that
+  :func:`build` derives: each bottom row's source rank and liveness, and
+  each top copy's flat target.
 
 Left out from the JAX structure: the overlapped z-pages, the (G, S) page
-geometry, the packed destination lane and NV sizing, the window metadata and
-the slot-major ghost-refresh index sets.  They exist only for the TPU's
-data movement.
+geometry, the packed destination lane and NV sizing, and the window
+metadata.  They exist only for the TPU's data movement.
 """
 
 from __future__ import annotations
@@ -46,6 +57,12 @@ class ColumnList:
     zshift: torch.Tensor         # (ncol*czp,) int8 in {-1, 0, +1} (units of Lz)
     atom_slot: torch.Tensor      # (N,) int64 -> real slot index
     i_valid: torch.Tensor        # (ncol*cz,) bool — real slot holds a real atom
+    bsrc: torch.Tensor           # (ncol, gz) int64 — real-region rank each
+                                 # bottom ghost row copies
+    bok: torch.Tensor            # (ncol, gz) bool — that bottom row is live
+    tidx: torch.Tensor           # (ncol, min(gzt, cz)) int64 — flat extended
+                                 # row of the top copy of rank t (ncol*czp
+                                 # when rank t has none)
     z0: torch.Tensor             # (ncol, cz/8, 9) int32 span start slot
     L: torch.Tensor              # (ncol, cz/8, 9) int32 span length
     x0: torch.Tensor             # (N, 3) build-time positions
@@ -223,6 +240,19 @@ def build(x: torch.Tensor, box: Box, spec: ColumnSpec) -> ColumnList:
     i_valid = (torch.arange(cz, device=dev)[None, :]
                < count[:, None]).reshape(-1)
 
+    # the ghost rows' block-fixed index sets (pack_slots): bottom row q of
+    # a column copies rank q + count - gz; the top copy of rank t sits at
+    # row gz + count + t
+    qb = torch.arange(gz, device=dev)[None, :]
+    bs = count[:, None] - gz + qb
+    bok = bs >= 0
+    bsrc = torch.clamp(bs, 0, cz - 1)
+    tt = torch.arange(min(gzt, cz), device=dev)[None, :]
+    trow = gz + count[:, None] + tt
+    tok = (tt < count[:, None]) & (trow < czp)
+    tidx = torch.where(tok, torch.arange(ncol, device=dev)[:, None] * czp
+                       + trow, dump)
+
     # ghost capacity: every atom within rc of a z face must have a copy
     need_top = count - torch.sum(z_real < (Lz - rc), dim=1)
     need_bot = torch.sum(z_real < rc, dim=1)
@@ -256,16 +286,25 @@ def build(x: torch.Tensor, box: Box, spec: ColumnSpec) -> ColumnList:
 
     return ColumnList(
         slot_atom_ext=slot_atom_ext, zshift=zshift, atom_slot=atom_slot,
-        i_valid=i_valid, z0=z0, L=span, x0=x,
+        i_valid=i_valid, bsrc=bsrc, bok=bok, tidx=tidx, z0=z0, L=span,
+        x0=x,
         overflow=col_overflow | ghost_overflow,
         max_occupancy=span.sum(dim=2).max(),
         mx=mx, my=my, cz=cz, gz=gz, gzt=gzt, czp=czp)
 
 
+def _pad_row(dtype, device) -> torch.Tensor:
+    """(8,) attributes of a pad slot: positions poisoned far outside the box
+    so pad slots fail the rsq < cutsq test geometrically, valid flag 0."""
+    row = torch.zeros(8, dtype=dtype, device=device)
+    row[:3] = _PAD_POISON
+    return row
+
+
 def pack(cl: ColumnList, box: Box, x: torch.Tensor, lam: torch.Tensor,
          ucgstate: torch.Tensor, dtype=torch.float32,
          aux: torch.Tensor | None = None,
-         typ: torch.Tensor | None = None):
+         typ: torch.Tensor | None = None, slot: bool = False):
     """Per-step attribute packing (positions/λ/state change every step; the
     slot mapping persists for the reneighbor block).
 
@@ -275,24 +314,63 @@ def pack(cl: ColumnList, box: Box, x: torch.Tensor, lam: torch.Tensor,
             aux and typ are 0 when not given — the Bethe kernel carries its
             i-role prior in aux)
       cols  (ncol, 8, czp) the extended slots, attribute-major
+
+    ``slot=True``: the per-atom arrays are already in real-slot order
+    (n_slots rows, the slot-major interior); ipack is their concatenation
+    with valid = ``cl.i_valid`` and cols comes from :func:`pack_slots`, so
+    no atom→slot gather runs.  cols and ipack's valid rows are then the
+    same bits as the atom-ordered packing of the same atoms gives.
     """
     n = x.shape[0]
     dev = x.device
     ones = torch.ones((n, 1), dtype=dtype, device=dev)
     attrs = torch.cat([
         x.to(dtype), lam.to(dtype)[:, None], ucgstate.to(dtype)[:, None],
-        ones,
+        cl.i_valid.to(dtype)[:, None] if slot else ones,
         (torch.zeros_like(ones) if aux is None else aux.to(dtype)[:, None]),
         (torch.zeros_like(ones) if typ is None else typ.to(dtype)[:, None]),
     ], dim=1)
-    # pad row: positions poisoned far outside the box so pad slots fail the
-    # rsq < cutsq test geometrically (valid flag 0 as well)
-    pad_row = torch.zeros((1, 8), dtype=dtype, device=dev)
-    pad_row[0, :3] = _PAD_POISON
-    attrs = torch.cat([attrs, pad_row])
+    if slot:
+        return attrs, pack_slots(cl, box, attrs)
+    attrs = torch.cat([attrs, _pad_row(dtype, dev)[None]])
     ext = attrs[cl.slot_atom_ext]                               # (ncol*czp, 8)
     ext[:, 2] += cl.zshift.to(dtype) * box.lengths[2].to(dtype)
     ext3 = ext.reshape(cl.ncol, cl.czp, 8)
     ipack = ext3[:, cl.gz:cl.gz + cl.cz, :].reshape(cl.n_slots, 8).clone()
     ipack[:, 5] *= cl.i_valid.to(dtype)
     return ipack, ext3.transpose(1, 2).contiguous()
+
+
+def pack_slots(cl: ColumnList, box: Box, attrs_real: torch.Tensor):
+    """The (ncol, 8, czp) cols of :func:`pack` from the (n_slots, 8) i-side
+    rows already in real-slot order, [x y z λ state valid aux typ]; rows
+    whose slot holds no real atom (``cl.i_valid`` 0) are ignored.  The
+    real rows are written in place, the bottom ghost rows from their
+    sources with z − Lz, the pad tail, and then the top copies with z + Lz
+    are scattered to their rows, after the real rows because a copy may
+    land on a pad slot of the real region."""
+    ncol, cz, gz, czp = cl.ncol, cl.cz, cl.gz, cl.czp
+    dtype, dev = attrs_real.dtype, attrs_real.device
+    Lz = box.lengths[2].to(dtype)
+    pad = _pad_row(dtype, dev)
+    ext = torch.empty((ncol * czp + 1, 8), dtype=dtype, device=dev)
+    ext3 = ext[:-1].view(ncol, czp, 8)         # the last row: tidx's dump
+    real3 = ext3[:, gz:gz + cz]
+    torch.where(cl.i_valid.view(ncol, cz, 1), attrs_real.view(ncol, cz, 8),
+                pad, out=real3)
+    bot = torch.gather(real3, 1, cl.bsrc[:, :, None].expand(ncol, gz, 8))
+    bot[:, :, 2] -= Lz
+    torch.where(cl.bok[:, :, None], bot, pad, out=ext3[:, :gz])
+    ext3[:, gz + cz:] = pad
+    top = real3[:, :cl.tidx.shape[1]].clone()
+    top[:, :, 2] += Lz
+    ext[cl.tidx.reshape(-1)] = top.reshape(-1, 8)
+    return ext3.transpose(1, 2).contiguous()
+
+
+def slot_atom_real(cl: ColumnList, n_atoms: int) -> torch.Tensor:
+    """(n_slots,) atom id of each real-region slot: real atoms map to
+    themselves, pads and ghost-top copies to the sentinel ``n_atoms`` (a
+    copy's row is refreshed by :func:`pack_slots`, never integrated)."""
+    ids = cl.slot_atom_ext.reshape(cl.ncol, cl.czp)[:, cl.gz:cl.gz + cl.cz]
+    return torch.where(cl.i_valid, ids.reshape(-1), n_atoms)

@@ -10,10 +10,12 @@ wrappers (port of ``compute_bethe`` and the ``style="bethe"`` path of
 * :func:`compute_bethe` is the ForceOut-compatible pair evaluation on a
   column list: priors → pack → kernel → slot→atom take → the
   chemical-potential score term and 1/kT, with pe and virial halved (full
-  list, newton off).
-* :func:`compute_style_bethe` (+ ``.fast_variant``) is the ``Simulation``
-  pair entry.  There is no score-free variant: under ``fix ucgstate`` the
-  scores feed the next step's priors.
+  list, newton off).  With ``slot=True`` the state is slot-resident
+  (``Simulation``'s slot-major interior): ``colpack.pack_slots`` fills the
+  kernel's inputs and the rows come back in slot order, with no take.
+* :func:`compute_style_bethe` (+ ``.fast_variant``, ``.slot_fast``) is the
+  ``Simulation`` pair entry.  There is no score-free variant: under ``fix
+  ucgstate`` the scores feed the next step's priors.
 
 Kernel contract (both the CUDA kernel and the twin) — K1's
 (ops/hopper_pair.py), except:
@@ -238,16 +240,17 @@ bethe_pair.launches = {"full": 0, "fast": 0}
 
 def kernel_inputs(state: SimState, cl: colpack.ColumnList,
                   params: BetheParams, cheb: ChebBank, observe: bool,
-                  prior_u: torch.Tensor | None = None):
+                  prior_u: torch.Tensor | None = None, slot: bool = False):
     """(args, kwargs) of :func:`bethe_pair` for one pair evaluation; the
-    priors come from ``pair_bethe._priors`` as on the reference path."""
+    priors come from ``pair_bethe._priors`` as on the reference path.
+    ``slot``: ``state`` is slot-resident (``colpack.pack``'s ``slot``)."""
     tp = params.tp
     f32 = torch.float32
     pi1, pj1 = pair_bethe._priors(state, params, prior_u)
     multi = tp.ntypes > 1
     ipack, cols = colpack.pack(cl, state.box, state.x, pj1, state.ucgstate,
                                dtype=f32, aux=pi1,
-                               typ=state.typ if multi else None)
+                               typ=state.typ if multi else None, slot=slot)
     coef = hp.kernel_rows(cheb, tp, True, True, f32, state.device)
     scal = kernel_scalars(state.box, params, cheb, f32)
     return ((scal, cl.z0, cl.L, ipack, cols, coef),
@@ -257,16 +260,17 @@ def kernel_inputs(state: SimState, cl: colpack.ColumnList,
 
 
 def force_out(out, part, state: SimState, cl: colpack.ColumnList,
-              params: BetheParams, observe: bool) -> ForceOut:
-    """Kernel outputs → ForceOut in atom order: the slot→atom take, the
-    chemical-potential score term −μ/kT (:155-162) and 1/kT, no λ-force,
-    pe and virial halved (full list, newton off)."""
+              params: BetheParams, observe: bool,
+              slot: bool = False) -> ForceOut:
+    """Kernel outputs → ForceOut: the slot→atom take (none when ``slot``),
+    the chemical-potential score term −μ/kT (:155-162) and 1/kT, no
+    λ-force, pe and virial halved (full list, newton off)."""
     tp = params.tp
     f32 = torch.float32
     dev = state.device
     typ = state.typ.long()
     is_ucg = tp.n_states[typ] > 1
-    out_at = out[cl.atom_slot]                                   # (N, 8)
+    out_at = out if slot else out[cl.atom_slot]                  # (N, 8)
     kT = params.kT.to(f32)
     mu_i = tp.mu[tp.formal[typ].long()].to(f32)                 # (N, 2)
     scores = out_at[:, 4:6] / kT - mu_i / kT
@@ -289,12 +293,14 @@ def force_out(out, part, state: SimState, cl: colpack.ColumnList,
 
 def compute_bethe(state: SimState, cl: colpack.ColumnList,
                   params: BetheParams, cheb: ChebBank, observe: bool = True,
-                  prior_u: torch.Tensor | None = None) -> ForceOut:
+                  prior_u: torch.Tensor | None = None,
+                  slot: bool = False) -> ForceOut:
     """Pair evaluation through K2.  ``observe=False`` is the fast variant
-    (pe/virial/oob come back 0) for interior MD steps."""
-    args, kw = kernel_inputs(state, cl, params, cheb, observe, prior_u)
+    (pe/virial/oob come back 0) for interior MD steps.  ``slot``: ``state``
+    is slot-resident and so is the result."""
+    args, kw = kernel_inputs(state, cl, params, cheb, observe, prior_u, slot)
     out, part = bethe_pair(*args, **kw)
-    return force_out(out, part, state, cl, params, observe)
+    return force_out(out, part, state, cl, params, observe, slot)
 
 
 def compute_style_bethe(state: SimState, cl: colpack.ColumnList,
@@ -312,4 +318,14 @@ def compute_style_bethe_fast(state: SimState, cl: colpack.ColumnList,
                          prior_u=prior_u)
 
 
+def compute_style_bethe_slot_fast(state: SimState, cl: colpack.ColumnList,
+                                  params: BetheParams,
+                                  prior_u: torch.Tensor | None = None
+                                  ) -> ForceOut:
+    """Slot-resident interior-step variant (observe=False)."""
+    return compute_bethe(state, cl, params, params.cheb, observe=False,
+                         prior_u=prior_u, slot=True)
+
+
 compute_style_bethe.fast_variant = compute_style_bethe_fast
+compute_style_bethe.slot_fast = compute_style_bethe_slot_fast

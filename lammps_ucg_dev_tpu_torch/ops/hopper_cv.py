@@ -69,17 +69,20 @@ def cv_scalars(box, cutsq, innersq, dtype=torch.float32) -> torch.Tensor:
 
 
 def cv_inputs(state: SimState, cl: colpack.ColumnList, cv_rad, cutsq,
-              innersq, weight: torch.Tensor | None):
+              innersq, weight: torch.Tensor | None, slot: bool = False):
     """(args, kwargs) of :func:`cv_rho` (``weight`` None) or
     :func:`cv_force` (the per-atom CV weight in attrs 3 and 6, ``gform``
     and ``observe`` still to give) — passes 1 and 3 of both density
-    styles; ``cv_rad`` is the style's :func:`radius_table`."""
+    styles; ``cv_rad`` is the style's :func:`radius_table`.  ``slot``:
+    ``state`` and ``weight`` are slot-resident (``colpack.pack``'s
+    ``slot``)."""
     f32 = torch.float32
     rad, pertype = cv_rad
     zeros = torch.zeros(state.n_atoms, dtype=f32, device=state.device)
     c = zeros if weight is None else weight
     ipack, cols = colpack.pack(cl, state.box, state.x, c, zeros, dtype=f32,
-                               aux=c, typ=state.typ if pertype else None)
+                               aux=c, typ=state.typ if pertype else None,
+                               slot=slot)
     return ((cv_scalars(state.box, cutsq, innersq), cl.z0, cl.L, ipack, cols,
              rad), dict(mx=cl.mx, my=cl.my, pertype=pertype))
 

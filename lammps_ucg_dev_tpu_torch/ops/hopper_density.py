@@ -14,9 +14,14 @@ wrappers, and the three-pass kernel path of the style (port of
   K3 (Bethe mixing, prior-force tallies, scores) → the posterior and the CV
   weights → K6 (the CV back-force).
 * :func:`compute_style_density` (+ ``.fast_variant`` /
-  ``.fast_variant_noscores``) is the ``Simulation`` pair entry.  The
-  score-free variant returns ``ucgp=None``, so the driver keeps the carried
-  posterior.
+  ``.fast_variant_noscores``, ``.slot_fast`` / ``.slot_fast_noscores``) is
+  the ``Simulation`` pair entry.  The score-free variants return
+  ``ucgp=None``, so the driver keeps the carried posterior.  With
+  ``slot=True`` the state is slot-resident (``Simulation``'s slot-major
+  interior): ρ, the priors and the CV weights stay in slot order between
+  the passes, each pass packs through ``colpack.pack_slots``, and the
+  ForceOut rows, the in-pass posterior included, come back in slot
+  order.
 
 K3's contract (the CUDA kernel and the twin) — K2's (ops/hopper_bethe.py)
 with ipack attr 6 and the candidates' attr 3 both the density prior
@@ -223,15 +228,17 @@ def radius_by_type(params: BetheDensityParams) -> torch.Tensor:
 
 def density_inputs(state: SimState, cl: colpack.ColumnList,
                    params: BetheDensityParams, cheb: ChebBank,
-                   pi1: torch.Tensor, observe: bool, want_scores: bool):
+                   pi1: torch.Tensor, observe: bool, want_scores: bool,
+                   slot: bool = False):
     """(args, kwargs) of :func:`dbethe_pair` for pass 2 on the density
-    priors ``pi1`` (P(state 1) per atom)."""
+    priors ``pi1`` (P(state 1) per atom); ``slot`` as in
+    ``colpack.pack``."""
     tp = params.tp
     f32 = torch.float32
     multi = tp.ntypes > 1
     ipack, cols = colpack.pack(cl, state.box, state.x, pi1, state.ucgstate,
                                dtype=f32, aux=pi1,
-                               typ=state.typ if multi else None)
+                               typ=state.typ if multi else None, slot=slot)
     coef = hp.kernel_rows(cheb, tp, True, True, f32, state.device)
     scal = hb.kernel_scalars(state.box, params, cheb, f32)
     return ((scal, cl.z0, cl.L, ipack, cols, coef),
@@ -255,14 +262,14 @@ def totals(part2, part3, observe: bool, device):
 
 def compute_density(state: SimState, cl: colpack.ColumnList,
                     params: BetheDensityParams, cheb: ChebBank,
-                    observe: bool = True,
-                    want_scores: bool = True) -> ForceOut:
+                    observe: bool = True, want_scores: bool = True,
+                    slot: bool = False) -> ForceOut:
     """Pair evaluation through K5 → K3 → K6, with ``params`` as
     ``select_pair_kernel`` returns them (``cv_rad`` set).
     ``observe=False`` drops pe/virial/oob (they come back 0);
     ``want_scores=False`` also drops the scores, and ``ucgp`` is then None
     — valid only when nothing feeds the scores back (``Simulation`` gates
-    this)."""
+    this).  ``slot``: ``state`` is slot-resident and so is the result."""
     tp = params.tp
     f32 = torch.float32
     dev = state.device
@@ -275,8 +282,11 @@ def compute_density(state: SimState, cl: colpack.ColumnList,
     cv_args = (params.cv_rad, tp.cutsq[1, 1], params.bank.innersq[0])
 
     # ---- pass 1: ρ and the real in-cutoff count (K5) ----------------------
-    args, kw = hcv.cv_inputs(state, cl, *cv_args, None)
-    at1 = hcv.cv_rho(*args, **kw)[cl.atom_slot]
+    def rows(out):
+        return out if slot else out[cl.atom_slot]
+
+    args, kw = hcv.cv_inputs(state, cl, *cv_args, None, slot)
+    at1 = rows(hcv.cv_rho(*args, **kw))
     prior, partial0 = pbd._priors(params, typ, at1[:, 0])
     pi1 = prior[:, 1]
     one_body = pbd.one_body(params, typ,
@@ -285,9 +295,9 @@ def compute_density(state: SimState, cl: colpack.ColumnList,
 
     # ---- pass 2: Bethe mixing, prior forces, scores (K3) -----------------
     args, kw = density_inputs(state, cl, params, cheb, pi1, observe,
-                              want_scores)
+                              want_scores, slot)
     out2, part2 = dbethe_pair(*args, **kw)
-    at2 = out2[cl.atom_slot]
+    at2 = rows(out2)
     pforce = torch.stack([at2[:, 3], at2[:, 6]], dim=-1)
     pforce = torch.where(use_den[:, None], pforce + one_body, zero)
     if want_scores:
@@ -303,12 +313,12 @@ def compute_density(state: SimState, cl: colpack.ColumnList,
     # ---- pass 3: the CV back-force (K6) -----------------------------------
     cvf = pforce[:, 0] * partial0 - pforce[:, 1] * partial0
     cvf = torch.where(use_den, cvf, zero)
-    args, kw = hcv.cv_inputs(state, cl, *cv_args, cvf)
+    args, kw = hcv.cv_inputs(state, cl, *cv_args, cvf, slot)
     out3, part3 = hcv.cv_force(
         *args, gform="mder" if params.backforce_derivative else "w",
         observe=observe, **kw)
     pe, virial, oob_low = totals(part2, part3, observe, dev)
-    return ForceOut(f=at2[:, 0:3] + out3[cl.atom_slot, 0:3],
+    return ForceOut(f=at2[:, 0:3] + rows(out3)[:, 0:3],
                     ucgforce=torch.zeros(n, dtype=f32, device=dev),
                     scores=scores, pe=pe, virial=virial, oob_low=oob_low,
                     oob_high=torch.zeros((), dtype=torch.int32, device=dev),
@@ -337,6 +347,25 @@ def compute_style_density_fast_noscores(state: SimState,
                            want_scores=False)
 
 
+def compute_style_density_slot_fast(state: SimState, cl: colpack.ColumnList,
+                                    params: BetheDensityParams) -> ForceOut:
+    """Slot-resident interior-step variant (observe=False)."""
+    return compute_density(state, cl, params, params.cheb, observe=False,
+                           slot=True)
+
+
+def compute_style_density_slot_fast_noscores(state: SimState,
+                                             cl: colpack.ColumnList,
+                                             params: BetheDensityParams
+                                             ) -> ForceOut:
+    """Slot-resident interior-step variant without scores (ucgp None)."""
+    return compute_density(state, cl, params, params.cheb, observe=False,
+                           want_scores=False, slot=True)
+
+
 compute_style_density.fast_variant = compute_style_density_fast
 compute_style_density.fast_variant_noscores = (
     compute_style_density_fast_noscores)
+compute_style_density.slot_fast = compute_style_density_slot_fast
+compute_style_density.slot_fast_noscores = (
+    compute_style_density_slot_fast_noscores)

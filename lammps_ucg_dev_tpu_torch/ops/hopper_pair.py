@@ -9,8 +9,13 @@
 * :func:`compute` is the ForceOut-compatible pair evaluation on a column
   list: pack → kernel → slot→atom take → chemical-potential and 1/kT
   post-processing, with pe and virial halved (full list, newton off).
-* :func:`compute_style` (+ ``.fast_variant`` / ``.fast_variant_noscores``)
-  is the ``Simulation`` pair entry.
+  With ``slot=True`` the state is slot-resident
+  (``Simulation``'s slot-major interior): ``colpack.pack_slots`` fills the
+  kernel's inputs, and the ForceOut rows come back in slot order, with no
+  take.
+* :func:`compute_style` (+ ``.fast_variant`` / ``.fast_variant_noscores``,
+  ``.slot_fast`` / ``.slot_fast_noscores``) is the ``Simulation`` pair
+  entry.
 
 Kernel contract (both the CUDA kernel and the twin):
   scal   (8,) f32   [Lx Ly cutsq innersq uscale uoff 0 0]
@@ -401,8 +406,9 @@ ucgld_pair.launches = {"full": 0, "fast": 0, "noscores": 0}
 
 def kernel_inputs(state: SimState, cl: colpack.ColumnList,
                   params: UCGLDParams, cheb: ChebBank, observe: bool,
-                  want_scores: bool):
-    """(args, kwargs) of :func:`ucgld_pair` for one pair evaluation."""
+                  want_scores: bool, slot: bool = False):
+    """(args, kwargs) of :func:`ucgld_pair` for one pair evaluation;
+    ``slot``: ``state`` is slot-resident (``colpack.pack``'s ``slot``)."""
     tp = params.tp
     f32 = torch.float32
     is_ucg = tp.n_states[state.typ] > 1
@@ -411,7 +417,7 @@ def kernel_inputs(state: SimState, cl: colpack.ColumnList,
     multi = tp.ntypes > 1
     ipack, cols = colpack.pack(cl, state.box, state.x, lam_eff,
                                state.ucgstate, dtype=f32,
-                               typ=state.typ if multi else None)
+                               typ=state.typ if multi else None, slot=slot)
     coef = kernel_rows(cheb, tp, observe, want_scores, f32, state.device)
     scal = kernel_scalars(state.box, params, cheb, f32)
     return ((scal, cl.z0, cl.L, ipack, cols, coef),
@@ -420,29 +426,32 @@ def kernel_inputs(state: SimState, cl: colpack.ColumnList,
 
 
 def compute(state: SimState, cl: colpack.ColumnList, params: UCGLDParams,
-            cheb: ChebBank, observe: bool = True,
-            want_scores: bool = True) -> ForceOut:
+            cheb: ChebBank, observe: bool = True, want_scores: bool = True,
+            slot: bool = False) -> ForceOut:
     """Pair evaluation through K1.  ``observe=False`` is the fast variant
     (pe/virial/oob come back 0) for interior MD steps; ``want_scores=False``
     also drops the score tallies (scores come back 0) — valid only when
-    scores have no dynamical feedback (``Simulation`` gates this)."""
-    args, kw = kernel_inputs(state, cl, params, cheb, observe, want_scores)
+    scores have no dynamical feedback (``Simulation`` gates this).
+    ``slot``: ``state`` is slot-resident and so is the result."""
+    args, kw = kernel_inputs(state, cl, params, cheb, observe, want_scores,
+                             slot)
     out, part = ucgld_pair(*args, **kw)
-    return force_out(out, part, state, cl, params, observe, want_scores)
+    return force_out(out, part, state, cl, params, observe, want_scores,
+                     slot)
 
 
 def force_out(out, part, state: SimState, cl: colpack.ColumnList,
-              params: UCGLDParams, observe: bool,
-              want_scores: bool) -> ForceOut:
-    """Kernel outputs → ForceOut in atom order: the slot→atom take, the
-    chemical-potential and 1/kT terms, and pe/virial halved (full list,
-    newton off)."""
+              params: UCGLDParams, observe: bool, want_scores: bool,
+              slot: bool = False) -> ForceOut:
+    """Kernel outputs → ForceOut: the slot→atom take (none when ``slot``:
+    the rows stay in slot order), the chemical-potential and 1/kT terms,
+    and pe/virial halved (full list, newton off)."""
     n = state.n_atoms
     tp = params.tp
     f32 = torch.float32
     dev = state.device
     is_ucg = tp.n_states[state.typ] > 1
-    out_at = out[cl.atom_slot]                                   # (N, 8)
+    out_at = out if slot else out[cl.atom_slot]                  # (N, 8)
     mu = tp.mu_diff[state.typ].to(f32)
     zero = torch.zeros((), dtype=f32, device=dev)
     ucgforce = torch.where(is_ucg, out_at[:, 3] - mu, zero)
@@ -487,5 +496,20 @@ def compute_style_fast_noscores(state: SimState, cl: colpack.ColumnList,
                    want_scores=False)
 
 
+def compute_style_slot_fast(state: SimState, cl: colpack.ColumnList,
+                            params: UCGLDParams) -> ForceOut:
+    """Slot-resident interior-step variant (observe=False)."""
+    return compute(state, cl, params, params.cheb, observe=False, slot=True)
+
+
+def compute_style_slot_fast_noscores(state: SimState, cl: colpack.ColumnList,
+                                     params: UCGLDParams) -> ForceOut:
+    """Slot-resident interior-step variant without score tallies."""
+    return compute(state, cl, params, params.cheb, observe=False,
+                   want_scores=False, slot=True)
+
+
 compute_style.fast_variant = compute_style_fast
 compute_style.fast_variant_noscores = compute_style_fast_noscores
+compute_style.slot_fast = compute_style_slot_fast
+compute_style.slot_fast_noscores = compute_style_slot_fast_noscores

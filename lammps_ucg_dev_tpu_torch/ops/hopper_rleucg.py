@@ -13,8 +13,12 @@ wrappers, and the three-pass kernel path of the style (port of
   :231-276, 321-441, 444-502): K5 (ρ) → substate probabilities and
   one-body forces → K4 (mean-field mixing, feedback tally) → the CV
   weights → K6 (the CV back-force).
-* :func:`compute_style_rleucg` (+ ``.fast_variant``) is the ``Simulation``
-  pair entry.
+* :func:`compute_style_rleucg` (+ ``.fast_variant``, ``.slot_fast``) is
+  the ``Simulation`` pair entry.  With ``slot=True`` the state is
+  slot-resident (``Simulation``'s slot-major interior): ρ, the
+  probabilities and the CV weights stay in slot order between the passes,
+  each pass packs through ``colpack.pack_slots``, and the ForceOut rows
+  come back in slot order.
 
 K4's contract — K2's (ops/hopper_bethe.py) over SUBSTATE types: attr 7 the
 substate type, ipack attr 6 and the candidates' attr 3 the probability of
@@ -153,13 +157,14 @@ def radius_by_type(params: RLEUCGParams) -> torch.Tensor:
 
 def rleucg_inputs(state: SimState, cl: colpack.ColumnList,
                   params: RLEUCGParams, cheb: ChebBank, a1: torch.Tensor,
-                  observe: bool):
+                  observe: bool, slot: bool = False):
     """(args, kwargs) of :func:`rleucg_pair` for pass 2 on ``a1`` (the
-    probability of substate 1 per atom)."""
+    probability of substate 1 per atom); ``slot`` as in
+    ``colpack.pack``."""
     f32 = torch.float32
     ipack, cols = colpack.pack(cl, state.box, state.x, a1,
                                torch.zeros_like(a1), dtype=f32, aux=a1,
-                               typ=state.typ)
+                               typ=state.typ, slot=slot)
     coef = kernel_rows(cheb, params, f32, state.device)
     return ((kernel_scalars(state.box, params, cheb), cl.z0, cl.L, ipack,
              cols, coef),
@@ -169,11 +174,11 @@ def rleucg_inputs(state: SimState, cl: colpack.ColumnList,
 
 def compute_rleucg(state: SimState, cl: colpack.ColumnList,
                    params: RLEUCGParams, cheb: ChebBank,
-                   observe: bool = True) -> ForceOut:
+                   observe: bool = True, slot: bool = False) -> ForceOut:
     """Pair evaluation through K5 → K4 → K6, with ``params`` as
     ``select_pair_kernel`` returns them (``cv_rad`` set).  ``observe=False``
     is the fast variant (pe/virial/oob come back 0) for interior MD
-    steps."""
+    steps.  ``slot``: ``state`` is slot-resident and so is the result."""
     f32 = torch.float32
     dev = state.device
     typ = state.typ
@@ -182,26 +187,30 @@ def compute_rleucg(state: SimState, cl: colpack.ColumnList,
     cv_args = (params.cv_rad, params.cutsq[1, 1], params.bank.innersq[0])
 
     # ---- pass 1: ρ → substate probabilities (K5) --------------------------
-    args, kw = hcv.cv_inputs(state, cl, *cv_args, None)
-    rho = hcv.cv_rho(*args, **kw)[cl.atom_slot, 0]
+    def rows(out):
+        return out if slot else out[cl.atom_slot]
+
+    args, kw = hcv.cv_inputs(state, cl, *cv_args, None, slot)
+    rho = rows(hcv.cv_rho(*args, **kw))[:, 0]
     probs, partial = pr4.substate_probs(params, typ, rho)
     explicit, pforce = pr4.one_body(params, typ, probs)
 
     # ---- pass 2: mean-field mixing + probability feedback (K4) -----------
-    args, kw = rleucg_inputs(state, cl, params, cheb, probs[:, 1], observe)
+    args, kw = rleucg_inputs(state, cl, params, cheb, probs[:, 1], observe,
+                             slot)
     out2, part2 = rleucg_pair(*args, **kw)
-    at2 = out2[cl.atom_slot]
+    at2 = rows(out2)
     pf0 = pforce[:, 0] + torch.where(explicit[:, 0], at2[:, 3], zero)
     pforce = torch.cat([pf0[:, None], pforce[:, 1:]], dim=1)
 
     # ---- pass 3: the CV back-force (K6) -----------------------------------
     cvf = torch.sum(pforce * partial, dim=-1)
-    args, kw = hcv.cv_inputs(state, cl, *cv_args, cvf)
+    args, kw = hcv.cv_inputs(state, cl, *cv_args, cvf, slot)
     out3, part3 = hcv.cv_force(
         *args, gform="mder" if params.conservative_sign else "pder",
         observe=observe, **kw)
     pe, virial, oob_low = hd.totals(part2, part3, observe, dev)
-    return ForceOut(f=at2[:, 0:3] + out3[cl.atom_slot, 0:3],
+    return ForceOut(f=at2[:, 0:3] + rows(out3)[:, 0:3],
                     ucgforce=torch.zeros(n, dtype=f32, device=dev),
                     scores=torch.zeros((n, 2), dtype=f32, device=dev),
                     pe=pe, virial=virial, oob_low=oob_low,
@@ -220,4 +229,12 @@ def compute_style_rleucg_fast(state: SimState, cl: colpack.ColumnList,
     return compute_rleucg(state, cl, params, params.cheb, observe=False)
 
 
+def compute_style_rleucg_slot_fast(state: SimState, cl: colpack.ColumnList,
+                                   params: RLEUCGParams) -> ForceOut:
+    """Slot-resident interior-step variant (observe=False)."""
+    return compute_rleucg(state, cl, params, params.cheb, observe=False,
+                          slot=True)
+
+
 compute_style_rleucg.fast_variant = compute_style_rleucg_fast
+compute_style_rleucg.slot_fast = compute_style_rleucg_slot_fast

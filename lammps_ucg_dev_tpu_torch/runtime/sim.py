@@ -11,14 +11,23 @@ One timestep =
 
 A block is ``reneigh_every`` steps.  At its start the PBC wrap and the
 neighbor rebuild run together, only when the displacement check asks for
-them (``neigh_modify check yes``).  On the kernel path the interior steps run a fast
-pair variant (no pe/virial/oob; also no scores when nothing feeds them back)
-and the block's last step runs the full kernel, so thermo always reads valid
-observables.  The block loop runs on the host; the neighbor overflow flag
-is read once per block.
+them (``neigh_modify check yes``; ``reneigh_check=False`` rebuilds every
+block).  On the kernel path the interior steps run a fast pair variant (no
+pe/virial/oob; also no scores when nothing feeds them back) and the
+block's last step runs the full kernel, so thermo always reads valid
+observables.  The block loop runs on the host; the neighbor overflow and
+danger flags are read once per block.
 
-Not ported yet: r-RESPA, bonded terms, special exclusions, cluster_switch,
-the velocity Langevin, atom sorting and the slot-major interior.
+On the column path in float32 the interior steps are slot-major
+(``_slot_ok``): per-atom state enters the column list's real-slot order
+with one wide row gather, the pair entry's ``slot_fast`` variant fills the
+kernels' inputs from it (``colpack.pack_slots``) and returns its rows in
+that order, and one gather takes the state back to atom order for the
+block's last, full step.  Every fix inside a block is elementwise and
+draws by tag, so the trajectory is that of the atom-ordered interior.
+
+Not ported yet: r-RESPA, bonded terms, special exclusions,
+cluster_switch, and the ``check_safety`` and ``sort_atoms`` switches.
 """
 
 from __future__ import annotations
@@ -44,8 +53,12 @@ class SimConfig:
     units: str = "lj"
     integrator: fi.IntegratorCfg = fi.IntegratorCfg()
     langevin: fl.LangevinCfg | None = None
+    vlangevin: fl.VLangevinCfg | None = None   # stock velocity thermostat
     ucgstate: fs.UCGStateCfg | None = None
     reneigh_every: int = 10
+    reneigh_check: bool = True    # neigh_modify check yes|no: rebuild at a
+                                  # block start only when the displacement
+                                  # check asks for it (True) or always
 
     @property
     def u(self) -> units_mod.UnitSystem:
@@ -53,9 +66,13 @@ class SimConfig:
 
     @property
     def kT(self) -> float:
-        """Thermostat target kT seen by pair styles at init."""
+        """Thermostat target kT seen by pair styles at init ("any
+        thermostat fix", pair_table_ucgld.cpp:872-881): the λ-Langevin's,
+        else the velocity Langevin's, else 0."""
         if self.langevin is not None:
             return self.u.boltz * self.langevin.t_start
+        if self.vlangevin is not None:
+            return self.u.boltz * self.vlangevin.t_start
         return 0.0
 
 
@@ -67,30 +84,50 @@ class Simulation:
     cell), a colpack.ColumnSpec (the column kernels) or a
     clusters.ClusterSpec (K8's cluster list).  ``seed`` seeds the generator that
     draws the Langevin noise, the ``ucgstate mc`` uniforms and the noisy
-    Bethe priors."""
+    Bethe priors.  ``extra_post_force(state, ucgforce, fout) -> (state,
+    ucgforce)`` runs after the bias force and before ``ucgstate``; it may
+    read anything, so it turns off the score-free interior and the
+    slot-major interior."""
 
     def __init__(self, system: System, state: SimState,
                  pair_compute: Callable, pair_params: Any, nbr_spec,
-                 cfg: SimConfig, seed: int = 0):
+                 cfg: SimConfig, seed: int = 0,
+                 extra_post_force: Callable | None = None):
         self.system = system
         self.state = state
         self.pair_compute = pair_compute
         self.pair_params = pair_params
         self.nbr_spec = nbr_spec
         self.cfg = cfg
+        self.extra_post_force = extra_post_force
         self.generator = torch.Generator(device=state.device)
         self.generator.manual_seed(seed)
         self._masses_by_type = torch.as_tensor(
             np.asarray(system.masses, np.float64), dtype=state.x.dtype,
             device=state.device)
-        # scores are dynamically inert when nothing turns them into state
-        # that feeds back into forces: no fix ucgstate, or 'ld' mode (ucgp
-        # is observable-only there; fix_ucgstate.cpp:52-54)
-        self._scores_inert = cfg.ucgstate is None or cfg.ucgstate.mode == "ld"
+        # slot-major interior: the column path in f32 (the kernels' input
+        # dtype) whose pair entry has a slot variant, with no atom-space
+        # extra_post_force
+        self._slot_ok = (isinstance(nbr_spec, colpack.ColumnSpec)
+                         and extra_post_force is None
+                         and state.x.dtype == torch.float32
+                         and getattr(pair_compute, "slot_fast",
+                                     None) is not None)
         self._fcarry: ForceOut | None = None
         self._nbr = None
         self.thermo_rows: list[dict] = []
         self.dangerous_builds = 0
+
+    @property
+    def _scores_inert(self) -> bool:
+        """Scores are dynamically inert when nothing turns them into state
+        that feeds back into forces: no fix ucgstate, or 'ld' mode (ucgp is
+        observable-only there; fix_ucgstate.cpp:52-54), and no
+        extra_post_force that could read them.  Read from ``cfg`` at each
+        block, so a changed ``cfg`` takes effect."""
+        ucgstate = self.cfg.ucgstate
+        return ((ucgstate is None or ucgstate.mode == "ld")
+                and self.extra_post_force is None)
 
     # ---- one force evaluation + post-force fixes -------------------------
 
@@ -102,9 +139,10 @@ class Simulation:
                               device=state.device)
         return tp.n_states[state.typ] > 1
 
-    def _uniforms(self, state: SimState) -> torch.Tensor:
-        """(rng_n,) uniforms from the generator, indexed by tag - 1."""
-        return torch.rand(state.rng_n, generator=self.generator,
+    def _uniforms(self, state: SimState, *shape: int) -> torch.Tensor:
+        """(rng_n, *shape) uniforms from the generator, indexed by
+        tag - 1."""
+        return torch.rand((state.rng_n, *shape), generator=self.generator,
                           dtype=state.ucgvl.dtype, device=state.device)
 
     def _forces(self, state: SimState, nbr, run_window, pair_fn=None,
@@ -124,12 +162,23 @@ class Simulation:
                              run_window[1])
             ucgforce = ucgforce + fl.post_force(self._uniforms(state), state,
                                                 tT, cfg.dt, u, cfg.langevin)
+        if cfg.vlangevin is not None:
+            # stock fix langevin on the velocities (post_force; drag and
+            # kick enter neither pe nor the virial)
+            tTv = fl.t_target(cfg.vlangevin, state.step, run_window[0],
+                              run_window[1])
+            mass = self._masses_by_type[state.typ]
+            fout = dataclasses.replace(fout, f=fout.f + fl.post_force_v(
+                self._uniforms(state, 3), state, mass, tTv, cfg.dt, u,
+                cfg.vlangevin))
         if cfg.integrator.wall and cfg.integrator.bias_potential:
             bf = fi.bias_force(state.ucgl, cfg.integrator.barrier)
             g = fi.group_mask(cfg.integrator, state)
             if g is not None:
                 bf = torch.where(g, bf, torch.zeros_like(bf))
             ucgforce = ucgforce + bf
+        if self.extra_post_force is not None:
+            state, ucgforce = self.extra_post_force(state, ucgforce, fout)
         if cfg.ucgstate is not None and scores_valid:
             # score-free interior steps skip the update (ucgp refreshes on
             # the block's full-kernel step)
@@ -160,6 +209,85 @@ class Simulation:
                                    cfg.u.ftm2v, cfg.integrator)
         return dataclasses.replace(state, step=state.step + 1), fout
 
+    # ---- the slot-major interior ------------------------------------------
+
+    def _to_slots(self, state: SimState, fcarry: ForceOut, nbr):
+        """(state, fcarry) in the column list's real-slot order, pad rows
+        poisoned (x at ``colpack._PAD_POISON``, ucgml 1, ucgp -1, tag and
+        typ 1), with one float row gather and one int row gather.  Float
+        columns: 0:3 x | 3:6 v | 6 ucgl | 7 ucgvl | 8 ucgml | 9 ucgp |
+        10:13 f | 13 ucgforce | 14:16 scores | 16 the in-pass ucgp, when
+        the style has one.  Int columns: tag typ ucgstate.  q, mol and
+        image stay in atom order: no step inside a block reads them, and
+        the block's last step takes them from the atom-ordered state."""
+        n, dev = state.n_atoms, state.device
+        sar = colpack.slot_atom_real(nbr, n)
+        fl_cols = [state.x, state.v, state.ucgl[:, None],
+                   state.ucgvl[:, None], state.ucgml[:, None],
+                   state.ucgp[:, None], fcarry.f,
+                   fcarry.ucgforce[:, None], fcarry.scores]
+        if fcarry.ucgp is not None:
+            fl_cols.append(fcarry.ucgp[:, None])
+        M = torch.cat(fl_cols, 1)
+        pad = torch.zeros((1, M.shape[1]), dtype=M.dtype, device=dev)
+        pad[0, 0:3] = colpack._PAD_POISON
+        pad[0, 8] = 1.0
+        pad[0, 9] = -1.0
+        Ms = torch.cat([M, pad])[sar]                       # (n_slots, 16+)
+        ints = torch.stack([state.tag, state.typ, state.ucgstate],
+                           1)                                # all int32
+        ipad = torch.zeros((1, 3), dtype=ints.dtype, device=dev)
+        ipad[0, 0:2] = 1
+        Is = torch.cat([ints, ipad])[sar]                   # (n_slots, 3)
+
+        def c(t, a, b=None):
+            return (t[:, a] if b is None else t[:, a:b]).contiguous()
+
+        slot_state = dataclasses.replace(
+            state, x=c(Ms, 0, 3), v=c(Ms, 3, 6), ucgl=c(Ms, 6),
+            ucgvl=c(Ms, 7), ucgml=c(Ms, 8), ucgp=c(Ms, 9), tag=c(Is, 0),
+            typ=c(Is, 1), ucgstate=c(Is, 2), n_total=state.rng_n)
+        slot_fout = dataclasses.replace(
+            fcarry, f=c(Ms, 10, 13), ucgforce=c(Ms, 13), scores=c(Ms, 14, 16),
+            ucgp=c(Ms, 16) if fcarry.ucgp is not None else None)
+        return slot_state, slot_fout
+
+    def _from_slots(self, state: SimState, slot_state: SimState,
+                    slot_fout: ForceOut, nbr):
+        """The dynamic fields back in atom order, with one float and one int
+        gather.  Float columns: 0:3 x | 3:6 v | 6 ucgl | 7 ucgvl | 8 ucgp |
+        9:12 f | 12 ucgforce | 13:15 scores | 15 the in-pass ucgp."""
+        ss, sf = slot_state, slot_fout
+        cols = [ss.x, ss.v, ss.ucgl[:, None], ss.ucgvl[:, None],
+                ss.ucgp[:, None], sf.f, sf.ucgforce[:, None], sf.scores]
+        if sf.ucgp is not None:
+            cols.append(sf.ucgp[:, None])
+        Et = torch.cat(cols, 1)[nbr.atom_slot]              # (N, 15+)
+
+        def c(a, b=None):
+            return (Et[:, a] if b is None else Et[:, a:b]).contiguous()
+
+        state = dataclasses.replace(
+            state, x=c(0, 3), v=c(3, 6), ucgl=c(6), ucgvl=c(7), ucgp=c(8),
+            ucgstate=ss.ucgstate[nbr.atom_slot], step=ss.step)
+        fout = dataclasses.replace(
+            sf, f=c(9, 12), ucgforce=c(12), scores=c(13, 15),
+            ucgp=c(15) if sf.ucgp is not None else None)
+        return state, fout
+
+    def _slot_interior(self, state: SimState, fcarry: ForceOut, nbr,
+                       run_window, k: int, slot_fn, scores_valid: bool):
+        """k interior Verlet steps with the per-atom state resident in the
+        column list's real-slot order: one wide gather in, the kernels read
+        the slot arrays (``colpack.pack_slots``) and their rows feed the
+        integrator with no reordering, one wide gather out."""
+        slot_state, slot_fout = self._to_slots(state, fcarry, nbr)
+        for _ in range(k):
+            slot_state, slot_fout = self._step(slot_state, slot_fout, nbr,
+                                               run_window, slot_fn,
+                                               scores_valid)
+        return self._from_slots(state, slot_state, slot_fout, nbr)
+
     # ---- one block: conditional reneighbor + nsteps of Verlet -------------
 
     def _rebuild(self, state: SimState):
@@ -172,8 +300,10 @@ class Simulation:
 
     def _block(self, state: SimState, fcarry: ForceOut, run_window,
                nsteps: int, nbr=None):
-        if nbr is None or bool(nbrmod.displacement_check(
-                nbr, state.x, state.box, self.nbr_spec.skin)):
+        cfg = self.cfg
+        if (nbr is None or not cfg.reneigh_check
+                or bool(nbrmod.displacement_check(nbr, state.x, state.box,
+                                                  self.nbr_spec.skin))):
             state, nbr = self._rebuild(state)
 
         fast_fn = getattr(self.pair_compute, "fast_variant", None)
@@ -183,7 +313,17 @@ class Simulation:
             if nos is not None:
                 fast_fn, fast_scores = nos, False
         fout = fcarry
-        if fast_fn is not None and nsteps > 1:
+        if self._slot_ok and nsteps > 1:
+            # slot-major interior, then the full kernel in atom order
+            slot_fn = self.pair_compute.slot_fast
+            if not fast_scores:
+                slot_fn = getattr(self.pair_compute, "slot_fast_noscores",
+                                  slot_fn)
+            state, fout = self._slot_interior(state, fout, nbr, run_window,
+                                              nsteps - 1, slot_fn,
+                                              fast_scores)
+            state, fout = self._step(state, fout, nbr, run_window)
+        elif fast_fn is not None and nsteps > 1:
             # LAMMPS eflag/vflag pattern: fast interior steps, full last step
             for _ in range(nsteps - 1):
                 state, fout = self._step(state, fout, nbr, run_window,

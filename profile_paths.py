@@ -2,6 +2,7 @@
 """Where one block of a main path spends its time on the GPU.
 
     python3 profile_paths.py [--path bethe|ucgld|density|rleucg|cluster]
+                             [--atom-order]
 
 Builds the path's system at 2^20 beads (``flagship.build_bethe_sim``,
 ``build_sim``, ``build_density_sim``, ``build_rleucg_sim`` or
@@ -11,8 +12,18 @@ in a synchronize), then traces one more with ``torch.profiler``.  Prints
 the card's name and power limit, the median ms per step with the fastest
 and slowest block, the device time per step and its share of the median
 step (the traced block's wall time carries the profiler's own host
-overhead, so its idle share is printed apart), and the device time of the
-heaviest operations per step.  Needs a CUDA device.
+overhead, so its idle share is printed apart), the device time of the row
+gathers and scatters (every ``index``/``gather`` kernel), that of the
+heaviest operations per step, the column list's real-slot count against
+N, and the device time of ``torch.cat`` split
+by its call site (``colpack.pack`` in atom order and in slot order,
+``Simulation._to_slots``, ``Simulation._from_slots``, the rest), with
+each site's largest call; the traced block runs with the sites wrapped in
+``record_function`` ranges, which only this script adds (their device
+spans are left out of the device time).  The column paths run their interior steps
+slot-major, as the driver chooses; ``--atom-order`` profiles the
+atom-ordered interior instead (``Simulation._slot_ok`` set false).  Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,6 +36,60 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from lammps_ucg_dev_tpu_torch.tools.timing import card  # noqa: E402
+
+
+def mark_sites(sim):
+    """Wrap the call sites of ``torch.cat`` on the block's path in
+    ``record_function`` ranges named ``site:...``; returns the undo."""
+    from torch.profiler import record_function
+
+    from lammps_ucg_dev_tpu_torch.ops import colpack
+
+    pack = colpack.pack
+
+    def ranged_pack(*a, **k):
+        with record_function("site:pack(slot)" if k.get("slot")
+                             else "site:pack(atom)"):
+            return pack(*a, **k)
+
+    def ranged(name, fn):
+        def call(*a, **k):
+            with record_function(f"site:{name}"):
+                return fn(*a, **k)
+        return call
+
+    colpack.pack = ranged_pack
+    sim._to_slots = ranged("_to_slots", sim._to_slots)
+    sim._from_slots = ranged("_from_slots", sim._from_slots)
+
+    def undo():
+        colpack.pack = pack
+        del sim._to_slots, sim._from_slots
+    return undo
+
+
+def cat_by_site(prof, nre: int) -> None:
+    """Print the device time of every ``aten::cat`` (``torch.stack`` is one
+    too) summed by the nearest enclosing ``site:`` range of
+    :func:`mark_sites` ("-": none)."""
+    sites = {}
+    for e in prof.events():
+        if e.name != "aten::cat":
+            continue
+        p = e.cpu_parent
+        while p is not None and not p.name.startswith("site:"):
+            p = p.cpu_parent
+        site = p.name[5:] if p is not None else "-"
+        calls, us, big = sites.get(site, (0, 0.0, 0.0))
+        t = e.device_time_total
+        sites[site] = (calls + 1, us + t, max(big, t))
+    total = sum(us for _, us, _ in sites.values())
+    print(f"torch.cat by call site: {total / 1e3 / nre:.3f} ms/step")
+    print(f"{'ms/step':>8} {'calls':>6} {'ms/call':>8} {'max ms':>8}  site")
+    for site, (calls, us, big) in sorted(sites.items(),
+                                         key=lambda kv: -kv[1][1]):
+        print(f"{us / 1e3 / nre:8.3f} {calls:6d} {us / 1e3 / calls:8.4f} "
+              f"{big / 1e3:8.4f}  {site}")
 
 
 def main() -> int:
@@ -40,11 +105,16 @@ def main() -> int:
                 "rleucg": flagship.build_rleucg_sim,
                 "cluster": flagship.build_cluster_sim}
     ap.add_argument("--path", choices=tuple(builders), default="bethe")
+    ap.add_argument("--atom-order", action="store_true",
+                    help="the atom-ordered interior, not the slot-major one")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: no CUDA device")
     n = 2**20
     sim = builders[a.path](n=n)
+    if a.atom_order:
+        sim._slot_ok = False
+    interior = "slot-major" if sim._slot_ok else "atom-ordered"
     nre = sim.cfg.reneigh_every
     window = (0, 8 * nre)
     sim.setup(window)
@@ -59,29 +129,44 @@ def main() -> int:
     block_ms.sort()
     ms_step = block_ms[2]
 
+    undo = mark_sites(sim)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sim.run_fused(1, run_window=window)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    undo()
     # kernels, copies and fills on the device (the aten ops that launch
     # them carry the same time and are left out)
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and not e.key.startswith("site:")]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(card())
     busy_step = busy_ms / nre
-    print(f"[{a.path} n={n}] {ms_step:.3f} ms/step untraced, median of 5 "
+    print(f"[{a.path} n={n}, {interior} interior] {ms_step:.3f} ms/step untraced, median of 5 "
           f"blocks ({block_ms[0]:.3f}-{block_ms[-1]:.3f}; "
           f"{1e3 / ms_step:.2f} steps/s); device busy {busy_step:.3f} "
           f"ms/step = {100 * busy_step / ms_step:.1f}% of the median step "
           f"(idle {100 * (1 - busy_step / ms_step):.1f}%); traced block "
           f"{wall_ms:.2f} ms, idle {100 * (1 - busy_ms / wall_ms):.1f}% "
           f"under the profiler")
+    rows = [e for e in events
+            if "index" in e.key.lower() or "gather" in e.key.lower()]
+    rows_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"row gathers and scatters: {rows_ms / nre:.3f} ms/step = "
+          f"{100 * rows_ms / busy_ms:.1f}% of the device time "
+          f"({sum(e.count for e in rows) / nre:.1f} launches/step)")
+    slots = getattr(sim._nbr, "n_slots", None)
+    if slots is not None:
+        print(f"slot rows: n_slots {slots} = {slots / n:.3f} N (the rows "
+              f"of the kernels' i-side block and, slot-major, of the "
+              f"interior's per-atom arrays)")
     print(f"{'ms/step':>8} {'share':>6} {'calls':>6}  operation")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
         t = e.self_device_time_total / 1e3
         print(f"{t / nre:8.3f} {100 * t / busy_ms:5.1f}% {e.count:6d}  "
               f"{e.key[:90]}")
+    cat_by_site(prof, nre)
     return 0
 
 

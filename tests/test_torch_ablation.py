@@ -39,6 +39,7 @@ from lammps_ucg_dev_tpu_torch import convert
 from lammps_ucg_dev_tpu_torch.ops import colpack as tcp
 from lammps_ucg_dev_tpu_torch.ops import hopper_ablation as ha
 from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+from test_torch_core import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 N = 4096

@@ -41,6 +41,7 @@ from lammps_ucg_dev_tpu_torch.ops import cuda_lib
 from lammps_ucg_dev_tpu_torch.ops import hopper_bethe as hb
 from lammps_ucg_dev_tpu_torch.ops import neighbor as tnb
 from lammps_ucg_dev_tpu_torch.ops.kernel_select import select_pair_kernel
+from test_torch_core import one_torch_thread  # noqa: F401
 
 N = 512
 KT = 0.8

@@ -40,6 +40,7 @@ from lammps_ucg_dev_tpu_torch import flagship
 from lammps_ucg_dev_tpu_torch.fixes import ucgstate as tfs
 from lammps_ucg_dev_tpu_torch.ops import colpack as tcp
 from lammps_ucg_dev_tpu_torch.ops import hopper_bethe as hb
+from test_torch_core import one_torch_thread  # noqa: F401
 
 N, NSTEPS, EVERY = 512, 10, 5
 FIELDS = ("x", "v", "ucgl", "ucgp", "ucgstate")

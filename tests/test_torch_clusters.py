@@ -38,6 +38,7 @@ from lammps_ucg_dev_tpu_torch import convert, flagship
 from lammps_ucg_dev_tpu_torch.core.state import Box
 from lammps_ucg_dev_tpu_torch.ops import clusters as tcl
 from lammps_ucg_dev_tpu_torch.ops import hopper_cluster as hc
+from test_torch_core import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 N, NSTEPS, EVERY = 512, 10, 5

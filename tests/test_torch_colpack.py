@@ -15,6 +15,7 @@ from lammps_ucg_dev_tpu.ops import colpack as jcp
 from lammps_ucg_dev_tpu_torch.core.state import Box as TBox
 from lammps_ucg_dev_tpu_torch.ops import colpack as tcp
 from lammps_ucg_dev_tpu_torch.ops import neighbor as tnb
+from test_torch_core import one_torch_thread  # noqa: F401
 
 RC, SKIN = 2.5, 0.4
 

@@ -35,6 +35,20 @@ TOL = 1e-12
 FIELDS = ("x", "v", "ucgl", "ucgvl", "ucgstate", "ucgp")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """PyTorch's CPU ops on one thread for the whole module (the port's
+    CPU test modules import this fixture).  The test run's workers share
+    the CPU; an op split over one thread per core then waits on threads
+    that other workers hold, and small-tensor ops slow down by an order of
+    magnitude or more (four concurrent runs of test_torch_density_slice.py
+    took 748 s with one thread per core and 26 s with one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(a):
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
         else np.asarray(a)

@@ -912,3 +912,95 @@ def test_cluster_path_runs_through_k8_and_refuses_unsupported(device):
                                    dtype=torch.float64)
     with pytest.raises(ValueError):                 # 2 cells a side
         flagship.build_cluster_sim(n=128, device=device)
+
+
+# ---- the slot-major interior on the card ----------------------------------------
+
+SLOT_STYLES = {
+    "ucgld_ld": (lambda **kw: flagship.build_sim(reneigh_every=10, **kw),
+                 None),
+    "ucgld_default": (lambda **kw: flagship.build_sim(reneigh_every=10, **kw),
+                      "default"),
+    "bethe": (flagship.build_bethe_sim, None),
+    "p3": (flagship.build_density_sim, None),
+    "p4": (flagship.build_rleucg_sim, None),
+}
+
+
+def launch_counts():
+    wrappers = (hp.ucgld_pair, hb.bethe_pair, hd.dbethe_pair, hr.rleucg_pair,
+                hcv.cv_rho, hcv.cv_force)
+    return [dict(w.launches) for w in wrappers]
+
+
+@pytest.mark.parametrize("style", list(SLOT_STYLES))
+def test_slot_interior_identical_bits_on_the_card(device, style):
+    """Two blocks slot-major and atom-ordered from the same state and
+    generator seed: the same bits in every dynamic field and in f, the
+    λ-force and pe, and the same kernel launches; UCG-LD's interior runs
+    K1 without scores under ``ucgstate ld`` and with them under
+    ``default``."""
+    from lammps_ucg_dev_tpu_torch.fixes import ucgstate as tfs
+
+    build, mode = SLOT_STYLES[style]
+    got = []
+    for slot in (True, False):
+        sim = build(n=8192, device=device)
+        if mode is not None:
+            sim.cfg = dataclasses.replace(sim.cfg,
+                                          ucgstate=tfs.UCGStateCfg(mode=mode))
+        assert sim._slot_ok
+        sim._slot_ok = slot
+        window = (0, 2 * sim.cfg.reneigh_every)
+        sim.setup(window)
+        before = launch_counts()
+        sim.run_fused(2, run_window=window)
+        after = launch_counts()
+        used = [{k: a[k] - b[k] for k in a} for a, b in zip(after, before)]
+        st, fo = sim.state, sim._fcarry
+        got.append(({f: getattr(st, f) for f in
+                     ("x", "v", "ucgl", "ucgvl", "ucgp", "ucgstate")}
+                    | {"f": fo.f, "ucgforce": fo.ucgforce, "pe": fo.pe},
+                    used))
+    (a, la), (b, lb) = got
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert la == lb and any(v for d in la for v in d.values())
+    if style.startswith("ucgld"):
+        k1 = la[0]
+        interior = "noscores" if style == "ucgld_ld" else "fast"
+        other = "fast" if style == "ucgld_ld" else "noscores"
+        assert k1[interior] > 0 and k1[other] == 0, k1
+
+
+@pytest.mark.parametrize("kind", ["deck", "dilute", "clumped"])
+def test_pack_slots_matches_pack_on_the_card(device, kind):
+    """cols and ipack's valid rows bit for bit, on the P3 deck system at
+    8,192 beads and at random positions at ρ 0.05 and clumped."""
+    rng = np.random.default_rng(8)
+    sim = flagship.build_density_sim(n=8192, device=device)
+    if kind == "deck":
+        state = sim.state
+        cl = colpack.build(state.x, state.box, sim.nbr_spec)
+    else:
+        state, _, cl = random_system(sim, EDGE_RHO[kind], kind == "clumped")
+    assert not bool(cl.overflow)
+    n = state.n_atoms
+    lam = torch.as_tensor(rng.uniform(0, 1, n), dtype=torch.float32,
+                          device=device)
+    aux = torch.as_tensor(rng.uniform(0, 1, n), dtype=torch.float32,
+                          device=device)
+    ipack, cols = colpack.pack(cl, state.box, state.x, lam, state.ucgstate,
+                               aux=aux, typ=state.typ)
+    sar = colpack.slot_atom_real(cl, n)
+
+    def slot(a, pad):
+        return torch.cat([a, torch.full((1, *a.shape[1:]), pad,
+                                        dtype=a.dtype, device=device)])[sar]
+
+    s_ipack, s_cols = colpack.pack(
+        cl, state.box, slot(state.x, colpack._PAD_POISON), slot(lam, 0.0),
+        slot(state.ucgstate, 0), aux=slot(aux, 0.5), typ=slot(state.typ, 1),
+        slot=True)
+    assert torch.equal(s_cols, cols)
+    assert torch.equal(s_ipack[cl.i_valid], ipack[cl.i_valid])

@@ -20,7 +20,9 @@ paths.
 * ``thermo()`` on the P4 system, whose params carry no per-type UCG table
   (the driver treats every atom as UCG there, as the JAX package does);
 * the P3 posterior leaves the -1 sentinel at setup and the driver carries
-  it across the score-free interior steps of the column path."""
+  it across the score-free interior steps of the column path.
+
+The kernel paths run their interior steps slot-major."""
 
 import dataclasses
 
@@ -44,6 +46,7 @@ from lammps_ucg_dev_tpu_torch.ops import colpack as tcp
 from lammps_ucg_dev_tpu_torch.ops import hopper_density as hd
 from lammps_ucg_dev_tpu_torch.ops import hopper_rleucg as hr
 from test_torch_density import jax_p3_bank, jax_p4_builder
+from test_torch_core import one_torch_thread  # noqa: F401
 
 N, NSTEPS, EVERY = 512, 20, 10
 FIELDS = ("x", "v", "ucgl", "ucgp")
@@ -122,6 +125,7 @@ def test_density_slice_kernel_path_twins_float32(jax_runs, style):
     sim, got = port_run(style, torch.float32, True)
     assert sim.pair_compute is STYLES[style][1]
     assert isinstance(sim.nbr_spec, tcp.ColumnSpec)
+    assert sim._slot_ok                            # slot-major interior
     for f in FIELDS:
         np.testing.assert_allclose(got[f], ref[f], rtol=0, atol=F32_TOL[f],
                                    err_msg=f)

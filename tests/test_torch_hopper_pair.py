@@ -33,6 +33,7 @@ from lammps_ucg_dev_tpu_torch import convert
 from lammps_ucg_dev_tpu_torch.ops import colpack as tcp
 from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
 from lammps_ucg_dev_tpu_torch.ops.kernel_select import select_pair_kernel
+from test_torch_core import one_torch_thread  # noqa: F401
 
 N, L = 512, 10.5
 

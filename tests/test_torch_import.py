@@ -50,9 +50,10 @@ def test_port_imports_without_jax_and_builds_nothing():
 
 def test_port_sources_never_name_jax():
     """Nor the JAX package, its ``tools/`` or its ``attic/``; the smoke
-    script is held to the same rule."""
+    script and the profiler script are held to the same rule."""
     pkg = ROOT / "lammps_ucg_dev_tpu_torch"
-    for path in [*pkg.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for path in [*pkg.rglob("*.py"), ROOT / "chip_smoke.py",
+                 ROOT / "profile_paths.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
             assert not (s.startswith(("import jax", "from jax"))

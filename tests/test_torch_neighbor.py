@@ -27,6 +27,7 @@ from lammps_ucg_dev_tpu_torch import convert
 from lammps_ucg_dev_tpu_torch.core.state import Box
 from lammps_ucg_dev_tpu_torch.models import pair_ucgld as tpu
 from lammps_ucg_dev_tpu_torch.ops import neighbor as tnb
+from test_torch_core import one_torch_thread  # noqa: F401
 
 N, RHO, RC, SKIN = 1000, 0.6, 2.5, 0.4
 L = (N / RHO) ** (1 / 3)

@@ -16,6 +16,7 @@ from lammps_ucg_dev_tpu.ops import neighbor as jnb
 from lammps_ucg_dev_tpu_torch import convert
 from lammps_ucg_dev_tpu_torch.models import pair_ucgld as tpu
 from lammps_ucg_dev_tpu_torch.ops import neighbor as tnb
+from test_torch_core import one_torch_thread  # noqa: F401
 
 N, L = 512, 10.5
 

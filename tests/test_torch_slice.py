@@ -24,6 +24,7 @@ from __graft_entry__ import _build_sim
 from lammps_ucg_dev_tpu_torch import flagship
 from lammps_ucg_dev_tpu_torch.ops import colpack as tcp
 from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+from test_torch_core import one_torch_thread  # noqa: F401
 
 N, NSTEPS, EVERY = 512, 10, 5
 FIELDS = ("x", "v", "ucgl", "ucgvl", "ucgp")
@@ -78,6 +79,7 @@ def test_slice_kernel_path_twin_float32(jax_run):
     sim, got, rows = port_run(torch.float32, True, "run")
     assert sim.pair_compute is hp.compute_style
     assert isinstance(sim.nbr_spec, tcp.ColumnSpec)
+    assert sim._slot_ok                            # slot-major interior
     assert hp.ucgld_pair.launches == before        # CPU tensors: the twin
     for f in FIELDS:
         np.testing.assert_allclose(got[f], ref[f], rtol=0, atol=5e-5,

@@ -64,9 +64,40 @@ which raises on failure:
    false: x, v, λ, λ-velocity, ucgp, ucgstate, f, the λ-force and pe must
    be the same bits, and every kernel's launches the same; UCG-LD's
    interior must launch K1 without scores under ``ld`` and with them
-   under ``default``, and not the other variant.
+   under ``default``, and not the other variant;
+16. exclusions on the card: the molecular trimers
+   (``flagship.build_molecular_sim``, 4,095 beads) on K1's path with
+   ``excl_delta`` subtracted, and under ``table_ucg_bethe`` on K2's with
+   ``excl_delta_bethe``, against the float64 reference path whose nsq list
+   leaves the specials out, at K1's and K2's oracle gates; and the
+   largest residual force of K(all pairs) - excl_delta against K's
+   functional over a list without the specials, on the atoms with a
+   special partner (within TOL of max|f|);
+17. the molecular main path at 1,048,575 beads (349,525 trimers): setup,
+   one warm block, twenty timed blocks of 5 steps, K1's launch counts set
+   to 0 just before and read just after, K1 against its twin on the
+   state the run reached in the path's two variants (full and without
+   scores), the CUDA-event spans of ``bonded.compute`` and
+   ``excl_delta`` per step over one more block, then D1;
+18. NVE drift with topology on the kernel path at 32,769 beads, Langevin
+   off: Verlet (bonds 50, dt 0.001) under 1e-4; r-RESPA (bond K 400, 4
+   inner steps, dt 0.004) under 2e-4 and under a fifth of plain Verlet's
+   at the same K and dt;
+19. config 4 with its ``fix cluster_switch`` at 2^20
+   (``build_density_sim(cluster_switch=True)``) through
+   ``Simulation.run``: 20 warm steps, then five events and the 100 steps
+   they start, every launch count set to 0 just before and read just
+   after; steps/s with the events, each event's ms, sweeps and cluster
+   size, the 7-stat vector; K5, K3 and K6 against their twins on the
+   state the run reached; then D1;
+20. the tetramer deck (``build_tetramer_sim``, 32,768 beads):
+   ``bonded.compute`` in f32 on the card against f64 (forces, pe, virial,
+   with dihedrals and impropers; near-planar impropers held to their f32
+   conditioning), and one block of its K1 path.
 
-The column main paths (4, 8, 11) and the drift leg (5) run slot-major, as
+The molecular paths (16–18, 20) run atom-ordered: the driver turns the
+slot-major interior off with topology, as the JAX package does.  The
+column main paths (4, 8, 11, 19) and the drift leg (5) run slot-major, as
 the JAX package's main path does; each column main path also prints one
 reading of its steps/s with the atom-ordered interior (``_slot_ok`` set
 false), the same number of timed blocks after a warm one, not gated.
@@ -74,13 +105,16 @@ false), the same number of timed blocks after a warm one, not gated.
 Each check of a kernel against its twin also launches the kernel twice
 and requires the same bits (K1, K2, K5, K6, K7 and K8 run on the tile walk
 of ``csrc/colspan.cuh``, K3 and K4 on its compacting walk; both sum in an
-order the inputs alone fix).  Each of the five main
-paths (4, 8, 11, 14) ends with D1, the dangerous-build check: the in-cutoff
-pairs of the column or cluster list carried since the last rebuild against
+order the inputs alone fix).  Each of the main paths (4, 8, 11, 14,
+17, 19) ends with D1, the dangerous-build check: the in-cutoff pairs of the column or cluster list carried since the last rebuild against
 those of a fresh build on the same positions, printed, not gated.
 
 The line before the last is a JSON object of the kernels on the main paths
-(times, errors, launches and the bound each kernel's work puts on its time);
+(times, errors, launches and the bound each kernel's work puts on its time),
+one entry per kernel variant and path: a kernel that runs on several main
+paths has an entry for each (``@molecular``, ``@P4``,
+``@P3+cluster_switch``), with that path's launches and its times, error and
+bound on that path's inputs;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero and prints no
 result.
@@ -371,16 +405,19 @@ def column_state(sim):
     return state, cl
 
 
+K1_VARIANTS = {"full": (True, True), "fast": (False, True),
+               "noscores": (False, False)}       # name: (observe, scores)
+
+
 def compare_k1(sim, label: str, kernel_reps: int, twin_reps: int,
-               with_bound: bool = False):
+               with_bound: bool = False, variants=tuple(K1_VARIANTS)):
     from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
 
     state, cl = column_state(sim)
     params, cheb = sim.pair_params, sim.pair_params.cheb
     res = {}
-    for name, observe, scores in (("full", True, True),
-                                  ("fast", False, True),
-                                  ("noscores", False, False)):
+    for name in variants:
+        observe, scores = K1_VARIANTS[name]
         args, kw = hp.kernel_inputs(state, cl, params, cheb, observe, scores)
         res[name] = hold(label, f"K1 {name}", hp.ucgld_pair,
                          hp.ucgld_pair_reference, args, kw, kernel_reps,
@@ -988,6 +1025,373 @@ def slot_vs_atom(device: str, label: str, build, mode: str | None,
                                f"not the {k1_interior} variant alone")
 
 
+# ---- the topology slice: exclusions, molecules, RESPA, cluster_switch ------
+
+@contextlib.contextmanager
+def event_timed(owner, name: str, spans: list):
+    """Swap ``owner.name`` for a wrapper that brackets each call with two
+    CUDA events on the current stream and appends the pair to ``spans``
+    (no synchronization; read with :func:`span_ms` after one)."""
+    import torch
+
+    fn = getattr(owner, name)
+
+    def timed(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = fn(*a, **k)
+        end.record()
+        spans.append((start, end))
+        return r
+
+    setattr(owner, name, timed)
+    try:
+        yield spans
+    finally:
+        setattr(owner, name, fn)
+
+
+def span_ms(spans) -> float:
+    return sum(a.elapsed_time(b) for a, b in spans)
+
+
+def check_excl_oracle(device: str, style: str, nmol: int = 1365) -> dict:
+    """Phase 16 for one style: the molecular trimers
+    (``build_molecular_sim``, 3·nmol beads) on the kernel path with
+    ``excl_delta`` subtracted (K1, or K2 with ``style="bethe"``) in f32
+    against the float64 reference path whose nsq list leaves the specials
+    out, both on the card, bonded terms and thermostat off (the pair path
+    alone), at K1's oracle gate (f 3e-5 of max|f|, pe 1e-5, λ-force 1e-4)
+    or K2's (f 5e-5, pe 3e-5, scores 3e-5).  Then the cancellation itself:
+    K(all pairs) - excl_delta against K's functional summed over an nsq
+    list built without the specials (``excl_delta`` over that list), on
+    every atom with a special partner; the largest residual force is
+    printed and must stay within TOL of max|f| (f32 rounding)."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch import flagship
+    from lammps_ucg_dev_tpu_torch.ops import hopper_bethe as hb
+    from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+    from lammps_ucg_dev_tpu_torch.ops import neighbor as nbrmod
+
+    entry = hp.compute_style if style == "ucgld" else hb.compute_style_bethe
+    ker = flagship.build_molecular_sim(nmol=nmol, device=device, style=style)
+    if ker.pair_compute is not entry or ker._excl_rows_static is None:
+        raise RuntimeError(f"{style}: the kernel path with exclusions was "
+                           f"not selected")
+    ref = flagship.build_molecular_sim(nmol=nmol, dtype=torch.float64,
+                                       kernel=False, style=style,
+                                       method="nsq", device=device)
+    for s in (ker, ref):
+        s.cfg = dataclasses.replace(s.cfg, langevin=None)
+        s.bonded = None
+    fk, fr = ker.setup((0, 10)), ref.setup((0, 10))
+    scale = float(fr.f.abs().max())
+    errs = {"f": float((fk.f.double() - fr.f).abs().max()) / scale,
+            "pe": abs(float(fk.pe) - float(fr.pe)) / abs(float(fr.pe)),
+            "ucgforce": float((fk.ucgforce.double()
+                               - fr.ucgforce).abs().max()),
+            "scores": float((fk.scores.double() - fr.scores).abs().max())}
+    gates = ({"f": 3e-5, "pe": 1e-5, "ucgforce": 1e-4} if style == "ucgld"
+             else {"f": 5e-5, "pe": 3e-5, "scores": 3e-5})
+    n = ker.state.n_atoms
+    log(f"[{style} excl oracle n={n}] kernel path - excl_delta (f32) vs "
+        f"reference path with the specials excluded (f64): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; gates {gates}")
+    if any(errs[k] > g for k, g in gates.items()):
+        raise RuntimeError(f"{style}: the exclusion path disagrees with "
+                           f"the reference path: {errs}")
+
+    state, cl = column_state(ker)
+    params, rows = ker.pair_params, ker._excl_rows_static
+    if style == "ucgld":
+        out, delta = hp.compute(state, cl, params, params.cheb), hp.excl_delta
+    else:
+        out = hb.compute_bethe(state, cl, params, params.cheb)
+        delta = hb.excl_delta_bethe
+    spec = nbrmod.make_spec(n, state.box.lengths.cpu().numpy(),
+                            flagship.RC, 0.0, method="nsq")
+    kept = nbrmod.build(state.x, state.box, spec, excl=rows)
+    if bool(kept.overflow):
+        raise RuntimeError("the excluded nsq list overflowed")
+    rest = delta(state, kept.idx, params)
+    res = (out.f - delta(state, rows, params).f - rest.f).double()
+    has = (rows < n).any(1)
+    worst = float(res[has].abs().max())
+    fscale = float(rest.f.abs().max())
+    bond_f = float(delta(state, rows, params).f.abs().max())
+    log(f"[{style} excl residual n={n}] K(all) - excl_delta vs "
+        f"K's functional over the list without the specials: largest "
+        f"residual force on an atom with a special partner {worst:.3e} "
+        f"({worst / fscale:.3e} of max|f| {fscale:.3e}; the excluded "
+        f"pairs' largest force {bond_f:.3e}) over {int(has.sum())} atoms")
+    if worst > TOL * fscale:
+        raise RuntimeError(f"{style}: excluded pairs do not cancel: "
+                           f"{worst:.3e}")
+    return errs
+
+
+def run_molecular_main(device: str, card_name: str, blocks: int = 20,
+                       nmol: int = 349525):
+    """Phase 17: the molecular UCG-LD deck at 3·nmol beads on the kernel
+    path (K1 with ``excl_delta`` subtracted, bonded terms added): setup,
+    one warm block, ``blocks`` timed blocks of 5 steps, K1's launch counts
+    set to 0 just before and read just after; then K1 against its twin on
+    the state the run reached, in the two variants the path launches
+    (full and without scores; ``hold``'s per-column gate and two launches
+    with the same bits); then one more block with ``bonded.compute`` and
+    ``excl_delta`` bracketed by CUDA events for their ms per step; D1
+    last.  Returns (K1 launches, steps/s, K1 against its twin)."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch import flagship
+    from lammps_ucg_dev_tpu_torch.models import bonded
+    from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+
+    t0 = time.perf_counter()
+    sim = flagship.build_molecular_sim(nmol=nmol, device=device)
+    t_build = time.perf_counter() - t0
+    n = sim.state.n_atoms
+    if sim.pair_compute is not hp.compute_style or sim._slot_ok:
+        raise RuntimeError("molecular: K1's atom-ordered path with "
+                           "exclusions was not selected")
+    nre = sim.cfg.reneigh_every
+    window = (0, (blocks + 2) * nre)
+    for k in hp.ucgld_pair.launches:
+        hp.ucgld_pair.launches[k] = 0
+    sim.setup(window)
+    sim.run_fused(1, run_window=window)            # warm block
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run_fused(blocks, run_window=window)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(hp.ucgld_pair.launches)
+    row = sim.thermo()
+    steps_s = blocks * nre / wall
+    k1 = compare_k1(sim, f"molecular n={n}", kernel_reps=20, twin_reps=1,
+                    with_bound=True, variants=("full", "noscores"))
+    b_spans, e_spans = [], []
+    with event_timed(bonded, "compute", b_spans), \
+            event_timed(hp.compute_style, "excl_delta", e_spans):
+        sim.run_fused(1, run_window=window)
+    torch.cuda.synchronize()
+    log(f"[molecular main n={n}] {sim.bonded.n_bonds} bonds, "
+        f"{sim.bonded.n_angles} angles, specials (N, "
+        f"{sim.excl_tags.shape[1]}); built in {t_build:.1f} s; "
+        f"{blocks * nre} steps in {wall:.3f} s = {steps_s:.2f} steps/s "
+        f"({steps_s * n / 1e6:.2f} M atom-steps/s) on {card_name}; temp "
+        f"{row['temp']:.6f} etotal {row['etotal']:.6f} oob_low "
+        f"{row['oob_low']}; dangerous builds {sim.dangerous_builds}; K1 "
+        f"launches {launches}; CUDA-event spans per step: bonded.compute "
+        f"{span_ms(b_spans) / nre:.3f} ms ({len(b_spans)} calls), "
+        f"excl_delta {span_ms(e_spans) / nre:.3f} ms ({len(e_spans)} calls)")
+    nblk = blocks + 1
+    if launches["full"] < nblk or launches["noscores"] < (nre - 1) * nblk:
+        raise RuntimeError(f"molecular path did not run through K1: "
+                           f"{launches}")
+    if not finite_row(row) or row["oob_low"] != 0:
+        raise RuntimeError(f"molecular thermo: {row}")
+    missed_pairs(sim, f"molecular n={n}")
+    return launches, steps_s, k1
+
+
+def topology_drift(device: str, nmol: int = 10923) -> dict:
+    """Phase 18: NVE drift with topology on the kernel path, 3·nmol beads,
+    Langevin off (``build_respa_sim``): Verlet with bonds 50/0.9 and
+    angles at dt 0.001 over 10 + 190 steps (the JAX package's
+    ``tests/test_bonded.py:139``), gated at 1e-4; r-RESPA with bond K 400,
+    4 inner steps, dt 0.004 over 5 + 195 steps (``:234-242``), gated at
+    2e-4 and at one fifth of plain Verlet's drift on the same system and
+    dt."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch import flagship
+    from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+
+    def drift(sim, warm: int, steps: int = 200) -> float:
+        if sim.pair_compute is not hp.compute_style:
+            raise RuntimeError("drift leg: K1 was not selected")
+        tp, nre = sim.pair_params.tp, sim.cfg.reneigh_every
+
+        def hamiltonian():
+            mu = torch.where(tp.n_states[sim.state.typ] > 1,
+                             sim.state.ucgl * tp.mu_diff[sim.state.typ], 0.0)
+            return sim.thermo()["etotal"] + float(mu.sum())
+
+        window = (0, steps)
+        sim.setup(window)
+        sim.run_fused(warm // nre, run_window=window)
+        e0 = hamiltonian()
+        sim.run_fused((steps - warm) // nre, run_window=window)
+        return abs(hamiltonian() - e0) / abs(e0)
+
+    d = {"verlet_k50_dt0.001": drift(flagship.build_respa_sim(
+             nmol=nmol, device=device, respa_inner=1, dt=0.001,
+             bond_k=50.0), 10),
+         "respa4_k400_dt0.004": drift(flagship.build_respa_sim(
+             nmol=nmol, device=device, respa_inner=4, dt=0.004,
+             bond_k=400.0), 5),
+         "verlet_k400_dt0.004": drift(flagship.build_respa_sim(
+             nmol=nmol, device=device, respa_inner=1, dt=0.004,
+             bond_k=400.0), 5)}
+    log(f"[topology drift n={3 * nmol}] " + ", ".join(
+        f"{k} {v:.6e}" for k, v in d.items())
+        + " (gates: Verlet < 1e-4; RESPA < 2e-4 and < Verlet k400 / 5)")
+    if not d["verlet_k50_dt0.001"] < DRIFT_MAX:
+        raise RuntimeError(f"Verlet drift with topology {d}")
+    if not (d["respa4_k400_dt0.004"] < 2e-4 and d["respa4_k400_dt0.004"]
+            < d["verlet_k400_dt0.004"] / 5):
+        raise RuntimeError(f"r-RESPA drift {d}")
+    return d
+
+
+def run_density_switch(device: str, card_name: str, n: int = 2**20,
+                       events: int = 5):
+    """Phase 19: config 4 with its ``fix cluster_switch`` at ``n`` through
+    ``Simulation.run`` (events every 20 steps at the start of a block,
+    reneighbour every 10): setup and 20 warm steps, then ``events`` × 20
+    timed steps, each starting with an event; every launch count set to 0
+    just before and read just after.  Prints steps/s with the events, each
+    event's ms (host clock, synchronized), the sweeps it took, the 7-stat
+    vector and the launches; then K5, K3 and K6 against their twins on
+    the state the run reached; D1 last.  Returns (launches, steps/s, the
+    kernels against their twins)."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch import flagship
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cv as hcv
+    from lammps_ucg_dev_tpu_torch.ops import hopper_density as hd
+
+    sim = flagship.build_density_sim(n=n, device=device, cluster_switch=True)
+    if (sim.pair_compute is not hd.compute_style_density
+            or sim._cs_spec is None):
+        raise RuntimeError("config 4 + cluster_switch: the kernel path with "
+                           "its own contact list was not selected")
+    params_cs, freq = sim.cswitch
+    per_event = []
+    event = sim._cswitch_event
+
+    def timed_event(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = event(*a, **k)
+        torch.cuda.synchronize()
+        per_event.append((1e3 * (time.perf_counter() - t0),
+                          r[2]["sweeps"], int(r[2]["n_cluster"])))
+        return r
+
+    sim._cswitch_event = timed_event
+    sim.run(freq)                                  # setup + warm steps
+    counters = {"cv_rho": hcv.cv_rho, "cv_force": hcv.cv_force,
+                "dbethe_pair": hd.dbethe_pair}
+    for c in counters.values():
+        for k in c.launches:
+            c.launches[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(events * freq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: dict(c.launches) for name, c in counters.items()}
+    row = sim.thermo()
+    steps_s = events * freq / wall
+    stats = sim.cswitch_stats.v.tolist()
+    log(f"[P3 + cluster_switch n={n}] max_sweeps {params_cs.max_sweeps}; "
+        f"{events * freq} steps with {len(per_event)} events in {wall:.3f} "
+        f"s = {steps_s:.2f} steps/s ({steps_s * n / 1e6:.2f} M "
+        f"atom-steps/s) on {card_name}; events (ms, sweeps, cluster size) "
+        f"{[(round(a, 3), b, c) for a, b, c in per_event]}; 7-stat "
+        f"{stats}; temp {row['temp']:.6f} etotal {row['etotal']:.6f}; "
+        f"dangerous builds {sim.dangerous_builds}; launches {launches}")
+    if len(per_event) != events or stats[0] <= 0:
+        raise RuntimeError(f"cluster_switch events: {per_event}, {stats}")
+    if (launches["cv_rho"]["rho"] < events * freq
+            or launches["dbethe_pair"]["full"] < events * freq
+            // sim.cfg.reneigh_every):
+        raise RuntimeError(f"config 4 did not run through its kernels: "
+                           f"{launches}")
+    if not finite_row(row) or row["oob_low"] != 0:
+        raise RuntimeError(f"config 4 thermo: {row}")
+    dens = compare_density(sim, f"P3 + cluster_switch n={n}", 20, 1,
+                           with_bound=True)
+    missed_pairs(sim, f"P3 + cluster_switch n={n}")
+    return launches, steps_s, dens
+
+
+def check_tetramers(device: str, nmol: int = 8192) -> dict:
+    """Phase 20: the tetramer deck (``build_tetramer_sim``, 4·nmol beads)
+    on the card.  ``bonded.compute`` in f32 against f64 on the same
+    (f32-rounded) positions, with bonds, angles, dihedrals and impropers:
+    pe within 1e-5 relative, the virial within 1e-4 of its largest
+    component, and f within 1e-4 of max|f| on every atom outside a
+    near-planar improper (sin χ < 0.1).  There arccos is ill-conditioned
+    in f32: c = cos χ carries ~6e-8 of rounding, so sin χ = √(1 - c²)
+    carries ~6e-8/sin²χ relatively per rounding of c, ~6% at the 1e-3
+    guard and ~24% for four roundings; those atoms are held to 25% of
+    their own force (plus 1e-4 of max|f|): the JAX package's arithmetic
+    has the same conditioning.  Then one block of its kernel
+    path (K1 with the 1-2/1-3/1-4 specials subtracted): finite thermo."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch import flagship
+    from lammps_ucg_dev_tpu_torch.models import bonded
+    from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+
+    sim = flagship.build_tetramer_sim(nmol=nmol, device=device)
+    if sim.pair_compute is not hp.compute_style:
+        raise RuntimeError("tetramers: K1 was not selected")
+    st, bp = sim.state, sim.bonded
+    box64 = dataclasses.replace(st.box, lo=st.box.lo.double(),
+                                hi=st.box.hi.double())
+    st64 = dataclasses.replace(st, x=st.x.double(), box=box64)
+    bp64 = dataclasses.replace(bp, **{
+        f.name: getattr(bp, f.name).double() for f in dataclasses.fields(bp)
+        if getattr(bp, f.name).is_floating_point()})
+    (f32, pe32, v32), (f64, pe64, v64) = (bonded.compute(st, bp),
+                                          bonded.compute(st64, bp64))
+    # sin χ of each improper (f64), and the atoms of the near-planar ones
+    rows = bp.improper_tags - 1                     # tag - 1 == row here
+    xb = [box64.min_image(st64.x[rows[:, k + 1]] - st64.x[rows[:, k]])
+          for k in range(3)]
+    sin_chi = torch.sqrt(1.0 - bonded._cos_torsion(*xb) ** 2)
+    planar = torch.zeros(st.n_atoms, dtype=torch.bool, device=st.device)
+    planar[rows[sin_chi < 0.1].reshape(-1)] = True
+    df = (f32.double() - f64).abs().max(1).values
+    fmax = float(f64.abs().max())
+    fmag = f64.abs().max(1).values
+    errs = {"f": float(df[~planar].max()) / fmax,
+            "f_planar": float((df[planar] / (fmag[planar] + 1e-4 * fmax))
+                              .max()) if bool(planar.any()) else 0.0,
+            "pe": abs(float(pe32) - float(pe64)) / abs(float(pe64)),
+            "virial": float((v32.double() - v64).abs().max()
+                            / v64.abs().max())}
+    ms32 = cuda_ms(lambda: bonded.compute(st, bp), 10)
+    ms64 = cuda_ms(lambda: bonded.compute(st64, bp64), 10)
+    log(f"[tetramer bonded n={st.n_atoms}] {bp.n_bonds} bonds, "
+        f"{bp.n_angles} angles, {bp.n_dihedrals} dihedrals, "
+        f"{bp.n_impropers} impropers ({int((sin_chi < 0.1).sum())} with sin "
+        f"χ < 0.1, smallest {float(sin_chi.min()):.3e}; {int(planar.sum())} "
+        f"atoms): f32 vs f64 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (gates f 1e-4, f_planar 0.25, pe 1e-5, virial 1e-4); "
+        f"bonded.compute {ms32:.3f} ms f32, {ms64:.3f} ms f64")
+    if (errs["f"] > 1e-4 or errs["f_planar"] > 0.25 or errs["pe"] > 1e-5
+            or errs["virial"] > 1e-4):
+        raise RuntimeError(f"tetramer bonded terms: {errs}")
+    window = (0, sim.cfg.reneigh_every)
+    sim.setup(window)
+    sim.run_fused(1, run_window=window)
+    row = sim.thermo()
+    log(f"[tetramer block n={st.n_atoms}] specials (N, "
+        f"{sim.excl_tags.shape[1]}); {json.dumps(row)}")
+    if not finite_row(row) or row["oob_low"] != 0:
+        raise RuntimeError(f"tetramer thermo: {row}")
+    return errs
+
+
 def finite_row(row: dict) -> bool:
     return all(v == v and abs(v) != float("inf")
                for v in row.values() if isinstance(v, float))
@@ -1232,6 +1636,23 @@ def main() -> int:
             ("P4", flagship.build_rleucg_sim, None, None)):
         slot_vs_atom(device, label, build, mode, k1_interior)
 
+    # ---- 16. exclusions on the card ------------------------------------
+    for style in ("ucgld", "bethe"):
+        check_excl_oracle(device, style)
+
+    # ---- 17. the molecular main path --------------------------------------
+    mol_launches, _, k1_mol = run_molecular_main(device, card_name)
+
+    # ---- 18. drift with topology ---------------------------------------
+    topology_drift(device)
+
+    # ---- 19. config 4 with its cluster_switch ---------------------------
+    sw_launches, _, dens["P3+cluster_switch"] = run_density_switch(
+        device, card_name)
+
+    # ---- 20. tetramers ---------------------------------------------------
+    check_tetramers(device)
+
     log(f"K1 fast variant (not on the UCG-LD main path under ucgstate ld): "
         f"{json.dumps(k1['fast'], default=float)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
@@ -1243,25 +1664,37 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None}
 
-    l3, l4 = main["P3"][0], main["P4"][0]
+    # one entry per kernel variant and main path: its launches on that
+    # path and its times, error and bound on that path's inputs
+    launch = {"P3": main["P3"][0], "P4": main["P4"][0],
+              "P3+cluster_switch": sw_launches}
     kernels = ([entry(f"ucgld_pair[{v}]", K1_SOURCE, k1_launches[v], k1[v])
                 for v in ("full", "noscores")]
+               + [entry(f"ucgld_pair[{v}]@molecular", K1_SOURCE,
+                        mol_launches[v], k1_mol[v])
+                  for v in ("full", "noscores")]
                + [entry(f"bethe_pair[{v}]", K2_SOURCE, k2_launches[v], k2[v])
                   for v in ("full", "fast")]
-               + [entry(f"dbethe_pair[{v}]", K2_SOURCE,
-                        l3["dbethe_pair"][v], dens["P3"][f"dbethe_pair[{v}]"])
+               + [entry(f"dbethe_pair[{v}]" + at, K2_SOURCE,
+                        launch[p]["dbethe_pair"][v],
+                        dens[p][f"dbethe_pair[{v}]"])
+                  for p, at in (("P3", ""),
+                                ("P3+cluster_switch", "@P3+cluster_switch"))
                   for v in ("full", "fast_noscores")]
                + [entry(f"rleucg_pair[{v}]", K2_SOURCE,
-                        l4["rleucg_pair"][v], dens["P4"][f"rleucg_pair[{v}]"])
+                        launch["P4"]["rleucg_pair"][v],
+                        dens["P4"][f"rleucg_pair[{v}]"])
                   for v in ("full", "fast")]
-               # K5 and K6 run on both paths: launches of both, times and
-               # bounds on the P3 path's inputs (P4's are in the log above)
-               + [entry("cv_rho", CV_SOURCE, l3["cv_rho"]["rho"]
-                        + l4["cv_rho"]["rho"], dens["P3"]["cv_rho"],
-                        CV_REPLACES)]
-               + [entry(f"cv_force[{v}]", CV_SOURCE, l3["cv_force"][v]
-                        + l4["cv_force"][v], dens["P3"][f"cv_force[{v}]"],
-                        CV_REPLACES) for v in ("full", "fast")]
+               + [entry("cv_rho" + at, CV_SOURCE, launch[p]["cv_rho"]["rho"],
+                        dens[p]["cv_rho"], CV_REPLACES)
+                  for p, at in (("P3", ""), ("P4", "@P4"),
+                                ("P3+cluster_switch", "@P3+cluster_switch"))]
+               + [entry(f"cv_force[{v}]" + at, CV_SOURCE,
+                        launch[p]["cv_force"][v], dens[p][f"cv_force[{v}]"],
+                        CV_REPLACES)
+                  for p, at in (("P3", ""), ("P4", "@P4"),
+                                ("P3+cluster_switch", "@P3+cluster_switch"))
+                  for v in ("full", "fast")]
                + [entry("ucgld_cluster[full]", K8_SOURCE,
                         k8_launches["full"], k8, K8_REPLACES)]
                + [entry(f"ucgld_ablation[L{lv}]", K7_SOURCE,

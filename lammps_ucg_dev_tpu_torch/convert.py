@@ -2,9 +2,9 @@
 
 The JAX package's ``UCGLDParams`` / ``TableBank`` / ``UCGTypeParams`` /
 ``ChebBank``, ``BetheParams``, ``BetheDensityParams``, ``RLEUCGParams``,
-``SimState`` and the cluster lists' ``ClusterList`` are dataclasses of
-arrays.  ``as_numpy_dict`` turns any such
-object into nested dicts of numpy arrays and Python scalars (it reads
+``SimState``, the cluster lists' ``ClusterList``, ``BondedParams`` and
+``ClusterSwitchParams`` are dataclasses of arrays.  ``as_numpy_dict``
+turns any such object into nested dicts of numpy arrays and Python scalars (it reads
 fields only and needs no JAX import); the ``*_from_numpy`` functions build
 this package's counterparts from those dicts, so both packages can compute
 on identical inputs.  They build on the CUDA device unless given
@@ -19,6 +19,8 @@ import numpy as np
 import torch
 
 from lammps_ucg_dev_tpu_torch.core.state import Box, SimState, resolve_device
+from lammps_ucg_dev_tpu_torch.fixes.cluster_switch import ClusterSwitchParams
+from lammps_ucg_dev_tpu_torch.models.bonded import BondedParams
 from lammps_ucg_dev_tpu_torch.models.pair_bethe import BetheParams
 from lammps_ucg_dev_tpu_torch.models.pair_bethe_density import (
     BetheDensityParams)
@@ -197,3 +199,28 @@ def cluster_list_from_numpy(d: dict, device="cuda") -> ClusterList:
         overflow=_t(d["overflow"], torch.bool, device),
         max_occupancy=_t(d["max_occupancy"], i64, device), kc=int(d["kc"]),
         occupied=_t(np.flatnonzero(real.any(axis=1)), torch.int32, device))
+
+
+def bonded_params_from_numpy(d: dict, device="cuda") -> BondedParams:
+    """``d`` = as_numpy_dict(JAX BondedParams); tags become int64."""
+    device = resolve_device(device)
+    return BondedParams(**{
+        k: _t(v, torch.int64 if k.endswith("_tags") else _float_dtype(v),
+              device) for k, v in d.items()})
+
+
+def cluster_switch_params_from_numpy(d: dict,
+                                     device="cuda") -> ClusterSwitchParams:
+    """``d`` = as_numpy_dict(JAX ClusterSwitchParams); type maps become
+    int64."""
+    device = resolve_device(device)
+    b, i64 = torch.bool, torch.int64
+    return ClusterSwitchParams(
+        contact_ok=_t(d["contact_ok"], b, device),
+        off_to_on=_t(d["off_to_on"], i64, device),
+        on_to_off=_t(d["on_to_off"], i64, device),
+        is_on=_t(d["is_on"], b, device), is_off=_t(d["is_off"], b, device),
+        cutsq=_t(d["cutsq"], _float_dtype(d["cutsq"]), device),
+        probON=_t(d["probON"], _float_dtype(d["probON"]), device),
+        **{k: int(d[k]) for k in ("maxmol", "max_sweeps", "mol_seed",
+                                  "mol_offset")})

@@ -1,5 +1,5 @@
 """Extended-Lagrangian velocity-Verlet integrators for (x, v, λ, v_λ) (port
-of ``lammps_ucg_dev_tpu/fixes/integrate.py``; r-RESPA is not ported yet).
+of ``lammps_ucg_dev_tpu/fixes/integrate.py``).
 
 ``fix nve/ucgld`` (``UCG/fix_nve_ucgld.cpp:44-153``):
     initial:  v += dtf/m f ; x += dt v ; v_λ += dtf/m_λ f_λ ; λ += dt v_λ
@@ -10,6 +10,13 @@ with dtf = 0.5 dt ftm2v and per-atom λ pseudo-mass m_λ = ucgml.
     + after λ drift: ucgstate = λ < 0.5 ? 0 : 1            (:99-105)
     + in final: reflecting walls at λ=0/1                  (:172-200)
     + optional POST_FORCE double-well bias on λ             (:234-257)
+
+r-RESPA with two levels (``run_style respa``: bonded terms inner, pair
+outer; ``fix_nve_ucgld.cpp:155-173``): :func:`respa_outer_initial` kicks
+(v, v_λ) with the pair forces over half the outer step,
+:func:`respa_inner_step` runs one inner velocity-Verlet step of x and λ
+under the bonded force, and :func:`respa_outer_final` is the outer final
+kick with the λ walls.  All of them honour the fix's group mask.
 """
 
 from __future__ import annotations
@@ -86,6 +93,48 @@ def final_integrate(state: SimState, f: torch.Tensor, ucgforce: torch.Tensor,
         lam = _sel(g, lam_r, lam)
         vl = _sel(g, vl_r, vl)
     return dataclasses.replace(state, v=v, ucgvl=vl, ucgl=lam)
+
+
+def respa_outer_initial(state: SimState, f: torch.Tensor,
+                        ucgforce: torch.Tensor, mass: torch.Tensor,
+                        dt: float, ftm2v: float,
+                        cfg: IntegratorCfg) -> SimState:
+    """Outer-level half-kick of (v, v_λ) with the slow (pair) forces —
+    ``initial_integrate_respa`` at the outermost level (:155-165); the
+    drifts happen at the inner level."""
+    g = group_mask(cfg, state)
+    dtf = 0.5 * dt * ftm2v
+    v = _sel(g, state.v + (dtf / mass)[:, None] * f, state.v)
+    vl = _sel(g, state.ucgvl + dtf / state.ucgml * ucgforce, state.ucgvl)
+    return dataclasses.replace(state, v=v, ucgvl=vl)
+
+
+def respa_inner_step(state: SimState, fbond: torch.Tensor,
+                     mass: torch.Tensor, dt_inner: float, ftm2v: float,
+                     cfg: IntegratorCfg, bonded_eval):
+    """One inner r-RESPA step: half-kick with the fast (bonded) force,
+    drift of x and λ, the fast force again (``bonded_eval(state)``), second
+    half-kick.  Returns (state, fbond)."""
+    g = group_mask(cfg, state)
+    dtf = 0.5 * dt_inner * ftm2v
+    v = _sel(g, state.v + (dtf / mass)[:, None] * fbond, state.v)
+    x = _sel(g, state.x + dt_inner * v, state.x)
+    lam = _sel(g, state.ucgl + dt_inner * state.ucgvl, state.ucgl)
+    ucgstate = state.ucgstate
+    if cfg.wall:
+        ucgstate = _sel(g, (lam >= 0.5).to(ucgstate.dtype), ucgstate)
+    state = dataclasses.replace(state, x=x, v=v, ucgl=lam, ucgstate=ucgstate)
+    fbond = bonded_eval(state)
+    v = _sel(g, state.v + (dtf / mass)[:, None] * fbond, state.v)
+    return dataclasses.replace(state, v=v), fbond
+
+
+def respa_outer_final(state: SimState, f: torch.Tensor,
+                      ucgforce: torch.Tensor, mass: torch.Tensor, dt: float,
+                      ftm2v: float, cfg: IntegratorCfg) -> SimState:
+    """Outer-level final half-kick and the λ walls (:166-173,
+    fix_nve_ucgld_wall_hard.cpp:172-200)."""
+    return final_integrate(state, f, ucgforce, mass, dt, ftm2v, cfg)
 
 
 def bias_force(lam: torch.Tensor, barrier: float) -> torch.Tensor:

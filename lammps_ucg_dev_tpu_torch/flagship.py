@@ -25,8 +25,9 @@ built from the same arrays.
   settings (P3): plain type 1 and the 2-state density-CV type 2 (70%),
   ``table_ucg_bethe_density linear 1200`` over 7 tables, ρ 0.5, T 0.8,
   ``fix nve/ucgld`` and ``ucgld/langevin 0.8 0.8 0.5``, dt 0.002, skin
-  0.4, reneighbour every 10; the deck's ``fix cluster_switch`` is left
-  out.  Its arrays come from :func:`density_arrays`.
+  0.4, reneighbour every 10; with ``cluster_switch=True`` also the deck's
+  ``fix cluster_switch`` (one molecule per bead).  Its arrays come from
+  :func:`density_arrays`.
 * :func:`build_rleucg_sim` — the config-5 interface system of
   ``write_rleucg_deck`` (P4): substate types 1/2 (one 2-state density
   actual type, 70% drawn as type 1) and 3 (plain),
@@ -34,6 +35,20 @@ built from the same arrays.
   ``fix nve/ucgld/wall/hard bias_potential 0.1`` and ``ucgld/langevin
   0.8 0.8 0.5``, dt 0.002, skin 0.4, reneighbour every 10.  Its arrays
   come from :func:`rleucg_arrays`.
+* :func:`build_molecular_sim` — the molecular UCG-LD deck
+  ``write_molecular_ucgld_deck``: bent trimers of one 2-state type with
+  harmonic bonds and angles and the 1-2/1-3 special exclusions; its arrays
+  come from :func:`molecular_arrays`.  ``style="bethe"`` puts the same
+  trimers under config 3's ``table_ucg_bethe``.  :func:`build_respa_sim`
+  is the same system under NVE with stiff bonds and two-level r-RESPA (the
+  shape of the JAX package's ``tests/test_bonded.py:202``).
+* :func:`build_tetramer_sim` — ``write_molecular_tetramer_deck``: chains
+  of four with bonds, angles, dihedrals, impropers and 1-2/1-3/1-4
+  exclusions (:func:`tetramer_arrays`).
+* :func:`build_switch_sim` — ``write_molecular_switch_deck``: linear
+  trimers of two plain types under ``fix cluster_switch``, whole molecules
+  switching (:func:`switch_arrays`); the reference pair path (K1 takes
+  systems with a 2-state type only).
 
 All build on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); without CUDA they raise.
@@ -48,13 +63,15 @@ import torch
 
 from lammps_ucg_dev_tpu_torch.core.state import (Box, SimState, System,
                                                 resolve_device)
+from lammps_ucg_dev_tpu_torch.fixes import cluster_switch as fcs
 from lammps_ucg_dev_tpu_torch.fixes import integrate as fi
 from lammps_ucg_dev_tpu_torch.fixes import langevin as fl
 from lammps_ucg_dev_tpu_torch.fixes import ucgstate as fs
 from lammps_ucg_dev_tpu_torch.io.state_settings import parse_state_settings
 from lammps_ucg_dev_tpu_torch.io.table_io import RLINEAR, RawTable
-from lammps_ucg_dev_tpu_torch.models import (pair_bethe, pair_bethe_density,
-                                             pair_rleucg, pair_ucgld)
+from lammps_ucg_dev_tpu_torch.models import (bonded, pair_bethe,
+                                             pair_bethe_density, pair_rleucg,
+                                             pair_ucgld)
 from lammps_ucg_dev_tpu_torch.models.typemap import (RLEUCGBuilder,
                                                      TablePairBuilder)
 from lammps_ucg_dev_tpu_torch.ops import chebtab, clusters, hopper_cluster
@@ -81,17 +98,20 @@ def soft_table(eps: float, n: int, rlo: float = 1e-3) -> RawTable:
     return RawTable(r=r, e=e, f=f, rflag=RLINEAR, rlo=rlo, rhi=RC)
 
 
-def _pair_path(params, state, n, L, skin, kernel, reference_fn):
+def _pair_path(params, state, n, L, skin, kernel, reference_fn,
+               method: str | None = None, capacity: int | None = None):
     """(pair_fn, spec, params): the kernel path when ``select_pair_kernel``
-    takes it, else the reference path on an nsq or cell list (the JAX
-    package's choice: cell for n > 512 with >= 3 cells a side)."""
+    takes it, else the reference path on an nsq or cell list (``method``;
+    None is the JAX package's choice: cell for n > 512 with >= 3 cells a
+    side)."""
     sel = select_pair_kernel(params, state, RC, skin, force=kernel)
     if sel is not None:
         return sel
     if n >= 65536 and n % 16384 == 0:
         # bound the reference path's (rows, K, 2, 2) working set
         params = dataclasses.replace(params, chunk=16384)
-    return reference_fn, nb.make_spec(n, [L] * 3, RC, skin), params
+    return reference_fn, nb.make_spec(n, [L] * 3, RC, skin, method=method,
+                                      capacity=capacity), params
 
 
 def _flagship(n: int, dtype, device, rho: float):
@@ -189,17 +209,22 @@ def bethe_arrays(n: int, seed: int = 11) -> dict:
 DECK_RHO, DECK_T = 0.5, 0.8      # configs 3-5
 
 
-def _lattice(n: int, seed: int):
-    """(L, x): the decks' ``lattice_positions`` — a jittered simple-cubic
-    lattice of ceil(n^(1/3))^3 sites truncated to n, in a cube of side
-    (n/ρ)^(1/3), with its own ``default_rng(seed)`` — wrapped into the
-    box."""
-    L = (n / DECK_RHO) ** (1 / 3)
+def lattice_positions(n: int, L: float, jitter: float, seed: int):
+    """The decks' ``lattice_positions``: a simple-cubic lattice of
+    ceil(n^(1/3))^3 sites truncated to n in a cube of side L, jittered by
+    N(0, jitter) draws from its own ``default_rng(seed)``; not wrapped."""
     m = int(np.ceil(n ** (1 / 3)))
     grid = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
                     axis=-1).reshape(-1, 3)[:n]
-    jitter = np.random.default_rng(seed).normal(0, 0.05, (n, 3))
-    return L, np.mod((grid + 0.5) * (L / m) + jitter, L)
+    return ((grid + 0.5) * (L / m)
+            + np.random.default_rng(seed).normal(0, jitter, (n, 3)))
+
+
+def _lattice(n: int, seed: int):
+    """(L, x): :func:`lattice_positions` at ρ 0.5, jitter 0.05, wrapped
+    into the box."""
+    L = (n / DECK_RHO) ** (1 / 3)
+    return L, np.mod(lattice_positions(n, L, 0.05, seed), L)
 
 
 def _velocities(rng, n: int):
@@ -211,14 +236,16 @@ def _velocities(rng, n: int):
 def _deck_arrays(n: int, seed: int, first: int, other: int) -> dict:
     """Configs 4 and 5: the lattice, then from ``default_rng(seed)`` the
     types (``first`` with probability 0.7, else ``other``) as the deck
-    draws them, then the velocities; state 0, λ 0.5, λ-mass 5 as in the
-    decks' data files; ucgp stays at the -1 sentinel."""
+    draws them, then the velocities; state 0, λ 0.5, λ-mass 5 and one
+    molecule per bead as in the decks' data files; ucgp stays at the -1
+    sentinel."""
     L, x = _lattice(n, seed)
     rng = np.random.default_rng(seed)
     typ = np.where(rng.uniform(size=n) < 0.7, first, other).astype(np.int32)
     return {"L": L, "x": x, "v": _velocities(rng, n),
             "ucgl": np.full(n, 0.5), "ucgstate": np.zeros(n, np.int32),
-            "ucgml": np.full(n, 5.0), "typ": typ}
+            "ucgml": np.full(n, 5.0), "typ": typ,
+            "mol": np.arange(1, n + 1, dtype=np.int32)}
 
 
 def density_arrays(n: int, seed: int = 13) -> dict:
@@ -235,7 +262,7 @@ def _state(a: dict, dtype, device) -> SimState:
     L = a["L"]
     return SimState.create(
         x=a["x"], v=a["v"], typ=a["typ"], ucgl=a["ucgl"],
-        ucgstate=a["ucgstate"], ucgml=a["ucgml"],
+        ucgstate=a["ucgstate"], ucgml=a["ucgml"], mol=a.get("mol"),
         box=Box.create([0, 0, 0], [L, L, L], dtype=dtype, device=device),
         dtype=dtype, device=device)
 
@@ -275,12 +302,21 @@ def _deck_cfg(integrator: fi.IntegratorCfg,
         reneigh_every=reneigh_every)
 
 
+DENSITY_SWITCH = dict(contacts=[(2, 2)], atomtypes_on=[2], atomtypes_off=[1],
+                      probON=0.5, cutoff=1.3, mol_seed=1, mol_offset=0)
+SWITCH_FREQ = 20     # rateFreq of the decks' fix cluster_switch
+
+
 def build_density_sim(n: int = 512, dtype=torch.float32, device="cuda",
-                      reneigh_every: int = 10,
-                      kernel: bool | None = None) -> Simulation:
-    """The config-4 density-CV system (P3) without ``fix cluster_switch``.
-    ``kernel`` as in :func:`build_sim`, selecting K5, K3 and K6
-    (ops/hopper_density.py)."""
+                      reneigh_every: int = 10, kernel: bool | None = None,
+                      cluster_switch: bool = False) -> Simulation:
+    """The config-4 density-CV system (P3).  ``kernel`` as in
+    :func:`build_sim`, selecting K5, K3 and K6 (ops/hopper_density.py).
+    ``cluster_switch``: the deck's ``fix cluster_switch 1 0 1.3 16
+    rateFreq 20`` (probON 0.5, ON type 2, OFF type 1, contacts (2, 2),
+    maxmol n).  The deck leaves ``max_sweeps`` at ``make_params``'s 64,
+    which a spanning cluster outgrows (a label moves one contact a sweep);
+    this builder passes n + 1, which always reaches the fixpoint."""
     device = resolve_device(device)
     a = density_arrays(n)
     st = parse_state_settings(DENSITY_SETTINGS, "bethe_density")
@@ -299,7 +335,13 @@ def build_density_sim(n: int = 512, dtype=torch.float32, device="cuda",
                                        pair_bethe_density.compute)
     system = System(n_atoms=n, ntypes=2, masses=np.array([0.0, 1.0, 1.0]))
     cfg = _deck_cfg(fi.IntegratorCfg("nve/ucgld"), reneigh_every)
-    return Simulation(system, state, pair_fn, params, spec, cfg)
+    cs = None
+    if cluster_switch:
+        cs = (fcs.make_params(
+            ntypes=2, maxmol=n, dtype=dtype, device=device,
+            max_sweeps=n + 1, **DENSITY_SWITCH), SWITCH_FREQ)
+    return Simulation(system, state, pair_fn, params, spec, cfg,
+                      cluster_switch=cs)
 
 
 def build_rleucg_sim(n: int = 512, dtype=torch.float32, device="cuda",
@@ -325,3 +367,275 @@ def build_rleucg_sim(n: int = 512, dtype=torch.float32, device="cuda",
                                      bias_potential=True, barrier=0.1),
                     reneigh_every)
     return Simulation(system, state, pair_fn, params, spec, cfg)
+
+
+# ---- molecular systems (atom_style ucg with topology) -----------------------
+
+MOL_RHO = 0.3
+BOND = (50.0, 0.9)           # bond_coeff K r0 of the trimer decks
+ANGLE = (10.0, 120.0)        # angle_coeff K theta0 of the UCG-LD trimers
+TRIMER_COEFFS = dict(bond_coeffs={1: BOND}, angle_coeffs={1: ANGLE})
+
+
+def _trimer_topology(nmol: int, per: int = 3):
+    """Data-file rows of ``nmol`` chains of ``per`` atoms: bonds
+    ``id 1 a a+1``, angles ``id 1 a a+1 a+2`` and, for chains of four,
+    dihedrals and impropers ``id 1 a a+1 a+2 a+3``, as the decks number
+    them."""
+    first = per * np.arange(nmol)[:, None] + 1
+    b = (first + np.arange(per - 1)).reshape(-1)
+    bonds = np.stack([np.arange(1, len(b) + 1), np.ones_like(b), b, b + 1],
+                     1)
+    a = (first + np.arange(per - 2)).reshape(-1)
+    angles = np.stack([np.arange(1, len(a) + 1), np.ones_like(a), a, a + 1,
+                       a + 2], 1)
+    top = {"bonds": bonds, "angles": angles}
+    if per == 4:
+        d = first[:, 0]
+        top["dihedrals"] = top["impropers"] = np.stack(
+            [np.arange(1, nmol + 1), np.ones_like(d), d, d + 1, d + 2, d + 3],
+            1)
+    return top
+
+
+def molecular_arrays(nmol: int, seed: int = 31) -> dict:
+    """``write_molecular_ucgld_deck``'s draws: bent trimers (bonds 0.9,
+    120°) around a lattice of molecule centers (jitter 0.1) at ρ 0.3; from
+    ``default_rng(seed)`` the first bond's direction, the bend plane, then λ
+    uniform in [0.2, 0.8] with state = (λ > 0.5), then the velocities;
+    λ-mass 5."""
+    n = 3 * nmol
+    L = (n / MOL_RHO) ** (1 / 3)
+    rng = np.random.default_rng(seed)
+    centers = lattice_positions(nmol, L, 0.1, seed)
+    u1 = rng.normal(size=(nmol, 3))
+    u1 /= np.linalg.norm(u1, axis=1, keepdims=True)
+    p = rng.normal(size=(nmol, 3))
+    p -= np.sum(p * u1, axis=1, keepdims=True) * u1
+    p /= np.linalg.norm(p, axis=1, keepdims=True)
+    th = np.deg2rad(120.0)
+    u2 = np.cos(th) * u1 + np.sin(th) * p
+    r0 = BOND[1]
+    x = np.concatenate([centers + r0 * u1, centers, centers + r0 * u2],
+                       axis=1).reshape(-1, 3) % L
+    lam = rng.uniform(0.2, 0.8, n)
+    return {"L": L, "x": x, "v": _velocities(rng, n), "ucgl": lam,
+            "ucgstate": (lam > 0.5).astype(np.int32),
+            "ucgml": np.full(n, 5.0), "typ": np.ones(n, np.int32),
+            "mol": np.repeat(np.arange(1, nmol + 1, dtype=np.int32), 3),
+            **_trimer_topology(nmol)}
+
+
+def tetramer_arrays(nmol: int, seed: int = 37) -> dict:
+    """``write_molecular_tetramer_deck``'s draws: chains of four, steps of
+    0.8 in random directions (a step within cos 0.7 of the last redrawn),
+    from a lattice of chain starts (jitter 0.1) at ρ 0.2; then λ uniform
+    in [0.2, 0.8] with state = (λ > 0.5), then the velocities."""
+    n = 4 * nmol
+    L = (n / 0.2) ** (1 / 3)
+    rng = np.random.default_rng(seed)
+    centers = lattice_positions(nmol, L, 0.1, seed)
+
+    def direction():
+        step = rng.normal(size=3)
+        return step / np.linalg.norm(step)
+
+    xs = []
+    for m in range(nmol):
+        pts, prev = [centers[m]], None
+        for _ in range(3):
+            step = direction()
+            while prev is not None and abs(step @ prev) > 0.7:
+                step = direction()
+            pts.append(pts[-1] + 0.8 * step)
+            prev = step
+        xs.append(np.stack(pts))
+    lam = rng.uniform(0.2, 0.8, n)
+    return {"L": L, "x": np.concatenate(xs) % L, "v": _velocities(rng, n),
+            "ucgl": lam, "ucgstate": (lam > 0.5).astype(np.int32),
+            "ucgml": np.full(n, 5.0), "typ": np.ones(n, np.int32),
+            "mol": np.repeat(np.arange(1, nmol + 1, dtype=np.int32), 4),
+            **_trimer_topology(nmol, 4)}
+
+
+def switch_arrays(nmol: int, seed: int = 23) -> dict:
+    """``write_molecular_switch_deck``'s draws: linear trimers (bonds 0.9)
+    around a lattice of centers (jitter 0.1) at ρ 0.1; from
+    ``default_rng(seed)`` each molecule's direction, then its type (1 or 2
+    with probability 0.5 each), then the velocities; state 0, λ 0.5,
+    λ-mass 5."""
+    n = 3 * nmol
+    L = (n / 0.1) ** (1 / 3)
+    rng = np.random.default_rng(seed)
+    centers = lattice_positions(nmol, L, 0.1, seed)
+    dirs = rng.normal(size=(nmol, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    r0 = BOND[1]
+    x = np.concatenate([centers - r0 * dirs, centers, centers + r0 * dirs],
+                       axis=1).reshape(-1, 3) % L
+    typ = np.where(rng.uniform(size=nmol) < 0.5, 1, 2).astype(np.int32)
+    return {"L": L, "x": x, "v": _velocities(rng, n),
+            "ucgl": np.full(n, 0.5), "ucgstate": np.zeros(n, np.int32),
+            "ucgml": np.full(n, 5.0), "typ": np.repeat(typ, 3),
+            "mol": np.repeat(np.arange(1, nmol + 1, dtype=np.int32), 3),
+            **_trimer_topology(nmol)}
+
+
+def _ucgld_pair(state, dtype, device, tablength: int = 2000):
+    """``table_ucgld linear <tablength>`` on the four 2-state soft tables
+    of the molecular decks (μ 0, 0.3; kT 0.8)."""
+    st = parse_state_settings(TWO_STATE_SETTINGS, "ucgld")
+    b = TablePairBuilder("linear", tablength, st)
+    b.pair_coeff(1, 1, 2, 2, [(soft_table(e, 2000), RC) for e in EPS])
+    bank, tp = b.build(dtype=dtype, device=device)
+    return pair_ucgld.UCGLDParams(
+        bank=bank, tp=tp, kT=torch.tensor(DECK_T, dtype=dtype,
+                                          device=device))
+
+
+def build_molecular_sim(nmol: int = 128, dtype=torch.float32,
+                        device="cuda", kernel: bool | None = None,
+                        style: str = "ucgld",
+                        method: str | None = None) -> Simulation:
+    """``write_molecular_ucgld_deck`` at its published settings: ``pair_style
+    table_ucgld linear 2000``, bonds 50/0.9, angles 10/120°,
+    ``special_bonds lj 0 0 0``, skin 0.4, reneighbour every 5, dt 0.002,
+    ``nve/ucgld/wall/hard``, ``ucgld/langevin 0.8 0.8 0.5`` and ``ucgstate
+    ld``.  ``style="bethe"``: the same trimers under config 3's
+    ``table_ucg_bethe`` (bethe, pseudo, prior chemical_potential),
+    ``nve/ucgld`` and ``ucgstate`` default.  ``kernel`` as in
+    :func:`build_sim` (K1 or K2, with ``excl_delta`` subtracted);
+    ``method`` picks the reference path's list."""
+    device = resolve_device(device)
+    a = molecular_arrays(nmol)
+    n, L = 3 * nmol, a["L"]
+    state = _state(a, dtype, device)
+    if style == "ucgld":
+        params, ref = _ucgld_pair(state, dtype, device), pair_ucgld.compute
+        integ = fi.IntegratorCfg("nve/ucgld/wall/hard")
+        ucgstate = fs.UCGStateCfg(mode="ld")
+    elif style == "bethe":
+        st = parse_state_settings(TWO_STATE_SETTINGS, "bethe")
+        b = TablePairBuilder("linear", 1200, st)
+        b.pair_coeff(1, 1, 2, 2, [(soft_table(e, 2000), RC) for e in EPS])
+        bank, tp = b.build(dtype=dtype, device=device)
+        params = pair_bethe.make_params(bank, tp, DECK_T,
+                                        prior_mode="chemical_potential",
+                                        dtype=dtype)
+        ref = pair_bethe.compute
+        integ = fi.IntegratorCfg("nve/ucgld")
+        ucgstate = fs.UCGStateCfg(mode="default")
+    else:
+        raise ValueError(f"unknown molecular pair style {style!r}")
+    pair_fn, spec, params = _pair_path(params, state, n, L, 0.4, kernel, ref,
+                                       method)
+    cfg = SimConfig(
+        dt=0.002, units="lj", integrator=integ,
+        langevin=fl.LangevinCfg(t_start=DECK_T, t_stop=DECK_T, t_period=0.5),
+        ucgstate=ucgstate, reneigh_every=5)
+    return _molecular_sim(a, state, pair_fn, params, spec, cfg, dtype,
+                          device, TRIMER_COEFFS)
+
+
+def _molecular_sim(a, state, pair_fn, params, spec, cfg, dtype, device,
+                   coeffs: dict, ntypes: int = 1, **kw):
+    """Simulation of a molecular system: the bonded terms of ``a``'s
+    topology rows with ``coeffs`` (``bonded.make_params``'s ``*_coeffs``
+    keywords) and the weight-0 special exclusions (1-2, 1-3 and, with
+    dihedrals, 1-4)."""
+    n = state.n_atoms
+    top = {k: a.get(k) for k in ("bonds", "angles", "dihedrals",
+                                 "impropers")}
+    bp = bonded.make_params(dtype=dtype, device=device, **top, **coeffs)
+    excl = bonded.special_tags(n, top["bonds"], top["angles"],
+                               top["dihedrals"])
+    system = System(n_atoms=n, ntypes=ntypes,
+                    masses=np.array([0.0] + [1.0] * ntypes))
+    return Simulation(system, state, pair_fn, params, spec, cfg, bonded=bp,
+                      excl_tags=excl, **kw)
+
+
+def build_respa_sim(nmol: int = 128, dtype=torch.float32, device="cuda",
+                    respa_inner: int = 4, dt: float = 0.004,
+                    bond_k: float = 400.0,
+                    kernel: bool | None = None) -> Simulation:
+    """The trimers of :func:`build_molecular_sim` in the shape of the JAX
+    package's r-RESPA test (``tests/test_bonded.py:202``): stiff bonds
+    (``bond_k``, r0 0.9), angles 10/120°, ``nve/ucgld`` with no thermostat
+    and no ``ucgstate``, reneighbour every 5, ``respa_inner`` inner steps
+    of dt/respa_inner (1 is plain Verlet)."""
+    device = resolve_device(device)
+    a = molecular_arrays(nmol)
+    n, L = 3 * nmol, a["L"]
+    state = _state(a, dtype, device)
+    params = _ucgld_pair(state, dtype, device)
+    pair_fn, spec, params = _pair_path(params, state, n, L, 0.4, kernel,
+                                       pair_ucgld.compute)
+    cfg = SimConfig(dt=dt, units="lj",
+                    integrator=fi.IntegratorCfg("nve/ucgld"),
+                    reneigh_every=5, respa_inner=respa_inner)
+    return _molecular_sim(a, state, pair_fn, params, spec, cfg, dtype,
+                          device, dict(TRIMER_COEFFS,
+                                       bond_coeffs={1: (bond_k, BOND[1])}))
+
+
+def build_tetramer_sim(nmol: int = 128, dtype=torch.float32, device="cuda",
+                       kernel: bool | None = None) -> Simulation:
+    """``write_molecular_tetramer_deck`` at its published settings:
+    ``table_ucgld linear 2000``, bonds 50/0.8, angles 10/110°, dihedrals
+    2.0/1/3, impropers 1.5/35°, ``special_bonds lj 0 0 0`` (1-2, 1-3, 1-4),
+    ``neigh_modify one 96``, skin 0.4, dt 0.002, ``nve/ucgld/wall/hard``,
+    ``ucgld/langevin 0.8 0.8 0.5`` and ``ucgstate ld``."""
+    device = resolve_device(device)
+    a = tetramer_arrays(nmol)
+    n, L = 4 * nmol, a["L"]
+    state = _state(a, dtype, device)
+    pair_fn, spec, params = _pair_path(
+        _ucgld_pair(state, dtype, device), state, n, L, 0.4, kernel,
+        pair_ucgld.compute, capacity=96)
+    cfg = SimConfig(
+        dt=0.002, units="lj",
+        integrator=fi.IntegratorCfg("nve/ucgld/wall/hard"),
+        langevin=fl.LangevinCfg(t_start=DECK_T, t_stop=DECK_T, t_period=0.5),
+        ucgstate=fs.UCGStateCfg(mode="ld"), reneigh_every=5)
+    return _molecular_sim(a, state, pair_fn, params, spec, cfg, dtype,
+                          device, dict(bond_coeffs={1: (50.0, 0.8)},
+                                       angle_coeffs={1: (10.0, 110.0)},
+                                       dihedral_coeffs={1: (2.0, 1, 3)},
+                                       improper_coeffs={1: (1.5, 35.0)}))
+
+
+SWITCH_SETTINGS = "2 2 1\n1 1\n2 1\n0.0\n0.0\n"   # two plain types
+
+
+def build_switch_sim(nmol: int = 64, dtype=torch.float32, device="cuda",
+                     log_dir: str | None = None) -> Simulation:
+    """``write_molecular_switch_deck`` at its published settings: two plain
+    types under ``table_ucgld linear 1200`` (tables 1.0, 0.6, 0.3), bonds
+    50/0.9, angles 10/180°, ``special_bonds lj 0 0 0``, skin 0.4,
+    reneighbour every 5, dt 0.002, ``nve/ucgld`` and ``fix cluster_switch
+    1 0 1.3 26 rateFreq 20`` (probON 0.5, ON type 2, OFF type 1, contacts
+    (2, 2), maxmol nmol).  The reference pair path: K1 takes no system
+    without a 2-state type."""
+    device = resolve_device(device)
+    a = switch_arrays(nmol)
+    n, L = 3 * nmol, a["L"]
+    state = _state(a, dtype, device)
+    st = parse_state_settings(SWITCH_SETTINGS, "ucgld")
+    b = TablePairBuilder("linear", 1200, st)
+    for i, j, e in ((1, 1, 1.0), (1, 2, 0.6), (2, 2, 0.3)):
+        b.pair_coeff(i, j, 1, 1, [(soft_table(e, 2000), RC)])
+    bank, tp = b.build(dtype=dtype, device=device)
+    params = pair_ucgld.UCGLDParams(
+        bank=bank, tp=tp, kT=torch.tensor(0.0, dtype=dtype, device=device))
+    spec = nb.make_spec(n, [L] * 3, RC, 0.4)
+    cfg = SimConfig(dt=0.002, units="lj",
+                    integrator=fi.IntegratorCfg("nve/ucgld"),
+                    reneigh_every=5)
+    cs = fcs.make_params(ntypes=2, maxmol=nmol, dtype=dtype, device=device,
+                         **DENSITY_SWITCH)
+    return _molecular_sim(a, state, pair_ucgld.compute, params, spec, cfg,
+                          dtype, device, dict(TRIMER_COEFFS, angle_coeffs={
+                              1: (10.0, 180.0)}),
+                          ntypes=2, cluster_switch=(cs, SWITCH_FREQ),
+                          log_dir=log_dir)

@@ -13,9 +13,13 @@ wrappers (port of ``compute_bethe`` and the ``style="bethe"`` path of
   list, newton off).  With ``slot=True`` the state is slot-resident
   (``Simulation``'s slot-major interior): ``colpack.pack_slots`` fills the
   kernel's inputs and the rows come back in slot order, with no take.
-* :func:`compute_style_bethe` (+ ``.fast_variant``, ``.slot_fast``) is the
-  ``Simulation`` pair entry.  There is no score-free variant: under ``fix
-  ucgstate`` the scores feed the next step's priors.
+* :func:`compute_style_bethe` (+ ``.fast_variant``, ``.slot_fast``,
+  ``.excl_delta``) is the ``Simulation`` pair entry.  There is no
+  score-free variant: under ``fix ucgstate`` the scores feed the next
+  step's priors.
+* :func:`excl_delta_bethe` is the pair contribution of the
+  special-exclusion lists in K2's own functional, which the driver
+  subtracts from the kernel's output.
 
 Kernel contract (both the CUDA kernel and the twin) — K1's
 (ops/hopper_pair.py), except:
@@ -329,3 +333,51 @@ def compute_style_bethe_slot_fast(state: SimState, cl: colpack.ColumnList,
 
 compute_style_bethe.fast_variant = compute_style_bethe_fast
 compute_style_bethe.slot_fast = compute_style_bethe_slot_fast
+
+
+def excl_delta_bethe(state: SimState, jrows: torch.Tensor,
+                     params: BetheParams,
+                     prior_u: torch.Tensor | None = None) -> ForceOut:
+    """K2's counterpart of ``hopper_pair.excl_delta``: the closed-form
+    two-point mixing over the special lists ``jrows`` with the priors the
+    kernel path packs (``pair_bethe._priors``, the same ``prior_u``), the
+    same f32 clamp of -J/kT at 40, the |aa| < 1e-5 branch
+    (:func:`closed_form`), and both score modes, on K1's f32 D-form
+    channels (``hopper_pair.excl_channels``).  Without the -μ/kT term,
+    which the kernel path adds once per atom; no λ-force."""
+    f32 = torch.float32
+    tp = params.tp
+    coef = hp.kernel_rows(params.cheb, tp, True, True, f32, state.device)
+    jc, dr, rsq, mask, (eA, eB, eC, eD, fA, fB, fC, fD) = hp.excl_channels(
+        state, jrows, params, coef)
+    pi1_all, pj1_all = pair_bethe._priors(state, params, prior_u)
+    zero = torch.zeros((), dtype=f32, device=state.device)
+    pi1 = pi1_all.to(f32)[:, None]
+    pj1 = torch.where(mask, pj1_all.to(f32)[jc], zero)
+    p11 = closed_form(eD, pi1, pj1, params.kT.to(f32),
+                      params.method == "mf")[0]
+    fmix = torch.where(mask, fA + pi1 * fB + pj1 * fC + p11 * fD, zero)
+    emix = torch.where(mask, eA + pi1 * eB + pj1 * eC + p11 * eD, zero)
+    if params.pseudo:
+        sj = state.ucgstate[jc].to(f32)
+        sc0, sc1 = eA + sj * eC, (eA + eB) + sj * (eC + eD)
+    else:
+        # full-SCE conditional expectations (the kernel's sce branch)
+        p0e = torch.clamp(1.0 - pi1, min=P_FLOOR)
+        p1e = torch.clamp(pi1, min=P_FLOOR)
+        p00 = 1.0 + p11 - pi1 - pj1
+        sc0 = (p00 / p0e) * eA + ((pj1 - p11) / p0e) * (eA + eC)
+        sc1 = (((pi1 - p11) / p1e) * (eA + eB)
+               + (p11 / p1e) * ((eA + eB) + (eC + eD)))
+        # a partner of a plain type keeps its one state
+        jug = tp.n_states[state.typ.long()][jc] > 1
+        sc0 = torch.where(jug, sc0, eA)
+        sc1 = torch.where(jug, sc1, eA + eB)
+    s0 = -torch.sum(torch.where(mask, sc0, zero), dim=1)
+    s1 = -torch.sum(torch.where(mask, sc1, zero), dim=1)
+    return hp.excl_out(state, params, dr, rsq, mask, fmix, emix, s0, s1,
+                       torch.zeros(state.n_atoms, dtype=f32,
+                                   device=state.device))
+
+
+compute_style_bethe.excl_delta = excl_delta_bethe

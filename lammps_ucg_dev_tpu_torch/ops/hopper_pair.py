@@ -14,8 +14,11 @@
   kernel's inputs, and the ForceOut rows come back in slot order, with no
   take.
 * :func:`compute_style` (+ ``.fast_variant`` / ``.fast_variant_noscores``,
-  ``.slot_fast`` / ``.slot_fast_noscores``) is the ``Simulation`` pair
-  entry.
+  ``.slot_fast`` / ``.slot_fast_noscores``, ``.excl_delta``) is the
+  ``Simulation`` pair entry.
+* :func:`excl_delta` is the pair contribution of the special-exclusion
+  lists in K1's own functional, which the driver subtracts from the
+  kernel's output (the kernel computes every in-cutoff pair).
 
 Kernel contract (both the CUDA kernel and the twin):
   scal   (8,) f32   [Lx Ly cutsq innersq uscale uoff 0 0]
@@ -34,6 +37,7 @@ Rows of invalid i-slots are zero.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -235,6 +239,14 @@ def pair_channels(coef, u, irows, jattr, degree: int):
     set) or, with the (T+1, T+1, 8, degree) block, from the rows of each
     candidate's ordered type pair (ti, tj), gathered per coefficient."""
     if coef.dim() == 2:
+        return typed_channels(coef, u, None, None, degree)
+    return typed_channels(coef, u, irows[:, :, 7:8], jattr(7), degree)
+
+
+def typed_channels(coef, u, ti, tj, degree: int):
+    """:func:`pair_channels` with the partners' types given directly (``ti``
+    and ``tj`` broadcast to u's shape; unused with one set of rows)."""
+    if coef.dim() == 2:
         acc = series(coef, u, degree)
         if len(acc) == 8:
             return tuple(acc)
@@ -242,9 +254,8 @@ def pair_channels(coef, u, irows, jattr, degree: int):
         return None, eB, None, eD, fA, fB, fC, fD
     t1 = coef.shape[0]
     flat = coef.reshape(t1 * t1, 8, degree)
-    ti = irows[:, :, 7:8].long().clamp(0, t1 - 1)
-    tj = jattr(7).long().clamp(0, t1 - 1)
-    pair = ti * t1 + tj                                        # (C, 8, K)
+    pair = (ti.long().clamp(0, t1 - 1) * t1
+            + tj.long().clamp(0, t1 - 1))                      # u's shape
 
     def c(r, k):
         return flat[:, r, k][pair]
@@ -513,3 +524,92 @@ compute_style.fast_variant = compute_style_fast
 compute_style.fast_variant_noscores = compute_style_fast_noscores
 compute_style.slot_fast = compute_style_slot_fast
 compute_style.slot_fast_noscores = compute_style_slot_fast_noscores
+
+
+# ---- special exclusions: compute and subtract ------------------------------
+
+def excl_channels(state: SimState, jrows: torch.Tensor, params, coef):
+    """Geometry and D-form channels of the (N, S) partner lists ``jrows``
+    (row indices, == N where empty) in K1's arithmetic: float32, the u map
+    of :func:`u_map` clamped below at -1 only, the kernels' recurrence
+    (:func:`series`, or the rows of each ordered type pair of the
+    (T+1, T+1, 8, degree) block).  ``coef``: K1's 8 rows or that block
+    (:func:`kernel_rows` with observe and scores).  Returns (jc, dr, rsq,
+    mask, (eA, eB, eC, eD, fA, fB, fC, fD)); mask is 0 < rsq < cutsq of a
+    listed partner."""
+    f32 = torch.float32
+    cheb = params.cheb
+    n = state.n_atoms
+    ok = jrows < n
+    jc = torch.where(ok, jrows, 0)
+    x = state.x.to(f32)
+    box = dataclasses.replace(state.box, lo=state.box.lo.to(f32),
+                              hi=state.box.hi.to(f32))
+    dr = box.min_image(x[:, None, :] - x[jc])                   # (N, S, 3)
+    rsq = torch.sum(dr * dr, dim=-1)
+    cutsq = params.tp.cutsq[1, 1].to(f32)
+    mask = ok & (rsq < cutsq) & (rsq > 0.0)
+    uscale, uoff = u_map(cheb, f32)
+    u = torch.clamp(rsq * uscale + uoff, min=-1.0)
+    typ = state.typ.long()
+    ch = typed_channels(coef, u, typ[:, None], typ[jc], cheb.degree)
+    return jc, dr, rsq, mask, ch
+
+
+def excl_out(state: SimState, params, dr, rsq, mask, fmix, emix, s0, s1,
+             ucgforce) -> ForceOut:
+    """ForceOut of a pair sum over listed partners (``fmix``/``emix`` zero
+    outside ``mask``; ``s0``/``s1`` the score sums before 1/kT): f, scores
+    (UCG atoms), pe and virial halved as the kernel path halves them, and
+    the inner-cutoff count."""
+    f32 = torch.float32
+    is_ucg = params.tp.n_states[state.typ.long()] > 1
+    scores = torch.stack([s0, s1], dim=1) / params.kT.to(f32)
+    dx, dy, dz = dr[..., 0], dr[..., 1], dr[..., 2]
+    innersq = params.bank.innersq[0].to(f32)
+    return ForceOut(
+        f=torch.sum(fmix[..., None] * dr, dim=1), ucgforce=ucgforce,
+        scores=torch.where(is_ucg[:, None], scores, 0.0),
+        pe=0.5 * torch.sum(emix),
+        virial=0.5 * torch.stack([
+            torch.sum(fmix * a * b)
+            for a, b in ((dx, dx), (dy, dy), (dz, dz), (dx, dy), (dx, dz),
+                         (dy, dz))]),
+        oob_low=torch.sum(mask & (rsq < innersq)).to(torch.int32),
+        oob_high=torch.zeros((), dtype=torch.int32, device=state.device))
+
+
+def excl_delta(state: SimState, jrows: torch.Tensor,
+               params: UCGLDParams) -> ForceOut:
+    """The pair contributions of the special-exclusion lists ``jrows``
+    ((N, S) row indices, == N where empty), in K1's own functional: the
+    same f32 D-form rows (:func:`kernel_rows`), recurrence, ``max(u, -1)``
+    clamp, cutoff test and λ/state mixing as the kernel (ucgld_phys.cuh)
+    and its twin.  So ``K1(all pairs) - excl_delta`` cancels each excluded
+    pair to f32 rounding, also where bonded partners sit below the tables'
+    inner bound and the fit is extrapolated (an evaluation from the tables
+    would leave the fit-table difference on every bond).  Without the μ
+    and -μ/kT terms, which the kernel path adds once per atom.  Plain
+    PyTorch, O(N·S)."""
+    f32 = torch.float32
+    tp = params.tp
+    coef = kernel_rows(params.cheb, tp, True, True, f32, state.device)
+    jc, dr, rsq, mask, (eA, eB, eC, eD, fA, fB, fC, fD) = excl_channels(
+        state, jrows, params, coef)
+    is_ucg = tp.n_states[state.typ.long()] > 1
+    lam = torch.where(is_ucg, state.ucgl, 0.0).to(f32)
+    li, lj = lam[:, None], lam[jc]
+    sj = state.ucgstate[jc].to(f32)
+    zero = torch.zeros((), dtype=f32, device=state.device)
+    wD = li * lj
+    fmix = torch.where(mask, fA + li * fB + lj * fC + wD * fD, zero)
+    emix = torch.where(mask, eA + li * eB + lj * eC + wD * eD, zero)
+    lamf = -torch.sum(torch.where(mask, eB + lj * eD, zero), dim=1)
+    s0 = -torch.sum(torch.where(mask, eA + sj * eC, zero), dim=1)
+    s1 = -torch.sum(torch.where(mask, (eA + eB) + sj * (eC + eD), zero),
+                    dim=1)
+    return excl_out(state, params, dr, rsq, mask, fmix, emix, s0, s1,
+                    torch.where(is_ucg, lamf, zero))
+
+
+compute_style.excl_delta = excl_delta

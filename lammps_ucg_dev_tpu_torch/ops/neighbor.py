@@ -128,9 +128,12 @@ def _excluded(cand: torch.Tensor, excl: torch.Tensor) -> torch.Tensor:
     return torch.any(cand[:, :, None] == excl[:, None, :], dim=-1)
 
 
-def build_nsq(x: torch.Tensor, box: Box, spec: NeighborSpec) -> NeighborList:
+def build_nsq(x: torch.Tensor, box: Box, spec: NeighborSpec,
+              excl: torch.Tensor | None = None) -> NeighborList:
     """All-pairs list, evaluated in row blocks of ``spec.chunk``: each row
-    keeps its first K partners in ascending index order."""
+    keeps its first K partners in ascending index order.  ``excl`` (N, S)
+    rows are special partners (LAMMPS weight-0 ``special_bonds``) removed
+    from each row's list, sentinel n."""
     n = x.shape[0]
     K = spec.capacity
     rc2 = torch.as_tensor(spec.rc**2, dtype=x.dtype, device=x.device)
@@ -142,7 +145,10 @@ def build_nsq(x: torch.Tensor, box: Box, spec: NeighborSpec) -> NeighborList:
         rsq = torch.sum(dr * dr, dim=-1)
         rows = torch.arange(r0, r1, device=x.device)
         mask = (rsq < rc2) & (cols[None, :] != rows[:, None])
-        idx, cnt = compact_first(cols.expand(r1 - r0, n), mask, K, n)
+        cand = cols.expand(r1 - r0, n)
+        if excl is not None:
+            mask = mask & ~_excluded(cand, excl[r0:r1])
+        idx, cnt = compact_first(cand, mask, K, n)
         idx_blocks.append(idx)
         count_blocks.append(cnt)
     count = torch.cat(count_blocks)
@@ -251,11 +257,12 @@ def build(x: torch.Tensor, box: Box, spec: NeighborSpec,
           valid: torch.Tensor | None = None,
           i_valid: torch.Tensor | None = None,
           excl: torch.Tensor | None = None) -> NeighborList:
-    """The list of ``spec.method``; the masks are :func:`build_cell`'s."""
+    """The list of ``spec.method``; the masks are :func:`build_cell`'s
+    (the nsq builder takes ``excl`` only)."""
     if spec.method == "nsq":
-        if not (valid is None and i_valid is None and excl is None):
-            raise ValueError("the nsq builder takes no masks; use 'cell'")
-        return build_nsq(x, box, spec)
+        if not (valid is None and i_valid is None):
+            raise ValueError("the nsq builder takes no row masks; use 'cell'")
+        return build_nsq(x, box, spec, excl)
     if spec.method == "cell":
         return build_cell(x, box, spec, valid, i_valid, excl)
     raise ValueError(f"unknown neighbor method {spec.method!r}")

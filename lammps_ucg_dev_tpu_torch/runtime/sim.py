@@ -26,8 +26,24 @@ that order, and one gather takes the state back to atom order for the
 block's last, full step.  Every fix inside a block is elementwise and
 draws by tag, so the trajectory is that of the atom-ordered interior.
 
-Not ported yet: r-RESPA, bonded terms, special exclusions,
-cluster_switch, and the ``check_safety`` and ``sort_atoms`` switches.
+Topology (``bonded``, ``excl_tags``): the bonded terms add to the pair
+pass's ForceOut.  Special exclusions leave the reference path's lists at
+the build; the kernels have no per-pair identity, so on the kernel path
+they compute every in-cutoff pair and the driver subtracts the style's
+``excl_delta`` over the special lists (styles without one raise).  With
+``respa_inner > 1`` the bonded terms move to the inner level of a two-level
+r-RESPA, the full pair entry runs once per outer step, and thermo adds the
+bonded pe and virial.  The molecular paths run atom-ordered.
+
+``cluster_switch=(params, freq)``: the event of ``fix cluster_switch``
+runs at the start of a block of :meth:`Simulation.run` whenever the step
+is a multiple of ``freq``: it wraps the positions, builds its own contact
+list (on the kernel path a cell list at the contact cutoff), relabels the
+molecules and flips types, and the forces are recomputed.  ``run_fused``
+fires no event, as in the JAX package.
+
+Not ported yet: the ``check_safety`` and ``sort_atoms`` switches (the
+event's overflow and convergence errors always raise).
 """
 
 from __future__ import annotations
@@ -40,11 +56,15 @@ import torch
 
 from lammps_ucg_dev_tpu_torch.core import units as units_mod
 from lammps_ucg_dev_tpu_torch.core.state import ForceOut, SimState, System
+from lammps_ucg_dev_tpu_torch.fixes import cluster_switch as fcs
 from lammps_ucg_dev_tpu_torch.fixes import integrate as fi
 from lammps_ucg_dev_tpu_torch.fixes import langevin as fl
 from lammps_ucg_dev_tpu_torch.fixes import ucgstate as fs
+from lammps_ucg_dev_tpu_torch.models import bonded as bd
 from lammps_ucg_dev_tpu_torch.ops import clusters, colpack
 from lammps_ucg_dev_tpu_torch.ops import neighbor as nbrmod
+
+CS_CHUNK = 65536   # atoms per candidate block of the event's contact list
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +79,9 @@ class SimConfig:
     reneigh_check: bool = True    # neigh_modify check yes|no: rebuild at a
                                   # block start only when the displacement
                                   # check asks for it (True) or always
+    respa_inner: int = 1          # r-RESPA inner steps: bonded forces at the
+                                  # fast level, pair at the outer one
+                                  # (fix_nve_ucgld.cpp:155-173 + stock Respa)
 
     @property
     def u(self) -> units_mod.UnitSystem:
@@ -84,15 +107,23 @@ class Simulation:
     cell), a colpack.ColumnSpec (the column kernels) or a
     clusters.ClusterSpec (K8's cluster list).  ``seed`` seeds the generator that
     draws the Langevin noise, the ``ucgstate mc`` uniforms and the noisy
-    Bethe priors.  ``extra_post_force(state, ucgforce, fout) -> (state,
-    ucgforce)`` runs after the bias force and before ``ucgstate``; it may
-    read anything, so it turns off the score-free interior and the
-    slot-major interior."""
+    Bethe priors and the cluster_switch accept draws.
+    ``extra_post_force(state, ucgforce, fout) -> (state, ucgforce)`` runs
+    after the bias force and before ``ucgstate``; it may read anything, so
+    it turns off the score-free interior and the slot-major interior.
+    ``bonded`` (``models.bonded.BondedParams``) and ``excl_tags`` ((N, S)
+    special-partner tags, ``bonded.special_tags``) add the topology;
+    ``cluster_switch=(params, freq)`` the event of ``fix cluster_switch``,
+    whose logs go to ``log_dir``."""
 
     def __init__(self, system: System, state: SimState,
                  pair_compute: Callable, pair_params: Any, nbr_spec,
                  cfg: SimConfig, seed: int = 0,
-                 extra_post_force: Callable | None = None):
+                 extra_post_force: Callable | None = None,
+                 cluster_switch: tuple | None = None,
+                 log_dir: str | None = None,
+                 bonded: bd.BondedParams | None = None,
+                 excl_tags: np.ndarray | None = None):
         self.system = system
         self.state = state
         self.pair_compute = pair_compute
@@ -105,14 +136,56 @@ class Simulation:
         self._masses_by_type = torch.as_tensor(
             np.asarray(system.masses, np.float64), dtype=state.x.dtype,
             device=state.device)
+        # the kernel paths (column or cluster lists) against the reference
+        # path's atom neighbor lists
+        self._is_kernel = not isinstance(nbr_spec, nbrmod.NeighborSpec)
+        self.bonded = bonded
+        if excl_tags is not None and not np.any(excl_tags):
+            excl_tags = None                     # nothing excluded
+        self.excl_tags = (None if excl_tags is None else torch.as_tensor(
+            np.asarray(excl_tags), dtype=torch.int64, device=state.device))
+        if (self.excl_tags is not None and self._is_kernel
+                and getattr(pair_compute, "excl_delta", None) is None):
+            raise NotImplementedError(
+                "special exclusions on a kernel path need the style's "
+                "excl_delta (compute-and-subtract): table_ucgld and "
+                "table_ucg_bethe have one; use the reference path "
+                "(a NeighborSpec) for other styles")
+        # the kernel path's special lists as rows: its rows never permute,
+        # so the tag→row map is fixed
+        self._excl_rows_static = (self._excl_rows(state)
+                                  if self.excl_tags is not None
+                                  and self._is_kernel else None)
         # slot-major interior: the column path in f32 (the kernels' input
         # dtype) whose pair entry has a slot variant, with no atom-space
-        # extra_post_force
+        # extra_post_force and no topology
         self._slot_ok = (isinstance(nbr_spec, colpack.ColumnSpec)
                          and extra_post_force is None
                          and state.x.dtype == torch.float32
+                         and bonded is None and self.excl_tags is None
                          and getattr(pair_compute, "slot_fast",
                                      None) is not None)
+        self.cswitch = cluster_switch
+        self.log_dir = log_dir
+        self.cswitch_stats = None
+        self._cs_spec = None
+        if cluster_switch is not None:
+            params_cs, freq = cluster_switch
+            if freq % cfg.reneigh_every != 0:
+                raise ValueError(
+                    "cluster_switch frequency must be a multiple of "
+                    f"reneigh_every (got {freq} vs {cfg.reneigh_every})")
+            self.cswitch_stats = fcs.ClusterSwitchStats.zeros(
+                state.x.dtype, state.device)
+            if self._is_kernel:
+                # the kernels own the pair path; the event builds its own
+                # contact list at the contact cutoff (the reference reuses
+                # the pair half-list, fix_cluster_switch.cpp:537-560)
+                self._cs_spec = nbrmod.make_spec(
+                    state.n_atoms,
+                    state.box.lengths.cpu().numpy().astype(np.float64),
+                    float(np.sqrt(float(params_cs.cutsq))), 0.0,
+                    method="cell", chunk=CS_CHUNK)
         self._fcarry: ForceOut | None = None
         self._nbr = None
         self.thermo_rows: list[dict] = []
@@ -145,6 +218,15 @@ class Simulation:
         return torch.rand((state.rng_n, *shape), generator=self.generator,
                           dtype=state.ucgvl.dtype, device=state.device)
 
+    def _excl_rows(self, state: SimState) -> torch.Tensor:
+        """The special-tag lists of each row as rows (n where empty)."""
+        n = state.n_atoms
+        tag = state.tag.long() - 1
+        inv = torch.zeros(n, dtype=torch.int64, device=state.device)
+        inv[tag] = torch.arange(n, device=state.device)
+        et = self.excl_tags[tag]
+        return torch.where(et > 0, inv[torch.clamp(et - 1, 0, n - 1)], n)
+
     def _forces(self, state: SimState, nbr, run_window, pair_fn=None,
                 scores_valid: bool = True):
         cfg = self.cfg
@@ -156,6 +238,23 @@ class Simulation:
             kw["prior_u"] = self._uniforms(state)
         fout = (pair_fn or self.pair_compute)(state, nbr, self.pair_params,
                                               **kw)
+        if self._excl_rows_static is not None:
+            # the kernel computed every in-cutoff pair, the special
+            # partners too: subtract them, in the kernel's own functional
+            d = self.pair_compute.excl_delta(state, self._excl_rows_static,
+                                             self.pair_params, **kw)
+            fout = dataclasses.replace(
+                fout, f=fout.f - d.f, ucgforce=fout.ucgforce - d.ucgforce,
+                scores=fout.scores - d.scores, pe=fout.pe - d.pe,
+                virial=fout.virial - d.virial,
+                oob_low=(None if fout.oob_low is None
+                         else fout.oob_low - d.oob_low))
+        if self.bonded is not None and cfg.respa_inner == 1:
+            # Verlet: the bonded terms fold into the pair pass (under
+            # r-RESPA they live at the inner level, _block)
+            bf, bpe, bvir = bd.compute(state, self.bonded)
+            fout = dataclasses.replace(fout, f=fout.f + bf, pe=fout.pe + bpe,
+                                       virial=fout.virial + bvir)
         ucgforce = fout.ucgforce
         if cfg.langevin is not None:
             tT = fl.t_target(cfg.langevin, state.step, run_window[0],
@@ -305,6 +404,11 @@ class Simulation:
                 or bool(nbrmod.displacement_check(nbr, state.x, state.box,
                                                   self.nbr_spec.skin))):
             state, nbr = self._rebuild(state)
+        if cfg.respa_inner > 1:
+            state, fout = self._respa(state, fcarry, nbr, run_window, nsteps)
+            danger = nbrmod.displacement_check(nbr, state.x, state.box,
+                                               self.nbr_spec.skin)
+            return state, fout, nbr, danger
 
         fast_fn = getattr(self.pair_compute, "fast_variant", None)
         fast_scores = True
@@ -336,12 +440,45 @@ class Simulation:
                                            self.nbr_spec.skin)
         return state, fout, nbr, danger
 
+    def _respa(self, state: SimState, fout: ForceOut, nbr, run_window,
+               nsteps: int):
+        """nsteps outer r-RESPA steps: the pair forces (the full pair entry,
+        every outer step) kick at the outer level, ``respa_inner`` inner
+        Verlet steps of dt/respa_inner move x and λ under the bonded
+        forces."""
+        cfg = self.cfg
+        if self.bonded is None:
+            raise ValueError("respa_inner > 1 requires bonded terms (the "
+                             "fast level)")
+
+        def bonded_f(st):
+            return bd.compute(st, self.bonded)[0]
+
+        dt_in = cfg.dt / cfg.respa_inner
+        ftm2v = cfg.u.ftm2v
+        fbond = bonded_f(state)
+        for _ in range(nsteps):
+            mass = self._masses_by_type[state.typ]
+            state = fi.respa_outer_initial(state, fout.f, fout.ucgforce, mass,
+                                           cfg.dt, ftm2v, cfg.integrator)
+            for _ in range(cfg.respa_inner):
+                state, fbond = fi.respa_inner_step(
+                    state, fbond, mass, dt_in, ftm2v, cfg.integrator,
+                    bonded_f)
+            state, fout = self._forces(state, nbr, run_window)
+            state = fi.respa_outer_final(state, fout.f, fout.ucgforce, mass,
+                                         cfg.dt, ftm2v, cfg.integrator)
+            state = dataclasses.replace(state, step=state.step + 1)
+        return state, fout
+
     def _nbr_build(self, state: SimState):
         if isinstance(self.nbr_spec, colpack.ColumnSpec):
             return colpack.build(state.x, state.box, self.nbr_spec)
         if isinstance(self.nbr_spec, clusters.ClusterSpec):
             return clusters.build(state.x, state.box, self.nbr_spec)
-        return nbrmod.build(state.x, state.box, self.nbr_spec)
+        excl = (None if self.excl_tags is None
+                else self._excl_rows(state))
+        return nbrmod.build(state.x, state.box, self.nbr_spec, excl=excl)
 
     def _check_block(self, nbr, danger):
         if bool(nbr.overflow):
@@ -349,6 +486,47 @@ class Simulation:
                                f"occupancy {int(nbr.max_occupancy)})")
         if bool(danger):
             self.dangerous_builds += 1
+
+    # ---- the cluster_switch event (PRE_EXCHANGE analogue) -----------------
+
+    def _cswitch_event(self, state: SimState, stats, u: torch.Tensor):
+        """One event on ``state`` with the accept uniforms ``u``: wrap, the
+        contact list (the event's own on the kernel path, the pair list's
+        spec on the reference path, without exclusions), ``apply``.
+        Returns (state, stats, info); info adds ``nbr_overflow``."""
+        params_cs, _ = self.cswitch
+        x_w, image = state.box.wrap(state.x, state.image)
+        state = dataclasses.replace(state, x=x_w, image=image)
+        spec = self._cs_spec if self._is_kernel else self.nbr_spec
+        nbr = nbrmod.build(state.x, state.box, spec)
+        state, stats, info = fcs.apply(u, state, nbr, params_cs, stats)
+        return state, stats, dict(info, nbr_overflow=nbr.overflow)
+
+    def _maybe_cluster_switch(self):
+        if self.cswitch is None:
+            return
+        params_cs, freq = self.cswitch
+        step = self.state.step
+        if step == 0 or step % freq != 0:
+            return
+        u = torch.rand(params_cs.maxmol + 1, generator=self.generator,
+                       dtype=params_cs.probON.dtype, device=self.state.device)
+        self.state, self.cswitch_stats, info = self._cswitch_event(
+            self.state, self.cswitch_stats, u)
+        if bool(info["nbr_overflow"]):
+            raise RuntimeError("cluster_switch contact-list capacity exceeded")
+        if not info["converged"]:
+            raise RuntimeError(
+                "cluster_switch label propagation hit max_sweeps without "
+                "converging: cluster labels may be wrong (raise max_sweeps)")
+        self._fcarry = None           # the types changed: recompute forces
+        if self.log_dir is not None:
+            # the event logs (fix_cluster_switch.cpp:704-725)
+            for name, v in (("cluster_assignment", info["in_cluster"]),
+                            ("state_assignment", info["mol_state"])):
+                with open(f"{self.log_dir}/{name}.log", "a") as fh:
+                    fh.write(f"{step} " + " ".join(
+                        map(str, v.long().cpu().tolist())) + "\n")
 
     # ---- setup (Verlet::setup analogue) ----------------------------------
 
@@ -370,6 +548,9 @@ class Simulation:
             self.setup(run_window)
         done = 0
         while done < nsteps:
+            self._maybe_cluster_switch()
+            if self._fcarry is None:
+                self.setup(run_window)
             todo = min(self.cfg.reneigh_every, nsteps - done)
             self.state, self._fcarry, self._nbr, danger = self._block(
                 self.state, self._fcarry, run_window, todo, nbr=self._nbr)
@@ -381,7 +562,8 @@ class Simulation:
 
     def run_fused(self, nblocks: int, run_window=None):
         """Advance nblocks × reneigh_every steps (the bench / production
-        loop): no thermo, one overflow read per block."""
+        loop): no thermo, one overflow read per block, and, as in the JAX
+        package, no cluster_switch event."""
         step = self.state.step
         if run_window is None:
             run_window = (step, step + nblocks * self.cfg.reneigh_every)
@@ -423,6 +605,11 @@ class Simulation:
         n = state.n_atoms
         mass = self._masses_by_type[state.typ]
         ke = 0.5 * torch.sum(mass * torch.sum(state.v**2, dim=-1)) * u.mvv2e
+        pe, virial = fout.pe, fout.virial
+        if self.bonded is not None and cfg.respa_inner > 1:
+            # under r-RESPA the pair pass holds no bonded terms
+            _, bpe, bvir = bd.compute(state, self.bonded)
+            pe, virial = pe + bpe, virial + bvir
         if cfg.integrator.wall and cfg.integrator.bias_potential:
             bias_e = torch.where(
                 self._is_ucg(state),
@@ -433,13 +620,13 @@ class Simulation:
                 bias_e = torch.where(g, bias_e, torch.zeros_like(bias_e))
             pe_bias = torch.sum(bias_e)
         else:
-            pe_bias = torch.zeros_like(fout.pe)
+            pe_bias = torch.zeros_like(pe)
         ke_lambda = 0.5 * torch.sum(state.ucgml * state.ucgvl**2) * u.mvv2e
         vol = torch.prod(state.box.lengths)
-        virial_tr = fout.virial[0] + fout.virial[1] + fout.virial[2]
+        virial_tr = virial[0] + virial[1] + virial[2]
         lam_t = fl.lambda_temperature(state, u)
-        dt = torch.promote_types(ke.dtype, fout.pe.dtype)
-        vals = [ke, fout.pe, pe_bias, ke_lambda, lam_t, vol, virial_tr]
+        dt = torch.promote_types(ke.dtype, pe.dtype)
+        vals = [ke, pe, pe_bias, ke_lambda, lam_t, vol, virial_tr]
         if fout.oob_low is not None:
             vals += [fout.oob_low, fout.oob_high]
         host = torch.stack([v.to(dt) for v in vals]).cpu().numpy()

@@ -1004,3 +1004,57 @@ def test_pack_slots_matches_pack_on_the_card(device, kind):
         slot=True)
     assert torch.equal(s_cols, cols)
     assert torch.equal(s_ipack[cl.i_valid], ipack[cl.i_valid])
+
+
+# ---- the topology slice on the card ----------------------------------------
+
+@pytest.mark.parametrize("style", ["ucgld", "bethe"])
+def test_molecular_kernel_path_matches_the_cpu_twin(device, style):
+    """The molecular trimers' setup pass (K1 or K2 over every pair, minus
+    ``excl_delta``, plus the bonded terms) on the card against the same
+    pass through the kernel's twin on the CPU."""
+    kern = hp.ucgld_pair if style == "ucgld" else hb.bethe_pair
+    before = sum(kern.launches.values())
+    sims = [flagship.build_molecular_sim(nmol=400, device=d, style=style,
+                                         kernel=True) for d in (device, "cpu")]
+    for s in sims:
+        s.cfg = dataclasses.replace(s.cfg, langevin=None)
+        assert s._excl_rows_static is not None and not s._slot_ok
+    fk, ft = (s.setup((0, 10)) for s in sims)
+    assert sum(kern.launches.values()) == before + 1
+    assert_close_fout(fk, ft, ("f", "ucgforce", "scores"), True)
+    assert int(fk.oob_low) == int(ft.oob_low)
+
+
+def test_bonded_terms_on_the_card(device):
+    """``bonded.compute`` of the tetramer deck (bonds, angles, dihedrals,
+    impropers) in float64 on the card against the CPU: the same formulas,
+    another scatter order."""
+    from lammps_ucg_dev_tpu_torch.models import bonded
+
+    sims = [flagship.build_tetramer_sim(nmol=512, dtype=torch.float64,
+                                        kernel=False, device=d)
+            for d in (device, "cpu")]
+    (fg, pg, vg), (fc, pc, vc) = (bonded.compute(s.state, s.bonded)
+                                  for s in sims)
+    scale = float(fc.abs().max())
+    assert float((fg.cpu() - fc).abs().max()) <= 1e-12 * scale
+    assert abs(float(pg) - float(pc)) <= 1e-12 * abs(float(pc))
+    assert float((vg.cpu() - vc).abs().max()) <= 1e-12 * float(vc.abs().max())
+
+
+def test_cluster_switch_event_on_the_card(device):
+    """Config 4's event on the column path, on the card and on the CPU,
+    with the same draws: the same types and 7-stat vector (labels are
+    integers; the contacts come from the same f32 positions)."""
+    sims = [flagship.build_density_sim(n=4096, device=d, kernel=True,
+                                       cluster_switch=True)
+            for d in (device, "cpu")]
+    u = torch.rand(4097, generator=torch.Generator().manual_seed(5))
+    out = [s._cswitch_event(s.state, s.cswitch_stats, u.to(s.state.device))
+           for s in sims]
+    (sg, vg, ig), (sc, vc, ic) = out
+    assert ig["converged"] and ic["converged"]
+    assert ig["sweeps"] == ic["sweeps"]
+    assert torch.equal(sg.typ.cpu(), sc.typ)
+    assert torch.equal(vg.v.cpu(), vc.v)

@@ -34,7 +34,8 @@ NEW_MODULES = ("models.pair_bethe", "ops.hopper_bethe", "ops.kernel_select",
                "models.pair_bethe_density", "models.pair_rleucg",
                "ops.hopper_cv", "ops.hopper_density", "ops.hopper_rleucg",
                "ops.clusters", "ops.hopper_cluster", "ops.hopper_ablation",
-               "tools.kbench", "tools.timing")
+               "tools.kbench", "tools.timing", "models.bonded",
+               "fixes.cluster_switch")
 
 
 def test_port_imports_without_jax_and_builds_nothing():

@@ -93,7 +93,39 @@ which raises on failure:
 20. the tetramer deck (``build_tetramer_sim``, 32,768 beads):
    ``bonded.compute`` in f32 on the card against f64 (forces, pe, virial,
    with dihedrals and impropers; near-planar impropers held to their f32
-   conditioning), and one block of its K1 path.
+   conditioning), and one block of its K1 path;
+21. the deck entry point at full width: ``tools/make_deck.write_ucgld_deck``
+   at 2^20 beads (its published settings; ``run 200``, ``thermo 100``, a
+   dump every 100 steps, ``write_data`` and ``write_restart``) through
+   ``compat.script.ScriptRunner`` on the card, line by line: the
+   ``pair path:`` line must name K1, the interior be slot-major, K1's
+   launches in the ``run`` (counts set to 0 just before it) be full and
+   without scores alone, the native dump writer write every frame, the
+   thermo rows be finite with no pair outside the tables and λ inside the
+   walls; printed: the deck's steps/s (the ``run`` command, and its
+   stepping alone) beside phase 4's, and ms per ``read_data``, dump frame,
+   ``write_restart``, ``write_data`` and ``rerun`` frame; then K1 against
+   its twin on the state the run reached (``@deck`` entries);
+22. restart continuity on the card: the UCG-LD deck at 32,768 beads
+   (Langevin on λ, ``ucgstate ld``), ``run 40`` against ``run 20`` +
+   ``write_restart`` + a new runner's ``read_restart`` + ``run 20``: x, v,
+   λ, λ-velocity and ucgp the same bits;
+23. the other decks on the card: Bethe (K2), config 4 with its
+   ``cluster_switch`` (K5, K3, K6 and its first event at step 20; 4,096
+   beads: with the deck's ``max_sweeps`` 64 the later events of larger
+   systems do not converge, F7; at 32,768 the deck runs until an event
+   raises F7's "hit max_sweeps" error, with K5, K3 and K6 launched, and
+   with bonds and ``special_bonds lj 0 0 0`` it must raise, as its style
+   has no ``excl_delta``), RLE-UCG (K5, K4, K6) and
+   molecular UCG-LD (K1 with ``excl_delta``) at 32,768, the molecular
+   switch deck at its 192 beads (the reference path: no 2-state type);
+   each deck's kernels launched, its rows finite, and each at 4,096 beads
+   to step 0 on the card against the float64 reference path on the CPU
+   within the matching oracle phase's pe gate; last, the ``verify``
+   skill's deck fingerprint (n 1,000): step-0 etotal 5520.27.
+
+The decks are written into ``_decks/`` beside this script (listed in
+``.gitignore``) and removed after each phase.
 
 The molecular paths (16–18, 20) run atom-ordered: the driver turns the
 slot-major interior off with topology, as the JAX package does.  The
@@ -126,6 +158,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import shutil
 import sys
 import time
 from pathlib import Path
@@ -1392,6 +1425,442 @@ def check_tetramers(device: str, nmol: int = 8192) -> dict:
     return errs
 
 
+# ---- the deck entry point: ScriptRunner on the card --------------------------
+
+DECK_DIR = Path(__file__).resolve().parent / "_decks"   # gitignored scratch
+SKILL_ETOTAL0 = 5520.27     # the JAX package's deck fingerprint (SKILL.md)
+
+
+def deck_lines(text: str) -> list:
+    return [s.strip() for s in text.splitlines() if s.split("#")[0].strip()]
+
+
+def deck_runner(workdir, logs: list, device: str = "cuda", dtype=None):
+    import torch
+
+    from lammps_ucg_dev_tpu_torch.compat.script import ScriptRunner
+
+    return ScriptRunner(workdir=str(workdir), device=device,
+                        dtype=dtype or torch.float32,
+                        log_callback=logs.append)
+
+
+def zero_launches(counters: dict) -> None:
+    for c in counters.values():
+        for k in c.launches:
+            c.launches[k] = 0
+
+
+def read_launches(counters: dict) -> dict:
+    out = {name: {k: v for k, v in c.launches.items() if v}
+           for name, c in counters.items()}
+    return {k: v for k, v in out.items() if v}
+
+
+def synced(fn):
+    """(result, seconds) of ``fn()`` between two CUDA synchronizes
+    (``utils.profiling.Throughput``)."""
+    from lammps_ucg_dev_tpu_torch.utils.profiling import Throughput
+
+    with Throughput(0) as t:
+        out = fn()
+    return out, t.elapsed
+
+
+@contextlib.contextmanager
+def stepping_time(n_atoms: int):
+    """A ``utils.profiling.Throughput`` that counts the steps and the
+    synchronized seconds of every ``Simulation.run`` while the block runs:
+    the stepping of a deck's ``run`` without its setup, thermo rows and
+    dump frames."""
+    from lammps_ucg_dev_tpu_torch.runtime.sim import Simulation
+    from lammps_ucg_dev_tpu_torch.utils.profiling import Throughput
+
+    orig, tp = Simulation.run, Throughput(n_atoms)
+
+    def run(self, nsteps, *a, **kw):
+        with tp:
+            out = orig(self, nsteps, *a, **kw)
+        tp.add_steps(nsteps)
+        return out
+
+    Simulation.run = run
+    try:
+        yield tp
+    finally:
+        Simulation.run = orig
+
+
+def check_rows(label: str, rows: list, oob: bool = True) -> None:
+    if not rows or not all(finite_row(r) for r in rows):
+        raise RuntimeError(f"{label}: non-finite or missing thermo rows: "
+                           f"{rows}")
+    if oob and any(r.get("oob_low", 0) or r.get("oob_high", 0)
+                   for r in rows):
+        raise RuntimeError(f"{label}: pairs outside the tables: {rows}")
+
+
+def run_deck_flagship(card_name: str, builder_steps_s: float,
+                      n: int = 2**20, nsteps: int = 200):
+    """Phase 21: ``write_ucgld_deck`` at 2^20 beads at its published
+    settings (nsteps and thermo cut to 200 and 100), with a dump every 100
+    steps, ``write_data`` and ``write_restart``, run through
+    ``ScriptRunner`` on the card line by line; then a ``rerun`` of the
+    dump.  Returns (K1 launches of the run, K1 against its twin on the
+    state the run reached)."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+    from lammps_ucg_dev_tpu_torch.runtime import native
+    from lammps_ucg_dev_tpu_torch.tools import make_deck
+
+    d = DECK_DIR / "flagship"
+    t0 = time.perf_counter()
+    path = make_deck.write_ucgld_deck(str(d), n=n, nsteps=nsteps,
+                                      thermo_every=100)
+    t_deck = time.perf_counter() - t0
+    text = open(path).read().replace(
+        "thermo 100", "dump d1 all custom 100 traj.lammpstrj id type x y z "
+        "ucgstate ucgl ucgp\nthermo 100")
+    text += "write_data final.data\nwrite_restart final.npz\n"
+    logs, frames, secs = [], [], {}
+    r = deck_runner(d, logs)
+    counters = launch_counters()
+    for line in deck_lines(text):
+        cmd = line.split()[0]
+        if cmd == "run":
+            zero_launches(counters)
+            with stepping_time(n) as stepping:
+                _, secs[cmd] = synced(lambda: r.command(line))
+            launches = read_launches(counters)
+            continue
+        _, secs[cmd] = synced(lambda: r.command(line))
+        if cmd == "dump":
+            w = r.dumps["d1"].writer
+            write = w.write
+
+            def timed_write(state, step=None, write=write):
+                ok, sec = synced(lambda: write(state, step))
+                frames.append(sec)
+                return ok
+
+            w.write = timed_write
+    w = r.dumps["d1"].writer
+    sim, rows = r.sim, r.thermo_rows
+    lam = r.state.ucgl
+    lam_lo, lam_hi = float(lam.min()), float(lam.max())
+    k1 = launches.get("ucgld_pair", {})
+    steps_run = nsteps / secs["run"]
+    steps_stepping = stepping.steps_per_sec
+    if stepping.steps != nsteps:
+        raise RuntimeError(f"the deck's run took {stepping.steps} steps")
+    log(f"[deck flagship n={n}] {r.pair_path}; slot-major {sim._slot_ok}; "
+        f"launches {json.dumps(launches)}; native writer "
+        f"{native.get_lib() is not None} ({w.native_frames} of {w.frames} "
+        f"frames); λ in [{lam_lo:.6f}, {lam_hi:.6f}]")
+    for row in rows:
+        log(f"[deck flagship n={n}] {json.dumps(row)}")
+    log(f"[deck flagship n={n}] run {nsteps} steps: {secs['run']:.3f} s "
+        f"with setup, thermo and dumps = {steps_run:.2f} steps/s; stepping "
+        f"{stepping.elapsed:.3f} s = {steps_stepping:.2f} steps/s "
+        f"({stepping.atom_steps_per_sec / 1e6:.2f} M atom-steps/s); builder "
+        f"path (phase 4) {builder_steps_s:.2f} steps/s; on {card_name} "
+        f"(not gated)")
+    log(f"[deck flagship n={n}] I/O ms: read_data "
+        f"{secs['read_data'] * 1e3:.1f}, dump frame "
+        f"{1e3 * sum(frames) / max(len(frames), 1):.1f} (mean of "
+        f"{len(frames)}: {', '.join(f'{1e3 * f:.1f}' for f in frames)}), "
+        f"write_restart {secs['write_restart'] * 1e3:.1f}, write_data "
+        f"{secs['write_data'] * 1e3:.1f}; deck written in {t_deck:.1f} s")
+    if sim.pair_compute is not hp.compute_style or "K1" not in r.pair_path:
+        raise RuntimeError(f"the flagship deck did not take K1: "
+                           f"{r.pair_path}")
+    if f"pair path: {r.pair_path}" not in logs:
+        raise RuntimeError("no pair-path log line")
+    if not sim._slot_ok:
+        raise RuntimeError("the flagship deck's interior is not slot-major")
+    if not k1.get("full") or not k1.get("noscores") or k1.get("fast"):
+        raise RuntimeError(f"the deck's run did not launch K1 full and "
+                           f"without scores alone: {launches}")
+    if native.get_lib() is None or w.frames != 3 or \
+            w.native_frames != w.frames:
+        raise RuntimeError(f"the native dump writer did not write the "
+                           f"frames: {w.native_frames} of {w.frames}")
+    check_rows("deck flagship", rows)
+    if [row["step"] for row in rows] != [0, 100, 200]:
+        raise RuntimeError(f"thermo rows at {[r['step'] for r in rows]}")
+    if not (0.0 <= lam_lo and lam_hi <= 1.0):
+        raise RuntimeError(f"λ outside the walls: [{lam_lo}, {lam_hi}]")
+    k1_deck = compare_k1(sim, f"deck n={n}", kernel_reps=20, twin_reps=1,
+                         with_bound=True, variants=("full", "noscores"))
+    del r, sim
+
+    # the rerun of the dump: the deck's styles, then rerun
+    keep = ("units", "dimension", "boundary", "atom_style", "read_data",
+            "pair_style", "pair_coeff", "neighbor", "neigh_modify",
+            "timestep", "fix", "thermo")
+    rr = deck_runner(d, logs)
+    for line in deck_lines(text):
+        if line.split()[0] in keep:
+            rr.command(line)
+    _, sec = synced(lambda: rr.command(
+        "rerun traj.lammpstrj dump x y z ucgstate ucgl ucgp"))
+    check_rows("deck rerun", rr.thermo_rows)
+    log(f"[deck rerun n={n}] {len(rr.thermo_rows)} frames in {sec:.3f} s = "
+        f"{1e3 * sec / len(rr.thermo_rows):.1f} ms a frame (read_dump, "
+        f"apply_snapshot, setup, thermo); steps "
+        f"{[row['step'] for row in rr.thermo_rows]}; {rr.pair_path}")
+    if [row["step"] for row in rr.thermo_rows] != [0, 100, 200]:
+        raise RuntimeError("the rerun did not take the three frames")
+    if rr.sim.pair_compute is not hp.compute_style:
+        raise RuntimeError("the rerun did not take K1")
+    del rr
+    shutil.rmtree(d)
+    return k1, k1_deck
+
+
+def deck_restart_continuity(n: int = 32768) -> None:
+    """Phase 22: the UCG-LD deck (Langevin on λ, ``ucgstate ld``) on the
+    card: A runs 40 steps; B runs 20 and writes a restart, and a new runner
+    reads it, re-declares the styles and runs 20 more.  x, v, λ,
+    λ-velocity and ucgp must be the same bits: the random state and the
+    force carry survive the restart."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+    from lammps_ucg_dev_tpu_torch.tools import make_deck
+
+    d = DECK_DIR / "restart"
+    text = open(make_deck.write_ucgld_deck(str(d), n=n, nsteps=40,
+                                           thermo_every=10)).read()
+    logs = {k: [] for k in "abc"}
+    a = deck_runner(d, logs["a"])
+    a.run_string(text)
+    b = deck_runner(d, logs["b"])
+    b.run_string(text.replace("run 40", "run 20\nwrite_restart b.npz"))
+    cont = [("read_restart b.npz" if s.startswith("read_data") else s)
+            for s in deck_lines(text)
+            if not s.startswith(("velocity", "run"))]
+    c = deck_runner(d, logs["c"])
+    c.run_string("\n".join(cont) + "\nrun 20\n")
+    if not all(r.sim.pair_compute is hp.compute_style and r.sim._slot_ok
+               for r in (a, b, c)):
+        raise RuntimeError("the continuity deck did not take K1 slot-major")
+    fields = ("x", "v", "ucgl", "ucgvl", "ucgp")
+    diff = {f: float((getattr(a.state, f) - getattr(c.state, f)).abs().max())
+            for f in fields
+            if not torch.equal(getattr(a.state, f), getattr(c.state, f))}
+    notes = [m for m in logs["c"] if "afresh" in m or "restart from" in m]
+    log(f"[deck restart n={n}] run 40 against run 20 + write_restart + "
+        f"read_restart + run 20: fields that differ {json.dumps(diff)}; "
+        f"steps {a.state.step}/{c.state.step}; etotal "
+        f"{a.thermo_rows[-1]['etotal']:.9g} / "
+        f"{c.thermo_rows[-1]['etotal']:.9g}; {c.pair_path}")
+    if diff or notes or c.state.step != 40:
+        raise RuntimeError(f"the restart did not continue the run bit for "
+                           f"bit: {diff} {notes}")
+    shutil.rmtree(d)
+
+
+# writer: (the writer's arguments of the main run, kernel entry, kernels
+# the run must launch, the oracle phase's pe gate)
+OTHER_DECKS = {
+    "write_bethe_deck": (dict(n=32768), "compute_style_bethe",
+                         {"bethe_pair": ("full", "fast")}, 3e-5),
+    # the deck's cluster_switch keeps max_sweeps at 64 (F7): on the CPU
+    # the events of 2,048 beads took 19, 61, 63 and 61 sweeps and the
+    # second of 4,096 hit 64, so config 4's deck runs at 4,096 to its
+    # first event
+    "write_bethe_density_deck": (dict(n=4096, nsteps=30, thermo_every=10),
+                                 "compute_style_density",
+                                 {"cv_rho": ("rho",), "dbethe_pair": ("full",),
+                                  "cv_force": ("full", "fast")}, 3e-5),
+    "write_rleucg_deck": (dict(n=32768), "compute_style_rleucg",
+                          {"cv_rho": ("rho",),
+                           "rleucg_pair": ("full", "fast"),
+                           "cv_force": ("full", "fast")}, 3e-5),
+    "write_molecular_ucgld_deck": (dict(nmol=10923), "compute_style",
+                                   {"ucgld_pair": ("full",)}, 1e-5),
+    # two single-state types: K1's gate takes a 2-state type, so this deck
+    # runs the reference path on the card, as in the JAX package
+    "write_molecular_switch_deck": (dict(nmol=64), None, {}, 1e-5),
+}
+
+
+def other_decks(card_name: str) -> None:
+    """Phase 23: the other deck writers through ``ScriptRunner`` on the
+    card (their published settings, at the sizes of OTHER_DECKS): the
+    kernel path taken and launched, finite thermo rows, the cluster_switch
+    events run (their sweeps printed); then each deck at 4,096 beads
+    (4,095 for the trimers) to step 0 on the card's path in f32 and on the
+    float64 reference path on the CPU: pe and etotal within the matching
+    oracle phase's pe gate, ke within 1e-6, the pressure within 1e-4
+    (phase 10's virial gate), the out-of-table counts equal."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch.runtime.sim import Simulation
+    from lammps_ucg_dev_tpu_torch.tools import make_deck
+
+    counters = launch_counters()
+    event = Simulation._cswitch_event
+    for writer, (kw, entry, must, pe_gate) in OTHER_DECKS.items():
+        name = writer[len("write_"):-len("_deck")]
+        d = DECK_DIR / name
+        path = getattr(make_deck, writer)(str(d), **kw)
+        sweeps = []
+
+        def counted(self, *a):
+            out = event(self, *a)
+            sweeps.append(int(out[2]["sweeps"]))
+            return out
+
+        r = deck_runner(d, [])
+        zero_launches(counters)
+        Simulation._cswitch_event = counted
+        try:
+            _, sec = synced(lambda: r.run_file(path))
+        finally:
+            Simulation._cswitch_event = event
+        launches = read_launches(counters)
+        sim = r.sim
+        stats = (None if sim.cswitch_stats is None
+                 else sim.cswitch_stats.v.tolist())
+        n = r.state.n_atoms
+        log(f"[deck {name} n={n}] {r.pair_path}; {r.state.step} steps in "
+            f"{sec:.3f} s on {card_name}; launches {json.dumps(launches)}; "
+            f"cluster_switch stats {stats}, sweeps {sweeps}; last row "
+            f"{json.dumps(r.thermo_rows[-1])}")
+        if (entry is None and ("reference" not in r.pair_path or launches)
+                or entry is not None
+                and sim.pair_compute.__name__ != entry):
+            raise RuntimeError(f"{name}: pair path {r.pair_path}, "
+                               f"launches {launches}")
+        for kern, variants in must.items():
+            for v in variants:
+                if not launches.get(kern, {}).get(v):
+                    raise RuntimeError(f"{name}: {kern} {v} not launched: "
+                                       f"{launches}")
+        if name == "molecular_ucgld" and sim._excl_rows_static is None:
+            raise RuntimeError("molecular deck: no excl_delta subtraction")
+        if stats is not None and not sweeps:
+            raise RuntimeError(f"{name}: no cluster_switch event ran")
+        check_rows(f"deck {name}", r.thermo_rows)
+        del r, sim
+
+        size_kw = "n" if "n" in kw else "nmol"
+        path = getattr(make_deck, writer)(
+            str(d / "small"), nsteps=0,
+            **{size_kw: 4096 if size_kw == "n" else 1365})
+        rows = []
+        for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+            rs = deck_runner(d / "small", [], device=dev, dtype=dt)
+            rs.run_file(path)
+            rows.append((rs.thermo_rows[0], rs.pair_path))
+        n_small = rs.state.n_atoms
+        (rk, pk), (rf, pf) = rows
+        rel = {k: abs(rk[k] - rf[k]) / max(abs(rf[k]), 1e-30)
+               for k in ("pe", "etotal", "ke", "press")}
+        log(f"[deck {name} step 0 n={n_small}] card ({pk}) vs float64 "
+            f"reference path on the CPU: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+            + f"; oob {rk.get('oob_low')}/{rf.get('oob_low')}; pe gate "
+            f"{pe_gate:g}")
+        if entry is not None and entry not in pk:
+            raise RuntimeError(f"{name} at 4,096: the kernel path was not "
+                               f"selected: {pk}")
+        if (rel["pe"] > pe_gate or rel["etotal"] > pe_gate
+                or rel["ke"] > 1e-6 or rel["press"] > 1e-4
+                or rk.get("oob_low") != rf.get("oob_low")):
+            raise RuntimeError(f"{name}: the step-0 rows disagree: {rel}")
+        shutil.rmtree(d)
+
+
+def config4_deck_checks(card_name: str) -> None:
+    """Phase 23's config-4 legs.  (a) The deck at 32,768 beads with the
+    deck's ``max_sweeps`` 64 (F7): its events run until one fails to
+    converge, which must be the documented "hit max_sweeps" error (or the
+    run completes); K5, K3 and K6 launch either way and the rows so far
+    stay finite.  (b) With bonds and ``special_bonds lj 0 0 0`` the deck
+    must raise NotImplementedError on the card (its style has no
+    ``excl_delta``), not run the reference path there."""
+    from lammps_ucg_dev_tpu_torch.runtime.sim import Simulation
+    from lammps_ucg_dev_tpu_torch.tools import make_deck
+
+    counters = launch_counters()
+    d = DECK_DIR / "config4_32768"
+    path = make_deck.write_bethe_density_deck(str(d), n=32768)
+    event, sweeps = Simulation._cswitch_event, []
+
+    def counted(self, *a):
+        out = event(self, *a)
+        sweeps.append(int(out[2]["sweeps"]))
+        return out
+
+    r = deck_runner(d, [])
+    zero_launches(counters)
+    Simulation._cswitch_event = counted
+    outcome = "completed"
+    try:
+        r.run_file(path)
+    except RuntimeError as e:
+        if "hit max_sweeps" not in str(e):
+            raise
+        outcome = f"raised F7's error: {e}"
+    finally:
+        Simulation._cswitch_event = event
+    launches = read_launches(counters)
+    log(f"[deck bethe_density n=32768] {r.pair_path}; {outcome}; event "
+        f"sweeps {sweeps}; launches {json.dumps(launches)}; rows "
+        f"{len(r.thermo_rows)} on {card_name}")
+    for kern, v in (("cv_rho", "rho"), ("dbethe_pair", "full"),
+                    ("cv_force", "full")):
+        if not launches.get(kern, {}).get(v):
+            raise RuntimeError(f"config 4 at 32,768: {kern} {v} not "
+                               f"launched: {launches}")
+    if not sweeps:
+        raise RuntimeError("config 4 at 32,768: no event ran")
+    check_rows("deck bethe_density n=32768", r.thermo_rows)
+    del r
+    shutil.rmtree(d)
+
+    d = DECK_DIR / "config4_bonds"
+    path = make_deck.add_bonds(make_deck.write_bethe_density_deck(
+        str(d), n=4096, nsteps=0), nbonds=64)
+    try:
+        deck_runner(d, []).run_file(path)
+    except NotImplementedError as e:
+        if "excl_delta" not in str(e):
+            raise
+        log(f"[deck bethe_density + bonds n=4096] refused on the card: {e}")
+    else:
+        raise RuntimeError("config 4 with special exclusions ran on the "
+                           "card without excl_delta")
+    shutil.rmtree(d)
+
+def deck_fingerprint() -> None:
+    """The ``verify`` skill's deck fingerprint on the card:
+    ``write_ucgld_deck(n=1000, nsteps=200, thermo_every=100)``; the step-0
+    etotal beside the JAX package's 5520.27; later rows printed (the
+    random streams differ, F1).  The step-0 etotal must agree to K1's
+    oracle pe gate, 1e-5 relative."""
+    from lammps_ucg_dev_tpu_torch.tools import make_deck
+
+    d = DECK_DIR / "fingerprint"
+    path = make_deck.write_ucgld_deck(str(d), n=1000, nsteps=200,
+                                      thermo_every=100)
+    r = deck_runner(d, [])
+    r.run_file(path)
+    check_rows("deck fingerprint", r.thermo_rows)
+    e = [row["etotal"] for row in r.thermo_rows]
+    log(f"[deck fingerprint n=1000] etotal at steps 0/100/200: "
+        f"{e[0]:.2f} (JAX package {SKILL_ETOTAL0}) -> {e[1]:.2f} -> "
+        f"{e[2]:.2f}; {r.pair_path}")
+    if abs(e[0] - SKILL_ETOTAL0) > 1e-5 * SKILL_ETOTAL0:
+        raise RuntimeError(f"step-0 etotal {e[0]} is not the JAX package's "
+                           f"{SKILL_ETOTAL0}")
+    shutil.rmtree(d)
+
+
 def finite_row(row: dict) -> bool:
     return all(v == v and abs(v) != float("inf")
                for v in row.values() if isinstance(v, float))
@@ -1477,6 +1946,7 @@ def main() -> int:
         f"on {card_name}; temp {row['temp']:.6f} etotal {row['etotal']:.6f} "
         f"oob_low {row['oob_low']}; dangerous builds {sim.dangerous_builds}; "
         f"K1 launches {k1_launches}")
+    ucgld_steps_s = steps_s
     nblk = blocks + 1
     if (k1_launches["full"] < nblk
             or k1_launches["noscores"] < (nre - 1) * nblk):
@@ -1653,6 +2123,18 @@ def main() -> int:
     # ---- 20. tetramers ---------------------------------------------------
     check_tetramers(device)
 
+    # ---- 21. the flagship deck at 2^20 through ScriptRunner -------------
+    k1_deck_launches, k1_deck = run_deck_flagship(card_name, ucgld_steps_s)
+
+    # ---- 22. restart continuity -------------------------------------------
+    deck_restart_continuity()
+
+    # ---- 23. the other decks, and the deck fingerprint -------------------
+    other_decks(card_name)
+    config4_deck_checks(card_name)
+    deck_fingerprint()
+    shutil.rmtree(DECK_DIR, ignore_errors=True)
+
     log(f"K1 fast variant (not on the UCG-LD main path under ucgstate ld): "
         f"{json.dumps(k1['fast'], default=float)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
@@ -1670,6 +2152,9 @@ def main() -> int:
               "P3+cluster_switch": sw_launches}
     kernels = ([entry(f"ucgld_pair[{v}]", K1_SOURCE, k1_launches[v], k1[v])
                 for v in ("full", "noscores")]
+               + [entry(f"ucgld_pair[{v}]@deck", K1_SOURCE,
+                        k1_deck_launches[v], k1_deck[v])
+                  for v in ("full", "noscores")]
                + [entry(f"ucgld_pair[{v}]@molecular", K1_SOURCE,
                         mol_launches[v], k1_mol[v])
                   for v in ("full", "noscores")]

@@ -11,6 +11,10 @@ with dtf = 0.5 dt ftm2v and per-atom λ pseudo-mass m_λ = ucgml.
     + in final: reflecting walls at λ=0/1                  (:172-200)
     + optional POST_FORCE double-well bias on λ             (:234-257)
 
+``fix nve`` (kind ``"nve"``): stock velocity-Verlet on (x, v) only, λ
+untouched.  Kind ``"none"`` integrates nothing: what ``unfix`` of the
+integrator leaves.
+
 r-RESPA with two levels (``run_style respa``: bonded terms inner, pair
 outer; ``fix_nve_ucgld.cpp:155-173``): :func:`respa_outer_initial` kicks
 (v, v_λ) with the pair forces over half the outer step,
@@ -28,17 +32,19 @@ import torch
 from lammps_ucg_dev_tpu_torch.core.state import SimState
 
 
+KINDS = ("nve/ucgld", "nve/ucgld/wall/hard", "nve", "none")
+
+
 @dataclasses.dataclass(frozen=True)
 class IntegratorCfg:
-    kind: str = "nve/ucgld"       # "nve/ucgld" | "nve/ucgld/wall/hard"
+    kind: str = "nve/ucgld"       # one of KINDS
     bias_potential: bool = False  # wall/hard only
     barrier: float = 0.1
     group: "object | None" = None  # per-TAG bool mask; None = all atoms
 
     def __post_init__(self):
-        if self.kind not in ("nve/ucgld", "nve/ucgld/wall/hard"):
-            raise NotImplementedError(
-                f"integrator {self.kind!r} is not ported yet")
+        if self.kind not in KINDS:
+            raise ValueError(f"unknown integrator kind {self.kind!r}")
 
     @property
     def wall(self) -> bool:
@@ -63,10 +69,14 @@ def _sel(g, new, old):
 def initial_integrate(state: SimState, f: torch.Tensor,
                       ucgforce: torch.Tensor, mass: torch.Tensor, dt: float,
                       ftm2v: float, cfg: IntegratorCfg) -> SimState:
+    if cfg.kind == "none":
+        return state
     g = group_mask(cfg, state)
     dtf = 0.5 * dt * ftm2v
     v = _sel(g, state.v + (dtf / mass)[:, None] * f, state.v)
     x = _sel(g, state.x + dt * v, state.x)
+    if cfg.kind == "nve":
+        return dataclasses.replace(state, x=x, v=v)
     vl = _sel(g, state.ucgvl + dtf / state.ucgml * ucgforce, state.ucgvl)
     lam = _sel(g, state.ucgl + dt * vl, state.ucgl)
     ucgstate = state.ucgstate
@@ -79,9 +89,13 @@ def initial_integrate(state: SimState, f: torch.Tensor,
 def final_integrate(state: SimState, f: torch.Tensor, ucgforce: torch.Tensor,
                     mass: torch.Tensor, dt: float, ftm2v: float,
                     cfg: IntegratorCfg) -> SimState:
+    if cfg.kind == "none":
+        return state
     g = group_mask(cfg, state)
     dtf = 0.5 * dt * ftm2v
     v = _sel(g, state.v + (dtf / mass)[:, None] * f, state.v)
+    if cfg.kind == "nve":
+        return dataclasses.replace(state, v=v)
     vl = _sel(g, state.ucgvl + dtf / state.ucgml * ucgforce, state.ucgvl)
     lam = state.ucgl
     if cfg.wall:
@@ -102,9 +116,13 @@ def respa_outer_initial(state: SimState, f: torch.Tensor,
     """Outer-level half-kick of (v, v_λ) with the slow (pair) forces —
     ``initial_integrate_respa`` at the outermost level (:155-165); the
     drifts happen at the inner level."""
+    if cfg.kind == "none":
+        return state
     g = group_mask(cfg, state)
     dtf = 0.5 * dt * ftm2v
     v = _sel(g, state.v + (dtf / mass)[:, None] * f, state.v)
+    if cfg.kind == "nve":
+        return dataclasses.replace(state, v=v)
     vl = _sel(g, state.ucgvl + dtf / state.ucgml * ucgforce, state.ucgvl)
     return dataclasses.replace(state, v=v, ucgvl=vl)
 
@@ -115,11 +133,16 @@ def respa_inner_step(state: SimState, fbond: torch.Tensor,
     """One inner r-RESPA step: half-kick with the fast (bonded) force,
     drift of x and λ, the fast force again (``bonded_eval(state)``), second
     half-kick.  Returns (state, fbond)."""
+    if cfg.kind == "none":
+        return state, fbond
     g = group_mask(cfg, state)
     dtf = 0.5 * dt_inner * ftm2v
     v = _sel(g, state.v + (dtf / mass)[:, None] * fbond, state.v)
     x = _sel(g, state.x + dt_inner * v, state.x)
-    lam = _sel(g, state.ucgl + dt_inner * state.ucgvl, state.ucgl)
+    if cfg.kind == "nve":
+        lam = state.ucgl
+    else:
+        lam = _sel(g, state.ucgl + dt_inner * state.ucgvl, state.ucgl)
     ucgstate = state.ucgstate
     if cfg.wall:
         ucgstate = _sel(g, (lam >= 0.5).to(ucgstate.dtype), ucgstate)

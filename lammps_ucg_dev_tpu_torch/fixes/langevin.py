@@ -35,6 +35,8 @@ class LangevinCfg:
     t_start: float
     t_stop: float
     t_period: float
+    seed: int = 1234                # the fix's seed: the deck runner seeds
+                                    # its generator from it
     group: "object | None" = None   # per-TAG bool mask; None = all
 
 
@@ -75,6 +77,7 @@ class VLangevinCfg:
     t_start: float
     t_stop: float
     damp: float
+    seed: int = 1234                # as LangevinCfg.seed
     group: "object | None" = None   # per-TAG bool mask; None = all
 
 

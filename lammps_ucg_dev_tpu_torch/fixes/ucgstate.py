@@ -9,8 +9,10 @@ Reference (``UCG/fix_ucgstate.cpp:88-132``):
                 probability min(odds, 1)·mc_rate; ucgl = ucgp
 
 ``mc`` takes its uniform draws as an input, ``uniforms`` (rng_n,) indexed
-by ``tag - 1`` (the ``Simulation`` draws them from its generator; tests
-inject the JAX package's draws).
+by ``tag - 1``.  The ``Simulation`` draws them from a generator of their
+own, keyed by its seed and ``seed`` (``fix ucgstate mc SEED rate``), so the
+same seed gives the same stream and another seed another; tests inject the
+JAX package's draws.
 
 Deviation (catalogued, as in the JAX package): the reference's MC accept
 branch assigns state 0/1 rather than toggling (:118-122), which inverts the
@@ -34,6 +36,7 @@ MODES = ("default", "ld", "mc")
 class UCGStateCfg:
     mode: str = "default"        # one of MODES
     mc_rate: float = 0.01
+    seed: int = 0                # the mc stream (fix ucgstate mc SEED rate)
     compat_reference_mc: bool = False
     group: "object | None" = None  # per-TAG bool mask; None = all
 

@@ -19,9 +19,10 @@ Topology composes with the kernel path, so selection ignores it (the JAX
 package's ``kernel_select.py:24-33``): bonded terms add to the pair pass
 (``models/bonded.py``), special exclusions are computed by the kernel and
 subtracted through the style's ``excl_delta`` (``table_ucgld`` and
-``table_ucg_bethe``; ``Simulation`` raises for the other styles), and the
-``cluster_switch`` event builds its own contact list
-(``Simulation._cswitch_event``), so config-4 decks keep their kernels.
+``table_ucg_bethe``; ``Simulation`` and the deck runner raise for the
+other styles), and the ``cluster_switch`` event builds its own contact
+list (``Simulation._cswitch_event``), so config-4 decks keep their
+kernels.
 """
 
 from __future__ import annotations

@@ -42,6 +42,16 @@ list (on the kernel path a cell list at the contact cutoff), relabels the
 molecules and flips types, and the forces are recomputed.  ``run_fused``
 fires no event, as in the JAX package.
 
+Random state: ``Simulation`` draws the Langevin noise, the noisy Bethe
+priors and the cluster_switch accept uniforms from ``generator`` and the
+``ucgstate mc`` uniforms from ``mc_generator``, a stream of their own keyed
+by ``seed`` and ``UCGStateCfg.seed``.  A caller that runs several
+Simulations in sequence (the deck runner, one per ``run`` command) hands
+them its generators, so the streams carry on.  :meth:`Simulation.carry`
+and :meth:`Simulation.resume` take a run's force carry and list-build
+positions out and back in, so a continuation resumes the same trajectory
+bit for bit instead of re-running ``setup``.
+
 Not ported yet: the ``check_safety`` and ``sort_atoms`` switches (the
 event's overflow and convergence errors always raise).
 """
@@ -49,6 +59,7 @@ event's overflow and convergence errors always raise).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Callable
 
 import numpy as np
@@ -65,6 +76,15 @@ from lammps_ucg_dev_tpu_torch.ops import clusters, colpack
 from lammps_ucg_dev_tpu_torch.ops import neighbor as nbrmod
 
 CS_CHUNK = 65536   # atoms per candidate block of the event's contact list
+CARRY_FIELDS = ("f", "ucgforce", "scores", "pe", "virial", "oob_low",
+                "oob_high", "ucgp")
+
+
+def mc_seed(seed: int, ucgstate_seed: int) -> int:
+    """Seed of the ``ucgstate mc`` stream for a Simulation seed and the
+    fix's SEED: distinct pairs give distinct streams."""
+    h = hashlib.sha256(f"ucgstate-mc:{seed}:{ucgstate_seed}".encode())
+    return int.from_bytes(h.digest()[:8], "little") & (2**63 - 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,8 +126,10 @@ class Simulation:
     entry; ``nbr_spec`` is a NeighborSpec (reference pair path, nsq or
     cell), a colpack.ColumnSpec (the column kernels) or a
     clusters.ClusterSpec (K8's cluster list).  ``seed`` seeds the generator that
-    draws the Langevin noise, the ``ucgstate mc`` uniforms and the noisy
-    Bethe priors and the cluster_switch accept draws.
+    draws the Langevin noise, the noisy Bethe priors and the cluster_switch
+    accept draws, unless ``generator`` hands in one to draw from; the
+    ``ucgstate mc`` uniforms come from ``mc_generator``, else from one
+    seeded by :func:`mc_seed` of ``seed`` and the fix's seed.
     ``extra_post_force(state, ucgforce, fout) -> (state, ucgforce)`` runs
     after the bias force and before ``ucgstate``; it may read anything, so
     it turns off the score-free interior and the slot-major interior.
@@ -123,7 +145,9 @@ class Simulation:
                  cluster_switch: tuple | None = None,
                  log_dir: str | None = None,
                  bonded: bd.BondedParams | None = None,
-                 excl_tags: np.ndarray | None = None):
+                 excl_tags: np.ndarray | None = None,
+                 generator: torch.Generator | None = None,
+                 mc_generator: torch.Generator | None = None):
         self.system = system
         self.state = state
         self.pair_compute = pair_compute
@@ -131,8 +155,16 @@ class Simulation:
         self.nbr_spec = nbr_spec
         self.cfg = cfg
         self.extra_post_force = extra_post_force
-        self.generator = torch.Generator(device=state.device)
-        self.generator.manual_seed(seed)
+        self.seed = seed
+        for g in (generator, mc_generator):
+            if g is not None and g.device.type != state.device.type:
+                raise ValueError(f"a generator on {g.device} for a state on "
+                                 f"{state.device}")
+        if generator is None:
+            generator = torch.Generator(device=state.device)
+            generator.manual_seed(seed)
+        self.generator = generator
+        self.mc_generator = mc_generator
         self._masses_by_type = torch.as_tensor(
             np.asarray(system.masses, np.float64), dtype=state.x.dtype,
             device=state.device)
@@ -218,6 +250,15 @@ class Simulation:
         return torch.rand((state.rng_n, *shape), generator=self.generator,
                           dtype=state.ucgvl.dtype, device=state.device)
 
+    def _mc_uniforms(self, state: SimState) -> torch.Tensor:
+        """(rng_n,) uniforms of the ``ucgstate mc`` stream."""
+        if self.mc_generator is None:
+            self.mc_generator = torch.Generator(device=state.device)
+            self.mc_generator.manual_seed(mc_seed(self.seed,
+                                                  self.cfg.ucgstate.seed))
+        return torch.rand((state.rng_n,), generator=self.mc_generator,
+                          dtype=state.ucgvl.dtype, device=state.device)
+
     def _excl_rows(self, state: SimState) -> torch.Tensor:
         """The special-tag lists of each row as rows (n where empty)."""
         n = state.n_atoms
@@ -281,7 +322,7 @@ class Simulation:
         if cfg.ucgstate is not None and scores_valid:
             # score-free interior steps skip the update (ucgp refreshes on
             # the block's full-kernel step)
-            mc_u = (self._uniforms(state) if cfg.ucgstate.mode == "mc"
+            mc_u = (self._mc_uniforms(state) if cfg.ucgstate.mode == "mc"
                     else None)
             state = fs.post_force(state, fout.scores, self._is_ucg(state),
                                   cfg.ucgstate, mc_u)
@@ -539,9 +580,43 @@ class Simulation:
         self.state, self._fcarry, self._nbr = state, fout, nbr
         return fout
 
+    def carry(self) -> dict:
+        """What a continuation needs to resume this run exactly: the force
+        carry ({name: tensor} of ``CARRY_FIELDS`` that are set) and
+        ``x_build``, the positions the current list was built from."""
+        if self._fcarry is None or self._nbr is None:
+            raise RuntimeError("no run to carry: call setup or run first")
+        rec = {k: getattr(self._fcarry, k) for k in CARRY_FIELDS
+               if getattr(self._fcarry, k) is not None}
+        rec["x_build"] = self._nbr.x0
+        return rec
+
+    def resume(self, record: dict):
+        """Continue from :meth:`carry` of a run that reached this state:
+        the list is rebuilt from the recorded build positions (every build
+        is a deterministic function of them) and the recorded forces carry
+        into the next step, so the trajectory goes on as if it had never
+        stopped.  Nothing is drawn."""
+        dev = self.state.device
+        fields = {k: torch.as_tensor(record[k], device=dev)
+                  for k in CARRY_FIELDS if k in record}
+        x_build = torch.as_tensor(record["x_build"], device=dev)
+        if x_build.shape != self.state.x.shape:
+            raise ValueError("the carry record is of another system")
+        nbr = self._nbr_build(dataclasses.replace(self.state, x=x_build))
+        if bool(nbr.overflow):
+            raise RuntimeError(f"neighbor capacity exceeded at resume (max "
+                               f"occupancy {int(nbr.max_occupancy)})")
+        self._fcarry, self._nbr = ForceOut(**fields), nbr
+
     # ---- host-side run loops ---------------------------------------------
 
-    def run(self, nsteps: int, thermo_every: int = 0):
+    def run(self, nsteps: int, thermo_every: int = 0,
+            thermo_callback: Callable | None = None):
+        """Advance ``nsteps`` (blocks of ``reneigh_every``, the
+        cluster_switch event at its cadence); with ``thermo_every`` append a
+        thermo row every that many steps and at the end, and hand each to
+        ``thermo_callback``."""
         begin = self.state.step
         run_window = (begin, begin + nsteps)
         if self._fcarry is None:
@@ -557,7 +632,10 @@ class Simulation:
             done += todo
             self._check_block(self._nbr, danger)
             if thermo_every and (done % thermo_every == 0 or done == nsteps):
-                self.thermo_rows.append(self.thermo())
+                row = self.thermo()
+                self.thermo_rows.append(row)
+                if thermo_callback is not None:
+                    thermo_callback(row)
         return self.state
 
     def run_fused(self, nblocks: int, run_window=None):

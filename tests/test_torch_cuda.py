@@ -1058,3 +1058,60 @@ def test_cluster_switch_event_on_the_card(device):
     assert ig["sweeps"] == ic["sweeps"]
     assert torch.equal(sg.typ.cpu(), sc.typ)
     assert torch.equal(vg.v.cpu(), vc.v)
+
+
+# ---- the deck entry point --------------------------------------------------
+
+@pytest.mark.parametrize("deck", ["ucgld", "bethe"])
+def test_deck_selects_and_launches_its_kernel(device, tmp_path, deck):
+    """A UCG-LD and a Bethe deck at 32,768 beads through ``ScriptRunner``
+    on the card: the kernel path is selected (one log line names it) and
+    launched, the thermo rows stay finite."""
+    from lammps_ucg_dev_tpu_torch.compat.script import ScriptRunner
+    from lammps_ucg_dev_tpu_torch.tools import make_deck
+
+    if deck == "ucgld":
+        path = make_deck.write_ucgld_deck(str(tmp_path), n=32768, nsteps=20,
+                                          thermo_every=10)
+        entry, wrapper, name = hp.compute_style, hp.ucgld_pair, "K1"
+    else:
+        path = make_deck.write_bethe_deck(str(tmp_path), n=32768, nsteps=20,
+                                          thermo_every=10)
+        entry, wrapper, name = hb.compute_style_bethe, hb.bethe_pair, "K2"
+    logs = []
+    r = ScriptRunner(workdir=str(tmp_path), log_callback=logs.append)
+    before = sum(wrapper.launches.values())
+    r.run_file(path)
+    assert r.sim.pair_compute is entry and r.sim._slot_ok
+    assert [m for m in logs if m.startswith("pair path:")] == [
+        f"pair path: {r.pair_path}"] and name in r.pair_path
+    assert sum(wrapper.launches.values()) >= before + 20
+    assert r.state.x.is_cuda and len(r.thermo_rows) == 3
+    for row in r.thermo_rows:
+        assert np.isfinite(row["etotal"]) and row["oob_low"] == 0
+
+
+
+def test_density_deck_with_exclusions_raises(device, tmp_path):
+    """table_ucg_bethe_density has no excl_delta: a config-4 deck with
+    bonds and ``special_bonds lj 0 0 0`` raises on the card instead of
+    running the reference path there."""
+    from lammps_ucg_dev_tpu_torch.compat.script import ScriptRunner
+    from lammps_ucg_dev_tpu_torch.tools import make_deck
+
+    path = make_deck.add_bonds(make_deck.write_bethe_density_deck(
+        str(tmp_path), n=4096, nsteps=0), nbonds=64)
+    r = ScriptRunner(workdir=str(tmp_path), log_callback=lambda m: None)
+    with pytest.raises(NotImplementedError, match="excl_delta"):
+        r.run_file(path)
+
+def test_native_dump_writer_loads(device, tmp_path):
+    from lammps_ucg_dev_tpu_torch.io import dump as dmp
+    from lammps_ucg_dev_tpu_torch.runtime import native
+
+    assert native.get_lib() is not None
+    sim = flagship.build_sim(n=4096, device=device)
+    w = dmp.DumpWriter(str(tmp_path / "t.lammpstrj"))
+    assert w.write(sim.state) and w.native_frames == 1
+    snap = dmp.read_dump(str(tmp_path / "t.lammpstrj"))[0]
+    assert snap.n_atoms == 4096

@@ -111,18 +111,36 @@ which raises on failure:
    ``write_restart`` + a new runner's ``read_restart`` + ``run 20``: x, v,
    λ, λ-velocity and ucgp the same bits;
 23. the other decks on the card: Bethe (K2), config 4 with its
-   ``cluster_switch`` (K5, K3, K6 and its first event at step 20; 4,096
-   beads: with the deck's ``max_sweeps`` 64 the later events of larger
-   systems do not converge, F7; at 32,768 the deck runs until an event
-   raises F7's "hit max_sweeps" error, with K5, K3 and K6 launched, and
-   with bonds and ``special_bonds lj 0 0 0`` it must raise, as its style
-   has no ``excl_delta``), RLE-UCG (K5, K4, K6) and
+   ``cluster_switch`` (K5, K3, K6 and its first event at step 20 at 4,096
+   beads; at 32,768 its ``run 100`` completes through four events, each
+   converged under the runner's ``max_sweeps`` n + 1 and its sweeps
+   printed; with bonds and ``special_bonds lj 0 0 0`` at 4,096 it raises
+   NotImplementedError, as its style has no ``excl_delta``), RLE-UCG (K5,
+   K4, K6) and
    molecular UCG-LD (K1 with ``excl_delta``) at 32,768, the molecular
    switch deck at its 192 beads (the reference path: no 2-state type);
    each deck's kernels launched, its rows finite, and each at 4,096 beads
    to step 0 on the card against the float64 reference path on the CPU
    within the matching oracle phase's pe gate; last, the ``verify``
-   skill's deck fingerprint (n 1,000): step-0 etotal 5520.27.
+   skill's deck fingerprint (n 1,000): step-0 etotal 5520.27;
+24. table styles: the UCG-LD deck at 2^20 with ``spline 2000``, then with
+   ``bitmap 12`` on the same data file (its sha256 printed and checked
+   the same; ``run 200``, ``thermo 100``, no dumps): K1 named and launched (full and without scores only), finite
+   rows, no pair outside the tables, the fit's degree and error, the
+   stepping's steps/s beside phase 21's and the column slots printed, K1
+   against its twin on the state reached (``@spline``, ``@bitmap``
+   entries); the Bethe deck with ``spline`` at 32,768 through K2 the
+   same way (``@spline``); a ``lookup 2000`` deck at 32,768 on the
+   reference path (LOOKUP does not fit), K1 launched 0 times; each of the
+   four at 4,096 to step 0 against the float64 reference path on the CPU
+   within max(3e-5, 5 × fit error) in pe (LOOKUP phase 3's 1e-5);
+25. a tilted box and the driver's switches: the UCG-LD deck with ``xy xz
+   yz`` = (0.1, -0.05, 0.08) L at 32,768 beads on the nsq reference path
+   (logged), Langevin off, dt 0.002: the NVE drift of ``bench.run_drift``'s
+   blocks (``run 10`` then ``run 180``) under 1e-4; at 4,096 to step 0
+   against float64 on the CPU; then ``sort_atoms`` on against off on the
+   flagship's cell reference path at 32,768 for 20 steps, x by tag within
+   1e-5 of the box.
 
 The decks are written into ``_decks/`` beside this script (listed in
 ``.gitignore``) and removed after each phase.
@@ -157,6 +175,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import json
 import shutil
 import sys
@@ -1507,7 +1526,7 @@ def run_deck_flagship(card_name: str, builder_steps_s: float,
     steps, ``write_data`` and ``write_restart``, run through
     ``ScriptRunner`` on the card line by line; then a ``rerun`` of the
     dump.  Returns (K1 launches of the run, K1 against its twin on the
-    state the run reached)."""
+    state the run reached, the stepping's steps/s)."""
     import torch
 
     from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
@@ -1616,7 +1635,7 @@ def run_deck_flagship(card_name: str, builder_steps_s: float,
         raise RuntimeError("the rerun did not take K1")
     del rr
     shutil.rmtree(d)
-    return k1, k1_deck
+    return k1, k1_deck, steps_stepping
 
 
 def deck_restart_continuity(n: int = 32768) -> None:
@@ -1667,10 +1686,8 @@ def deck_restart_continuity(n: int = 32768) -> None:
 OTHER_DECKS = {
     "write_bethe_deck": (dict(n=32768), "compute_style_bethe",
                          {"bethe_pair": ("full", "fast")}, 3e-5),
-    # the deck's cluster_switch keeps max_sweeps at 64 (F7): on the CPU
-    # the events of 2,048 beads took 19, 61, 63 and 61 sweeps and the
-    # second of 4,096 hit 64, so config 4's deck runs at 4,096 to its
-    # first event
+    # config 4's deck at 4,096 to its first event; config4_deck_checks
+    # runs it at 32,768 through four events
     "write_bethe_density_deck": (dict(n=4096, nsteps=30, thermo_every=10),
                                  "compute_style_density",
                                  {"cv_rho": ("rho",), "dbethe_pair": ("full",),
@@ -1695,9 +1712,8 @@ def other_decks(card_name: str) -> None:
     (4,095 for the trimers) to step 0 on the card's path in f32 and on the
     float64 reference path on the CPU: pe and etotal within the matching
     oracle phase's pe gate, ke within 1e-6, the pressure within 1e-4
-    (phase 10's virial gate), the out-of-table counts equal."""
-    import torch
-
+    (phase 10's virial gate), the out-of-table counts equal
+    (:func:`deck_step0`)."""
     from lammps_ucg_dev_tpu_torch.runtime.sim import Simulation
     from lammps_ucg_dev_tpu_torch.tools import make_deck
 
@@ -1748,77 +1764,98 @@ def other_decks(card_name: str) -> None:
         del r, sim
 
         size_kw = "n" if "n" in kw else "nmol"
-        path = getattr(make_deck, writer)(
-            str(d / "small"), nsteps=0,
-            **{size_kw: 4096 if size_kw == "n" else 1365})
-        rows = []
-        for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
-            rs = deck_runner(d / "small", [], device=dev, dtype=dt)
-            rs.run_file(path)
-            rows.append((rs.thermo_rows[0], rs.pair_path))
-        n_small = rs.state.n_atoms
-        (rk, pk), (rf, pf) = rows
-        rel = {k: abs(rk[k] - rf[k]) / max(abs(rf[k]), 1e-30)
-               for k in ("pe", "etotal", "ke", "press")}
-        log(f"[deck {name} step 0 n={n_small}] card ({pk}) vs float64 "
-            f"reference path on the CPU: "
-            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
-            + f"; oob {rk.get('oob_low')}/{rf.get('oob_low')}; pe gate "
-            f"{pe_gate:g}")
-        if entry is not None and entry not in pk:
-            raise RuntimeError(f"{name} at 4,096: the kernel path was not "
-                               f"selected: {pk}")
-        if (rel["pe"] > pe_gate or rel["etotal"] > pe_gate
-                or rel["ke"] > 1e-6 or rel["press"] > 1e-4
-                or rk.get("oob_low") != rf.get("oob_low")):
-            raise RuntimeError(f"{name}: the step-0 rows disagree: {rel}")
+        small = {size_kw: 4096 if size_kw == "n" else 1365}
+        deck_step0(name, lambda out, w=writer, k=small: getattr(
+            make_deck, w)(str(out), nsteps=0, **k), pe_gate, entry)
         shutil.rmtree(d)
+
+
+def deck_step0(name: str, make, pe_gate, entry: str | None) -> dict:
+    """The deck that ``make(outdir)`` writes (ending in ``run 0``) to step
+    0 on the card's path in f32 and on the float64 reference path on the
+    CPU: pe and etotal within ``pe_gate`` (a number, or a function of the
+    card's runner: a fit's gate), ke within 1e-6, the pressure within 1e-4
+    (phase 10's virial gate), the out-of-table counts equal.  The card
+    must take the kernel entry ``entry``, or with None the reference path
+    and launch nothing.  Returns the card's runner."""
+    import torch
+
+    d = DECK_DIR / f"{name}_step0"
+    path = make(d)
+    counters = launch_counters()
+    rows = []
+    for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+        rs = deck_runner(d, [], device=dev, dtype=dt)
+        zero_launches(counters)
+        rs.run_file(path)
+        rows.append((rs.thermo_rows[0], rs.pair_path))
+        if dev == "cuda":
+            card_runner, launches = rs, read_launches(counters)
+    gate = pe_gate(card_runner) if callable(pe_gate) else pe_gate
+    n_small = rs.state.n_atoms
+    (rk, pk), (rf, pf) = rows
+    rel = {k: abs(rk[k] - rf[k]) / max(abs(rf[k]), 1e-30)
+           for k in ("pe", "etotal", "ke", "press")}
+    log(f"[deck {name} step 0 n={n_small}] card ({pk}) vs float64 "
+        f"reference path on the CPU: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f"; oob {rk.get('oob_low')}/{rf.get('oob_low')}; pe gate "
+        f"{gate:.3e}; card launches {json.dumps(launches)}")
+    if (entry is not None and entry not in pk or entry is None
+            and ("reference PyTorch pair path" not in pk or launches)):
+        raise RuntimeError(f"{name} at {n_small}: the card took {pk}, "
+                           f"launches {launches}")
+    if (rel["pe"] > gate or rel["etotal"] > gate
+            or rel["ke"] > 1e-6 or rel["press"] > 1e-4
+            or rk.get("oob_low") != rf.get("oob_low")):
+        raise RuntimeError(f"{name}: the step-0 rows disagree: {rel}")
+    shutil.rmtree(d)
+    return card_runner
 
 
 def config4_deck_checks(card_name: str) -> None:
     """Phase 23's config-4 legs.  (a) The deck at 32,768 beads with the
-    deck's ``max_sweeps`` 64 (F7): its events run until one fails to
-    converge, which must be the documented "hit max_sweeps" error (or the
-    run completes); K5, K3 and K6 launch either way and the rows so far
-    stay finite.  (b) With bonds and ``special_bonds lj 0 0 0`` the deck
-    must raise NotImplementedError on the card (its style has no
-    ``excl_delta``), not run the reference path there."""
+    runner's ``max_sweeps`` n + 1: its ``run`` completes with more than one
+    event, every event converged, each event's sweeps printed; K5, K3 and
+    K6 launch and the rows stay finite.  (b) With bonds and
+    ``special_bonds lj 0 0 0`` the deck must raise NotImplementedError on
+    the card (its style has no ``excl_delta``), not run the reference path
+    there."""
     from lammps_ucg_dev_tpu_torch.runtime.sim import Simulation
     from lammps_ucg_dev_tpu_torch.tools import make_deck
 
     counters = launch_counters()
     d = DECK_DIR / "config4_32768"
     path = make_deck.write_bethe_density_deck(str(d), n=32768)
-    event, sweeps = Simulation._cswitch_event, []
+    event, events = Simulation._cswitch_event, []
 
     def counted(self, *a):
         out = event(self, *a)
-        sweeps.append(int(out[2]["sweeps"]))
+        events.append((int(out[2]["sweeps"]), bool(out[2]["converged"])))
         return out
 
     r = deck_runner(d, [])
     zero_launches(counters)
     Simulation._cswitch_event = counted
-    outcome = "completed"
     try:
-        r.run_file(path)
-    except RuntimeError as e:
-        if "hit max_sweeps" not in str(e):
-            raise
-        outcome = f"raised F7's error: {e}"
+        _, sec = synced(lambda: r.run_file(path))
     finally:
         Simulation._cswitch_event = event
     launches = read_launches(counters)
-    log(f"[deck bethe_density n=32768] {r.pair_path}; {outcome}; event "
-        f"sweeps {sweeps}; launches {json.dumps(launches)}; rows "
+    log(f"[deck bethe_density n=32768] {r.pair_path}; {r.state.step} steps "
+        f"in {sec:.3f} s; max_sweeps {r.sim.cswitch[0].max_sweeps}; event "
+        f"sweeps {[sw for sw, _ in events]}, converged "
+        f"{[ok for _, ok in events]}; launches {json.dumps(launches)}; rows "
         f"{len(r.thermo_rows)} on {card_name}")
     for kern, v in (("cv_rho", "rho"), ("dbethe_pair", "full"),
                     ("cv_force", "full")):
         if not launches.get(kern, {}).get(v):
             raise RuntimeError(f"config 4 at 32,768: {kern} {v} not "
                                f"launched: {launches}")
-    if not sweeps:
-        raise RuntimeError("config 4 at 32,768: no event ran")
+    if len(events) < 2 or not all(ok for _, ok in events):
+        raise RuntimeError(f"config 4 at 32,768: events {events}")
+    if r.state.step != 100:
+        raise RuntimeError(f"config 4 at 32,768 stopped at {r.state.step}")
     check_rows("deck bethe_density n=32768", r.thermo_rows)
     del r
     shutil.rmtree(d)
@@ -1836,6 +1873,249 @@ def config4_deck_checks(card_name: str) -> None:
         raise RuntimeError("config 4 with special exclusions ran on the "
                            "card without excl_delta")
     shutil.rmtree(d)
+
+
+TABLE_DECKS = (("spline", 2000), ("bitmap", 12))   # BITMAP: its index bits
+TILT = (0.1, -0.05, 0.08)                           # × the box length
+
+
+def fit_gate(runner) -> float:
+    """The JAX package's kernel-vs-reference pe gate for a fitted bank,
+    max(3e-5, 5 × the fit's max relative error)."""
+    return max(3e-5, 5.0 * float(runner.sim.pair_params.cheb.max_rel_err
+                                 .max()))
+
+
+def run_styled_deck(path: str, label: str, n: int):
+    """Run a deck line by line on the card, the launch counts set to 0
+    just before its ``run`` and read just after; the ``pair path:`` line
+    logged, the rows finite with no pair outside the tables.  Returns
+    (runner, launches, seconds of the run, stepping Throughput)."""
+    logs = []
+    r = deck_runner(Path(path).parent, logs)
+    counters = launch_counters()
+    for line in deck_lines(open(path).read()):
+        if line.split()[0] == "run":
+            zero_launches(counters)
+            with stepping_time(n) as stepping:
+                _, sec = synced(lambda: r.command(line))
+            launches = read_launches(counters)
+        else:
+            r.command(line)
+    if f"pair path: {r.pair_path}" not in logs:
+        raise RuntimeError(f"{label}: no pair-path log line")
+    check_rows(label, r.thermo_rows)
+    return r, launches, sec, stepping
+
+
+def table_decks(card_name: str, deck_steps_s: float, n: int = 2**20,
+                nsteps: int = 200):
+    """Phase 24: the UCG-LD deck at 2^20 with ``spline 2000``, then with
+    ``bitmap 12`` on the same data file (its sha256 printed and checked
+    the same; ``run 200``, ``thermo 100``, no
+    dumps): K1 named and launched (full and without scores only), finite
+    rows, no pair outside the tables, the fit's degree and error, the
+    stepping's steps/s beside phase 21's, the column slots, and K1 against
+    its twin on the state reached (``@spline``, ``@bitmap``).  The Bethe
+    deck with ``spline`` at 32,768 on K2 the same way; a ``lookup 2000``
+    UCG-LD deck at 32,768 on the reference path, K1 launched 0 times; each
+    of the four at 4,096 to step 0 on the card against the float64
+    reference path on the CPU (pe gate max(3e-5, 5 × fit error), LOOKUP
+    phase 3's 1e-5).  Returns ({tabstyle: K1 launches}, {tabstyle: K1 vs
+    twin}, K2 launches, {variant: K2 vs twin})."""
+    from lammps_ucg_dev_tpu_torch.ops import hopper_bethe as hb
+    from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+    from lammps_ucg_dev_tpu_torch.tools import make_deck
+
+    d = DECK_DIR / "tables"
+    k1_launches, k1, data_hash = {}, {}, set()
+    for tabstyle, length in TABLE_DECKS:
+        t0 = time.perf_counter()
+        path = make_deck.write_ucgld_deck(
+            str(d), n=n, nsteps=nsteps, thermo_every=100, tabstyle=tabstyle,
+            tablength=length)
+        t_deck = time.perf_counter() - t0
+        digest = hashlib.sha256((d / "system.data").read_bytes()).hexdigest()
+        data_hash.add(digest)
+        label = f"deck {tabstyle} n={n}"
+        log(f"[{label}] data file sha256 {digest}")
+        if len(data_hash) != 1:
+            raise RuntimeError(f"{label}: the data file differs from the "
+                               f"first table style's")
+        r, launches, sec, stepping = run_styled_deck(path, label, n)
+        sim = r.sim
+        cheb = sim.pair_params.cheb
+        _, cl = column_state(sim)
+        spec = sim.nbr_spec
+        k1_launches[tabstyle] = launches.get("ucgld_pair", {})
+        log(f"[{label}] {r.pair_path}; slot-major {sim._slot_ok}; bank "
+            f"{sim.pair_params.bank.style} {sim.pair_params.bank.nbins} "
+            f"entries, fit degree {cheb.degree}, max rel err "
+            f"{float(cheb.max_rel_err.max()):.3e}; column spec cz {spec.cz}"
+            f", {cl.n_slots} slots; launches {json.dumps(launches)}; run "
+            f"{nsteps} steps {sec:.3f} s, stepping {stepping.elapsed:.3f} s "
+            f"= {stepping.steps_per_sec:.2f} steps/s (phase 21's linear "
+            f"deck {deck_steps_s:.2f}); deck written in {t_deck:.1f} s; on "
+            f"{card_name} (not gated)")
+        for row in r.thermo_rows:
+            log(f"[{label}] {json.dumps(row)}")
+        k = k1_launches[tabstyle]
+        if (sim.pair_compute is not hp.compute_style or "K1" not in
+                r.pair_path or not k.get("full") or not k.get("noscores")
+                or k.get("fast") or set(launches) != {"ucgld_pair"}):
+            raise RuntimeError(f"{label} did not run K1 full and without "
+                               f"scores alone: {r.pair_path} {launches}")
+        if float(cheb.max_rel_err.max()) >= 1e-4:
+            raise RuntimeError(f"{label}: the fit fails its gate")
+        k1[tabstyle] = compare_k1(sim, label, kernel_reps=20, twin_reps=1,
+                                  with_bound=True,
+                                  variants=("full", "noscores"))
+        del r, sim, cl
+    shutil.rmtree(d)
+
+    # the Bethe deck with a SPLINE bank on K2
+    d = DECK_DIR / "bethe_spline"
+    path = make_deck.write_bethe_deck(str(d), n=32768, tabstyle="spline")
+    label = "deck bethe spline n=32768"
+    r, launches, sec, _ = run_styled_deck(path, label, 32768)
+    sim = r.sim
+    k2_launches = launches.get("bethe_pair", {})
+    log(f"[{label}] {r.pair_path}; fit degree {sim.pair_params.cheb.degree}"
+        f", max rel err {float(sim.pair_params.cheb.max_rel_err.max()):.3e}"
+        f"; {r.state.step} steps in {sec:.3f} s; launches "
+        f"{json.dumps(launches)}; last row {json.dumps(r.thermo_rows[-1])}")
+    if (sim.pair_compute is not hb.compute_style_bethe
+            or not k2_launches.get("full") or not k2_launches.get("fast")):
+        raise RuntimeError(f"{label} did not run K2: {launches}")
+    state, cl = column_state(sim)
+    p = sim.pair_params
+    k2 = compare_k2(state, cl, p, label, [(p.method, p.pseudo, True),
+                                          (p.method, p.pseudo, False)],
+                    kernel_reps=20, twin_reps=1, with_bound=True)
+    k2 = {"full": k2[f"{p.method}/pseudo/full"],
+          "fast": k2[f"{p.method}/pseudo/fast"]}
+    del r, sim, state, cl
+    shutil.rmtree(d)
+
+    # LOOKUP: its staircase does not fit, so the reference path runs
+    d = DECK_DIR / "lookup"
+    path = make_deck.write_ucgld_deck(str(d), n=32768, nsteps=20,
+                                      thermo_every=10, tabstyle="lookup")
+    label = "deck lookup n=32768"
+    r, launches, sec, _ = run_styled_deck(path, label, 32768)
+    log(f"[{label}] {r.pair_path}; {r.state.step} steps in {sec:.3f} s; "
+        f"launches {json.dumps(launches)}; last row "
+        f"{json.dumps(r.thermo_rows[-1])}")
+    if "reference PyTorch pair path" not in r.pair_path or launches:
+        raise RuntimeError(f"{label}: {r.pair_path}, launches {launches}")
+    del r
+    shutil.rmtree(d)
+
+    for name, make, gate, entry in (
+            ("ucgld spline", lambda o: make_deck.write_ucgld_deck(
+                str(o), n=4096, nsteps=0, tabstyle="spline"),
+             fit_gate, "compute_style"),
+            ("ucgld bitmap", lambda o: make_deck.write_ucgld_deck(
+                str(o), n=4096, nsteps=0, tabstyle="bitmap", tablength=12),
+             fit_gate, "compute_style"),
+            ("bethe spline", lambda o: make_deck.write_bethe_deck(
+                str(o), n=4096, nsteps=0, tabstyle="spline"),
+             fit_gate, "compute_style_bethe"),
+            ("ucgld lookup", lambda o: make_deck.write_ucgld_deck(
+                str(o), n=4096, nsteps=0, tabstyle="lookup"), 1e-5, None)):
+        deck_step0(name.replace(" ", "_"), make, gate, entry)
+    return k1_launches, k1, k2_launches, k2
+
+
+def tilted_deck(d: Path, n: int, nsteps: int) -> str:
+    """The UCG-LD deck under NVE (Langevin off, no ucgstate, dt 0.002,
+    thermo 10) in a box tilted by ``xy xz yz`` = TILT × L."""
+    from lammps_ucg_dev_tpu_torch.tools import make_deck
+
+    path = make_deck.write_ucgld_deck(str(d), n=n, nsteps=nsteps,
+                                      thermo_every=10, dt=0.002,
+                                      thermostat=False, tilt=TILT)
+    with open(path) as fh:
+        text = "".join(ln for ln in fh if not ln.startswith("fix 3"))
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def triclinic_and_switches(device: str, card_name: str,
+                           n: int = 32768) -> None:
+    """Phase 25.  (a) The tilted UCG-LD deck at ``n`` on the card: the
+    runner takes the nsq reference path (logged), rows finite, and the NVE
+    drift of the JAX ``bench.run_drift`` protocol (``run 10`` then ``run
+    180``, H = etotal + Σ λ μ_diff) under 1e-4; at 4,096 to step 0 against
+    the float64 reference path on the CPU at phase 3's 1e-5.  (b)
+    ``sort_atoms`` on against off on the flagship's cell reference path at
+    ``n`` (a rebuild every block of 10), 20 steps: x by tag within 1e-5 of
+    the box."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch import flagship
+
+    d = DECK_DIR / "tilted"
+    path = tilted_deck(d, n, 190)
+    logs = []
+    r = deck_runner(d, logs)
+    for line in deck_lines(open(path).read()):
+        if line.split()[0] != "run":
+            r.command(line)
+
+    def hamiltonian():
+        tp, st = r.sim.pair_params.tp, r.state
+        mu = torch.where(tp.n_states[st.typ] > 1,
+                         st.ucgl * tp.mu_diff[st.typ], 0.0)
+        return r.thermo_rows[-1]["etotal"] + float(mu.sum())
+
+    _, sec0 = synced(lambda: r.command("run 10"))
+    e0 = hamiltonian()
+    _, sec1 = synced(lambda: r.command("run 180"))
+    e1 = hamiltonian()
+    drift = abs(e1 - e0) / max(abs(e0), 1e-12)
+    log(f"[deck tilted n={n}] {r.pair_path}; tilt "
+        f"{r.state.box.tilt.tolist()}; steps {r.state.step} in "
+        f"{sec0 + sec1:.3f} s on {card_name}; H0 {e0:.9f} H1 {e1:.9f} drift "
+        f"{drift:.6e} (limit {DRIFT_MAX:g}); last row "
+        f"{json.dumps(r.thermo_rows[-1])}")
+    if (r.sim.nbr_spec.method != "nsq" or "on a nsq list" not in r.pair_path
+            or not r.state.box.is_triclinic):
+        raise RuntimeError(f"the tilted deck did not take nsq: {r.pair_path}")
+    check_rows(f"deck tilted n={n}", r.thermo_rows)
+    if r.state.step != 190 or not drift < DRIFT_MAX:
+        raise RuntimeError(f"tilted NVE drift {drift} exceeds {DRIFT_MAX}")
+    del r
+    shutil.rmtree(d)
+    deck_step0("tilted", lambda o: tilted_deck(o, 4096, 0), 1e-5, None)
+
+    sims = []
+    for sort in (False, True):
+        sim = flagship.build_sim(n=n, device=device, kernel=False,
+                                 reneigh_every=10)
+        sim.cfg = dataclasses.replace(sim.cfg, sort_atoms=sort,
+                                      reneigh_check=False)
+        if sim.nbr_spec.method != "cell":
+            raise RuntimeError("sort_atoms leg: not on the cell list")
+        _, sec = synced(lambda: sim.run(20))
+        sims.append((sim, sec))
+    (a, sa), (b, sb) = sims
+    ia = torch.argsort(a.state.tag.long())
+    ib = torch.argsort(b.state.tag.long())
+    L = a.state.box.lengths
+    dx = a.state.box.min_image(a.state.x[ia] - b.state.x[ib]).abs().max()
+    dv = float((a.state.v[ia] - b.state.v[ib]).abs().max())
+    moved = int((b.state.tag != torch.arange(1, n + 1, device=device,
+                                             dtype=torch.int32)).sum())
+    err = float(dx / L.min())
+    log(f"[sort_atoms n={n}] 20 steps on the cell reference path: off "
+        f"{sa:.3f} s, on {sb:.3f} s; rows moved by the sort "
+        f"{moved}; by tag max|dx|/L {err:.3e}, max|dv| {dv:.3e}")
+    if moved == 0 or not err <= 1e-5:
+        raise RuntimeError(f"sort_atoms: rows moved {moved}, x differs by "
+                           f"{err} of the box")
+
 
 def deck_fingerprint() -> None:
     """The ``verify`` skill's deck fingerprint on the card:
@@ -2124,7 +2404,8 @@ def main() -> int:
     check_tetramers(device)
 
     # ---- 21. the flagship deck at 2^20 through ScriptRunner -------------
-    k1_deck_launches, k1_deck = run_deck_flagship(card_name, ucgld_steps_s)
+    k1_deck_launches, k1_deck, deck_steps_s = run_deck_flagship(
+        card_name, ucgld_steps_s)
 
     # ---- 22. restart continuity -------------------------------------------
     deck_restart_continuity()
@@ -2133,6 +2414,13 @@ def main() -> int:
     other_decks(card_name)
     config4_deck_checks(card_name)
     deck_fingerprint()
+
+    # ---- 24. SPLINE, BITMAP and LOOKUP decks ----------------------------
+    k1_tab_launches, k1_tab, k2_tab_launches, k2_tab = table_decks(
+        card_name, deck_steps_s)
+
+    # ---- 25. a tilted box, and the driver's switches --------------------
+    triclinic_and_switches(device, card_name)
     shutil.rmtree(DECK_DIR, ignore_errors=True)
 
     log(f"K1 fast variant (not on the UCG-LD main path under ucgstate ld): "
@@ -2155,10 +2443,16 @@ def main() -> int:
                + [entry(f"ucgld_pair[{v}]@deck", K1_SOURCE,
                         k1_deck_launches[v], k1_deck[v])
                   for v in ("full", "noscores")]
+               + [entry(f"ucgld_pair[{v}]@{t}", K1_SOURCE,
+                        k1_tab_launches[t][v], k1_tab[t][v])
+                  for t, _ in TABLE_DECKS for v in ("full", "noscores")]
                + [entry(f"ucgld_pair[{v}]@molecular", K1_SOURCE,
                         mol_launches[v], k1_mol[v])
                   for v in ("full", "noscores")]
                + [entry(f"bethe_pair[{v}]", K2_SOURCE, k2_launches[v], k2[v])
+                  for v in ("full", "fast")]
+               + [entry(f"bethe_pair[{v}]@spline", K2_SOURCE,
+                        k2_tab_launches[v], k2_tab[v])
                   for v in ("full", "fast")]
                + [entry(f"dbethe_pair[{v}]" + at, K2_SOURCE,
                         launch[p]["dbethe_pair"][v],

@@ -13,7 +13,8 @@ UCG package touches, so a reference input deck drives the port directly:
     read_data / write_data / read_restart / write_restart
     mass, timestep, neighbor, neigh_modify, velocity
     pair_style  table_ucgld | table_ucg_bethe | table_ucg_bethe_density |
-                table_rleucg_interface   (with their keyword grammars,
+                table_rleucg_interface   lookup | linear | spline | bitmap N
+                (with their keyword grammars,
                 pair_table_ucgld.cpp:654-716, pair_table_ucg_bethe.cpp:746-886)
     pair_coeff  (multi-table UCG grammar, pair_table_ucgld.cpp:719-746;
                 stock single-table grammar for rleucg_interface)
@@ -31,8 +32,15 @@ UCG package touches, so a reference input deck drives the port directly:
 
 Each ``run`` builds a ``Simulation`` and selects the style's hand-written
 kernels through ``ops/kernel_select.select_pair_kernel`` (on a CUDA device
-in float32; on the CPU it declines and the reference pair path runs); one
-log line names the pair path taken.
+in float32, for an orthogonal box and a LINEAR, SPLINE or BITMAP table
+that fits; on the CPU it declines and the reference pair path runs); one
+log line names the pair path taken.  A tilted box (``read_data`` with an
+``xy xz yz`` line, or a restart with a tilt) switches the neighbor method
+to ``nsq``.  Special exclusions on a style without an ``excl_delta``
+(``table_ucg_bethe_density``, ``table_rleucg_interface``) run on the
+reference path, whose list leaves the specials out, where the selection
+declines (the CPU); where it selects the kernels they raise
+NotImplementedError.
 
 Random state (the port's own, not the JAX package's threefry key, F1).  The
 runner owns the generators: one for the Langevin noise, the noisy Bethe
@@ -53,10 +61,7 @@ trajectory bit for bit.  A restart without them (the JAX package's)
 restarts the streams from the deck's seed, with a log line.
 
 Not ported: more than one device (``processors`` above 1 raises until the
-multi-GPU drivers land), tilted boxes (raise), non-LINEAR tables (raise in
-``ops/table.py``), special exclusions on the kernel paths of
-``table_ucg_bethe_density`` and ``table_rleucg_interface``, which have no
-``excl_delta`` (raise; the reference path on the CPU takes them).
+multi-GPU drivers land).
 """
 
 from __future__ import annotations
@@ -312,13 +317,15 @@ class ScriptRunner:
 
     def _cmd_read_data(self, a):
         df = dio.read_data(self._path(a[0]), atom_style=self.atom_style)
-        if df.box_tilt is not None:
-            raise NotImplementedError(
-                "triclinic (tilted) boxes are not ported yet: the data "
-                "file has an 'xy xz yz' line")
         self.datafile = df
         box = Box.create(df.box_lo, df.box_hi, periodic=self.boundary,
-                         dtype=self.dtype, device=self.device)
+                         dtype=self.dtype, device=self.device,
+                         tilt=df.box_tilt)
+        if df.box_tilt is not None:
+            # triclinic: only the all-pairs list takes the tilted min-image
+            # (the cell list, the column list and the kernels are
+            # orthogonal)
+            self.neighbor_method = "nsq"
         state = SimState.create(
             x=df.x, v=df.v, typ=df.typ, mol=df.mol, q=df.q,
             ucgstate=df.ucgstate, ucgl=df.ucgl, ucgvl=df.ucgvl,
@@ -333,6 +340,8 @@ class ScriptRunner:
             self._path(a[0]), dtype=self.dtype, device=self.device)
         n = self.state.n_atoms
         ntypes = int(self.state.typ.max())
+        if self.state.box.is_triclinic:
+            self.neighbor_method = "nsq"     # as read_data's tilted box
         if "units" in settings and settings["units"] != self.units:
             raise ValueError(
                 f"restart was written with units {settings['units']!r}, "
@@ -745,14 +754,17 @@ class ScriptRunner:
             rates = _read_rates_file(self._path(kw["rateFile"]))
             contacts = _read_contacts_file(self._path(kw["contactFile"]))
             maxmol = int(self.state.mol.max())
-            # max_sweeps stays at make_params' 64, as the JAX runner
-            # leaves it (a spanning cluster can need more: the event then
-            # raises)
+            # the reference propagates labels until no change
+            # (fix_cluster_switch.cpp:596-685); a label moves one contact
+            # a sweep, so n + 1 sweeps always reach the fixpoint, and a
+            # converged event reads its flag every 16 sweeps whatever the
+            # cap (make_params' 64 raised from a few thousand beads)
             params = make(
                 ntypes=self.system.ntypes, contacts=contacts,
                 atomtypes_on=rates["on"], atomtypes_off=rates["off"],
                 probON=rates["probON"], cutoff=cutoff, mol_seed=mol_seed,
-                mol_offset=mol_offset, maxmol=maxmol, dtype=self.dtype,
+                mol_offset=mol_offset, maxmol=maxmol,
+                max_sweeps=self.state.n_atoms + 1, dtype=self.dtype,
                 device=self.device)
             self.cswitch = (params, freq)
             self._cswitch_args = list(rest)
@@ -890,7 +902,8 @@ class ScriptRunner:
         # device in f32; bonded terms add to it, special exclusions are
         # subtracted through the style's excl_delta (table_ucgld,
         # table_ucg_bethe; the other styles raise), and the cluster_switch
-        # event builds its own contact list
+        # event builds its own contact list.  Where the selection declines
+        # (the CPU), the reference list leaves the specials out
         topo = bparams is not None or excl is not None
         sel = select_pair_kernel(pair_params, self.state, cutoff, self.skin)
         if (sel is not None and excl is not None and np.any(excl)

@@ -30,7 +30,7 @@ from lammps_ucg_dev_tpu_torch.models.typemap import UCGTypeParams
 from lammps_ucg_dev_tpu_torch.ops.chebtab import ChebBank
 from lammps_ucg_dev_tpu_torch.ops.clusters import CL as CLUSTER_SLOTS
 from lammps_ucg_dev_tpu_torch.ops.clusters import ClusterList
-from lammps_ucg_dev_tpu_torch.ops.table import LINEAR, TableBank
+from lammps_ucg_dev_tpu_torch.ops.table import BITMAP, SPLINE, TableBank
 
 
 def as_numpy_dict(obj):
@@ -52,15 +52,29 @@ def _float_dtype(a) -> torch.dtype:
 
 
 def bank_from_numpy(d: dict, device="cuda") -> TableBank:
+    """``d`` = as_numpy_dict(JAX TableBank), any style.  SPLINE keeps e2
+    and f2; BITMAP's bin edges and widths come from channels 4 and 5 of
+    the JAX bank's ``packed`` (T*L, 6) rows, its masks from nmask and
+    nshiftbits."""
     device = resolve_device(device)
-    if d["style"] != LINEAR:
-        raise NotImplementedError(f"table style {d['style']!r} is not ported")
+    style = d["style"]
     dt = _float_dtype(d["e"])
+    T, L = np.asarray(d["e"]).shape
+    kw = {}
+    if style == SPLINE:
+        kw = {k: _t(d[k], dt, device) for k in ("e2", "f2")}
+    elif style == BITMAP:
+        pk = np.asarray(d["packed"]).reshape(T, L, 6)
+        kw = dict(rsq=_t(pk[..., 4], dt, device),
+                  drsq=_t(pk[..., 5], dt, device),
+                  nmask=_t(d["nmask"], torch.int32, device),
+                  nshiftbits=_t(d["nshiftbits"], torch.int32, device))
     return TableBank(
-        style=d["style"], nbins=int(d["nbins"]),
+        style=style, nbins=int(d["nbins"]),
         **{k: _t(d[k], dt, device) for k in ("innersq", "invdelta", "delta",
-                                             "cutsq", "e", "f", "de", "df")},
-        uniform=bool(d["uniform"]))
+                                             "cutsq", "e", "f", "de", "df",
+                                             "deltasq6")},
+        uniform=bool(d["uniform"]), **kw)
 
 
 def typeparams_from_numpy(d: dict, device="cuda") -> UCGTypeParams:
@@ -156,12 +170,10 @@ def rleucg_params_from_numpy(d: dict, device="cuda") -> RLEUCGParams:
 
 
 def state_from_numpy(d: dict, device="cuda") -> SimState:
-    """``d`` = as_numpy_dict(JAX SimState) of a global (unsharded) state;
-    orthogonal boxes only."""
+    """``d`` = as_numpy_dict(JAX SimState) of a global (unsharded) state,
+    its box orthogonal or tilted."""
     device = resolve_device(device)
     box = d["box"]
-    if box.get("tilt") is not None:
-        raise NotImplementedError("triclinic boxes are not ported yet")
     if d.get("n_total", 0) not in (0, len(d["x"])):
         raise NotImplementedError("sharded (local-view) states are not ported")
     dt = _float_dtype(d["x"])
@@ -176,6 +188,8 @@ def state_from_numpy(d: dict, device="cuda") -> SimState:
         ucgl=_t(d["ucgl"], dt, device), ucgvl=_t(d["ucgvl"], dt, device),
         ucgml=_t(d["ucgml"], dt, device), ucgp=_t(d["ucgp"], dt, device),
         box=Box(lo=_t(box["lo"], dt, device), hi=_t(box["hi"], dt, device),
+                tilt=(None if box.get("tilt") is None
+                      else _t(box["tilt"], dt, device)),
                 periodic=tuple(bool(p) for p in box["periodic"])))
 
 

@@ -11,8 +11,7 @@ the reference's ``atom_style ucg`` (``UCG/atom_vec_ucg.cpp:48-90``):
 
 Differences from the JAX counterpart:
   * the step counter is a host ``int`` (the block loop runs on the host);
-  * there is no PRNG key: the ``Simulation`` owns a ``torch.Generator``;
-  * boxes are orthogonal only (triclinic boxes are not ported yet).
+  * there is no PRNG key: the ``Simulation`` owns a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -36,10 +35,15 @@ def resolve_device(device) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class Box:
-    """Orthogonal periodic simulation box."""
+    """Simulation box: orthogonal, or restricted triclinic with the LAMMPS
+    tilt factors ``tilt = (xy, xz, yz)`` (cell vectors a = (lx, 0, 0),
+    b = (xy, ly, 0), c = (xz, yz, lz)).  Tilted boxes run on the ``nsq``
+    neighbor path; the cell list, the column list and the kernels take
+    orthogonal boxes only, as in the JAX package."""
 
     lo: torch.Tensor   # (3,)
     hi: torch.Tensor   # (3,)
+    tilt: torch.Tensor | None = None   # (3,) = (xy, xz, yz); None: orthogonal
     periodic: tuple = (True, True, True)
 
     @property
@@ -48,36 +52,74 @@ class Box:
 
     @property
     def is_triclinic(self) -> bool:
-        return False
+        return self.tilt is not None
 
     def min_image(self, dr: torch.Tensor) -> torch.Tensor:
-        """Minimum-image displacement.  A fully periodic box skips the
-        per-axis mask (multiplying by 1.0 changes no bit)."""
+        """Minimum-image displacement.  A fully periodic orthogonal box
+        skips the per-axis mask (multiplying by 1.0 changes no bit).  A
+        tilted box takes the sequential z→y→x rounds of LAMMPS
+        ``Domain::minimum_image``, in the JAX package's order: exact for
+        tilts within the LAMMPS bounds and a cutoff below half the least
+        perpendicular width."""
         L = self.lengths
-        if all(self.periodic):
-            return dr - L * torch.round(dr / L)
-        per = torch.tensor(self.periodic, dtype=dr.dtype, device=dr.device)
-        return dr - per * L * torch.round(dr / L)
+        if self.tilt is None:
+            if all(self.periodic):
+                return dr - L * torch.round(dr / L)
+            per = torch.tensor(self.periodic, dtype=dr.dtype,
+                               device=dr.device)
+            return dr - per * L * torch.round(dr / L)
+        px, py, pz = (float(p) for p in self.periodic)
+        xy, xz, yz = self.tilt[0], self.tilt[1], self.tilt[2]
+        nz = pz * torch.round(dr[..., 2] / L[2])
+        dx = dr[..., 0] - nz * xz
+        dy = dr[..., 1] - nz * yz
+        dz = dr[..., 2] - nz * L[2]
+        ny = py * torch.round(dy / L[1])
+        dx = dx - ny * xy
+        dy = dy - ny * L[1]
+        nx = px * torch.round(dx / L[0])
+        dx = dx - nx * L[0]
+        return torch.stack([dx, dy, dz], dim=-1)
 
     def wrap(self, x: torch.Tensor, image: torch.Tensor | None = None):
-        """Wrap positions into the primary cell; update image flags."""
+        """Wrap positions into the primary cell; update image flags.  A
+        tilted box wraps in fractional coordinates (the analytic inverse
+        of the upper-triangular H) and shifts by whole cell vectors."""
         L = self.lengths
-        shift = torch.floor((x - self.lo) / L)
+        if self.tilt is None:
+            shift = torch.floor((x - self.lo) / L)
+        else:
+            xy, xz, yz = self.tilt[0], self.tilt[1], self.tilt[2]
+            d = x - self.lo
+            sz = d[..., 2] / L[2]
+            sy = (d[..., 1] - yz * sz) / L[1]
+            sx = (d[..., 0] - xy * sy - xz * sz) / L[0]
+            shift = torch.floor(torch.stack([sx, sy, sz], dim=-1))
         if not all(self.periodic):
             per = torch.tensor(self.periodic, device=x.device)
             shift = torch.where(per[None, :], shift, torch.zeros_like(shift))
-        x_w = x - shift * L
+        if self.tilt is None:
+            x_w = x - shift * L
+        else:
+            # shift @ H.T for the cell matrix H with columns (a, b, c),
+            # written out (no GEMM, so no TF32 rounding on the card)
+            x_w = x - torch.stack([
+                shift[:, 0] * L[0] + shift[:, 1] * xy + shift[:, 2] * xz,
+                shift[:, 1] * L[1] + shift[:, 2] * yz,
+                shift[:, 2] * L[2]], dim=-1)
         if image is None:
             return x_w
         return x_w, image + shift.to(image.dtype)
 
     @staticmethod
     def create(lo, hi, periodic=(True, True, True), dtype=torch.float32,
-               device="cpu") -> "Box":
-        return Box(lo=torch.as_tensor(np.asarray(lo, np.float64), dtype=dtype,
-                                      device=device),
-                   hi=torch.as_tensor(np.asarray(hi, np.float64), dtype=dtype,
-                                      device=device),
+               device="cpu", tilt=None) -> "Box":
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                                   device=device)
+
+        return Box(lo=t(lo), hi=t(hi),
+                   tilt=None if tilt is None else t(tilt),
                    periodic=tuple(bool(p) for p in periodic))
 
 
@@ -116,6 +158,15 @@ class SimState:
     @property
     def device(self) -> torch.device:
         return self.x.device
+
+    def permute(self, order: torch.Tensor) -> "SimState":
+        """The atoms reordered by ``order`` (e.g. by cell, for locality);
+        ``tag`` keeps each atom's identity, like LAMMPS's atom tags under
+        sorting."""
+        per_atom = ("x", "v", "tag", "typ", "mol", "q", "image", "ucgstate",
+                    "ucgl", "ucgvl", "ucgml", "ucgp")
+        return dataclasses.replace(self, **{
+            f: getattr(self, f)[order] for f in per_atom})
 
     @staticmethod
     def create(x, v=None, typ=None, tag=None, mol=None, q=None,

@@ -314,9 +314,9 @@ def build_density_sim(n: int = 512, dtype=torch.float32, device="cuda",
     :func:`build_sim`, selecting K5, K3 and K6 (ops/hopper_density.py).
     ``cluster_switch``: the deck's ``fix cluster_switch 1 0 1.3 16
     rateFreq 20`` (probON 0.5, ON type 2, OFF type 1, contacts (2, 2),
-    maxmol n).  The deck leaves ``max_sweeps`` at ``make_params``'s 64,
-    which a spanning cluster outgrows (a label moves one contact a sweep);
-    this builder passes n + 1, which always reaches the fixpoint."""
+    maxmol n), with ``max_sweeps`` n + 1 as the deck runner passes: a
+    label moves one contact a sweep, so that always reaches the fixpoint
+    (``make_params``' default 64 is outgrown by a spanning cluster)."""
     device = resolve_device(device)
     a = density_arrays(n)
     st = parse_state_settings(DENSITY_SETTINGS, "bethe_density")

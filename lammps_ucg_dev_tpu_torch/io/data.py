@@ -12,9 +12,9 @@ atom_vec_ucg.cpp:145-170).
 
 Bond/angle/dihedral/improper sections are parsed and retained for topology
 completeness (the reference atom style allows them; its pair styles ignore
-them).  A tilted box (``xy xz yz``) is parsed into ``box_tilt``; the port's
-boxes are orthogonal, so the deck runner refuses it.  ``write_data`` takes
-the port's SimState (tensors on any device).
+them).  A tilted box (``xy xz yz``) is parsed into ``box_tilt`` and
+written back from the box's ``tilt``.  ``write_data`` takes the port's
+SimState (tensors on any device).
 """
 
 from __future__ import annotations
@@ -229,7 +229,7 @@ def write_data(path: str, state, system, comment: str = "",
     n = x.shape[0]
     lo = host(state.box.lo)
     hi = host(state.box.hi)
-    tilt = getattr(state.box, "tilt", None)
+    tilt = state.box.tilt
     topo_rows = []
     if topology is not None:
         for name, rows in (("Bonds", topology.bonds),

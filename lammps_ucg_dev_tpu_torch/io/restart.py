@@ -5,10 +5,11 @@ The reference's restart persists the per-atom UCG fields
 (atom_vec_ucg.cpp:85) and only the pair-style SETTINGS (tables must be
 re-declared after restart, pair_table_ucgld.cpp:1431-1471).  A restart file
 is one .npz of the full SimState (positions, velocities, types, molecules,
-charges, images, all UCG fields, step, box), the pair-style SETTINGS
-(style name, tabstyle, tablength), units and per-type masses, and optional
-``extra_`` entries (fix state).  Its fields, dtypes and ``_VERSION`` are the
-JAX package's, so each package reads the other's file.
+charges, images, all UCG fields, step, box with its tilt), the pair-style
+SETTINGS (style name, tabstyle, tablength), units and per-type masses, and
+optional ``extra_`` entries (fix state).  Its fields, dtypes and
+``_VERSION`` are the JAX package's, so each package reads the other's
+file.
 
 The random state does not convert (a JAX threefry key against a
 ``torch.Generator``).  The JAX reader requires a ``key``, so this writer
@@ -61,7 +62,8 @@ def write_restart(path: str, state: SimState, extra: dict | None = None,
         "box_lo": host(state.box.lo),
         "box_hi": host(state.box.hi),
         "box_periodic": np.asarray(state.box.periodic),
-        "box_tilt": np.zeros(0),
+        "box_tilt": (host(state.box.tilt) if state.box.tilt is not None
+                     else np.zeros(0)),
     }
     for k, v in (extra or {}).items():
         arrays[f"extra_{k}"] = host(v)
@@ -80,21 +82,20 @@ def read_restart_all(path: str, dtype=torch.float32, device="cuda"):
     """Returns (SimState, extra_dict, settings_dict) from ONE archive read
     (large restarts decompress the full per-atom state; loading twice to
     split state from settings would double that cost).  The state lands on
-    ``device`` (the card unless told ``device="cpu"``).  A tilted box
-    raises: the port's boxes are orthogonal."""
+    ``device`` (the card unless told ``device="cpu"``); a ``box_tilt`` of
+    three values makes the box triclinic."""
     device = resolve_device(device)
     z = np.load(path, allow_pickle=False)
     if int(z["version"]) != _VERSION:
         raise ValueError(f"unsupported restart version {int(z['version'])}")
-    if "box_tilt" in z.files and z["box_tilt"].size == 3:
-        raise NotImplementedError(
-            "triclinic (tilted) boxes are not ported yet")
 
     def t(name, dt):
         return torch.as_tensor(z[name], dtype=dt, device=device)
 
     i32 = torch.int32
+    tilted = "box_tilt" in z.files and z["box_tilt"].size == 3
     box = Box(lo=t("box_lo", dtype), hi=t("box_hi", dtype),
+              tilt=t("box_tilt", dtype) if tilted else None,
               periodic=tuple(bool(p) for p in z["box_periodic"]))
     n = z["x"].shape[0]
     state = SimState(

@@ -53,9 +53,10 @@ def eval_state_block(bank: TableBank, tp: UCGTypeParams, ti: torch.Tensor,
 
     ti: (N, 1) actual types of i (broadcast), tj: (N, K) of j.
     Returns (e4, fp4, oob_lo, oob_hi): e4/fp4 have shape (N, K, 2, 2) with
-    axes [..., si, sj], zeroed outside ``within``.  With a uniform bank the
-    range flags are the same for all four combinations, so each pair counts
-    once (the JAX package's gather path); otherwise each combination
+    axes [..., si, sj], zeroed outside ``within``.  With a uniform bank
+    (LINEAR only, ``TableBank.from_built``) the range flags are the same
+    for all four combinations, so each pair counts once (the JAX package's
+    gather path); otherwise, every other style included, each combination
     counts.
     """
     t4 = take2d(tp.tab4, ti.expand_as(tj), tj)              # (N, K, 2, 2)

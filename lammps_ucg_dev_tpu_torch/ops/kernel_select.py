@@ -13,16 +13,17 @@ Eligibility (all must hold; otherwise the style's reference pair path,
 * the style's ``supports*`` gate (ops/hopper_pair.py, hopper_bethe.py,
   hopper_density.py, hopper_rleucg.py);
 * an orthogonal box with at least 3x3 columns (``colpack.measure_spec``);
-* a Chebyshev fit of the table bank with ``max_rel_err < rel_tol``.
+* a Chebyshev fit of the table bank (LINEAR, SPLINE or BITMAP; LOOKUP's
+  staircase does not fit) with ``max_rel_err < rel_tol``.
 
 Topology composes with the kernel path, so selection ignores it (the JAX
 package's ``kernel_select.py:24-33``): bonded terms add to the pair pass
 (``models/bonded.py``), special exclusions are computed by the kernel and
 subtracted through the style's ``excl_delta`` (``table_ucgld`` and
-``table_ucg_bethe``; ``Simulation`` and the deck runner raise for the
-other styles), and the ``cluster_switch`` event builds its own contact
-list (``Simulation._cswitch_event``), so config-4 decks keep their
-kernels.
+``table_ucg_bethe``; for the other styles the deck runner drops the
+selection and takes the reference path, and ``Simulation`` raises), and
+the ``cluster_switch`` event builds its own contact list
+(``Simulation._cswitch_event``), so config-4 decks keep their kernels.
 """
 
 from __future__ import annotations

@@ -52,8 +52,13 @@ and :meth:`Simulation.resume` take a run's force carry and list-build
 positions out and back in, so a continuation resumes the same trajectory
 bit for bit instead of re-running ``setup``.
 
-Not ported yet: the ``check_safety`` and ``sort_atoms`` switches (the
-event's overflow and convergence errors always raise).
+``SimConfig.sort_atoms`` reorders the atoms by cell at each rebuild of
+the reference path's cell list (the LAMMPS atom sort; tags keep each
+atom's identity, the force carry is permuted with the rows);
+``SimConfig.check_safety=False`` skips the per-block reads of the
+neighbor overflow and danger flags and of the event's contact-list
+overflow (the event's convergence error always raises).  The box volume
+is ``prod(lengths)``, also for a restricted triclinic box.
 """
 
 from __future__ import annotations
@@ -102,6 +107,11 @@ class SimConfig:
     respa_inner: int = 1          # r-RESPA inner steps: bonded forces at the
                                   # fast level, pair at the outer one
                                   # (fix_nve_ucgld.cpp:155-173 + stock Respa)
+    check_safety: bool = True     # read the overflow and danger flags
+                                  # every block
+    sort_atoms: bool = False      # reorder atoms by cell at a rebuild of the
+                                  # reference path's cell list (LAMMPS atom
+                                  # sort; identity kept by SimState.tag)
 
     @property
     def u(self) -> units_mod.UnitSystem:
@@ -430,13 +440,27 @@ class Simulation:
 
     # ---- one block: conditional reneighbor + nsteps of Verlet -------------
 
-    def _rebuild(self, state: SimState):
+    def _rebuild(self, state: SimState, fcarry: ForceOut | None = None):
+        """(state, fcarry, list) after the PBC wrap and a rebuild; with
+        ``sort_atoms`` on the reference path's cell list, the rows (and the
+        per-atom rows of ``fcarry``) in cell order first.  ``setup``
+        passes no carry and keeps the order, as in the JAX package."""
         # PBC remap happens ONLY together with a rebuild (LAMMPS remaps at
         # reneighbor): the column list's ghost slots assume coordinates stay
         # continuous over the list's lifetime
         x_w, image = state.box.wrap(state.x, state.image)
         state = dataclasses.replace(state, x=x_w, image=image)
-        return state, self._nbr_build(state)
+        if (self.cfg.sort_atoms and fcarry is not None
+                and getattr(self.nbr_spec, "method", None) == "cell"):
+            cps = np.asarray(self.nbr_spec.cells_per_side)
+            cid, _ = nbrmod.cell_index(state.x, state.box, cps)
+            order = torch.sort(cid, stable=True).indices
+            state = state.permute(order)
+            fcarry = dataclasses.replace(fcarry, **{
+                k: getattr(fcarry, k)[order]
+                for k in ("f", "ucgforce", "scores", "ucgp")
+                if getattr(fcarry, k) is not None})
+        return state, fcarry, self._nbr_build(state)
 
     def _block(self, state: SimState, fcarry: ForceOut, run_window,
                nsteps: int, nbr=None):
@@ -444,7 +468,7 @@ class Simulation:
         if (nbr is None or not cfg.reneigh_check
                 or bool(nbrmod.displacement_check(nbr, state.x, state.box,
                                                   self.nbr_spec.skin))):
-            state, nbr = self._rebuild(state)
+            state, fcarry, nbr = self._rebuild(state, fcarry)
         if cfg.respa_inner > 1:
             state, fout = self._respa(state, fcarry, nbr, run_window, nsteps)
             danger = nbrmod.displacement_check(nbr, state.x, state.box,
@@ -554,7 +578,7 @@ class Simulation:
                        dtype=params_cs.probON.dtype, device=self.state.device)
         self.state, self.cswitch_stats, info = self._cswitch_event(
             self.state, self.cswitch_stats, u)
-        if bool(info["nbr_overflow"]):
+        if self.cfg.check_safety and bool(info["nbr_overflow"]):
             raise RuntimeError("cluster_switch contact-list capacity exceeded")
         if not info["converged"]:
             raise RuntimeError(
@@ -572,7 +596,7 @@ class Simulation:
     # ---- setup (Verlet::setup analogue) ----------------------------------
 
     def setup(self, run_window=(0, 0)):
-        state, nbr = self._rebuild(self.state)
+        state, _, nbr = self._rebuild(self.state)
         if bool(nbr.overflow):
             raise RuntimeError(f"neighbor capacity exceeded at setup (max "
                                f"occupancy {int(nbr.max_occupancy)})")
@@ -630,7 +654,8 @@ class Simulation:
             self.state, self._fcarry, self._nbr, danger = self._block(
                 self.state, self._fcarry, run_window, todo, nbr=self._nbr)
             done += todo
-            self._check_block(self._nbr, danger)
+            if self.cfg.check_safety:
+                self._check_block(self._nbr, danger)
             if thermo_every and (done % thermo_every == 0 or done == nsteps):
                 row = self.thermo()
                 self.thermo_rows.append(row)
@@ -652,7 +677,8 @@ class Simulation:
             self.state, self._fcarry, self._nbr, danger = self._block(
                 self.state, self._fcarry, run_window,
                 self.cfg.reneigh_every, nbr=self._nbr)
-            self._check_block(self._nbr, danger)
+            if self.cfg.check_safety:
+                self._check_block(self._nbr, danger)
         return self.state
 
     # ---- observables ------------------------------------------------------

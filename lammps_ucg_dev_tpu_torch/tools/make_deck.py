@@ -7,6 +7,13 @@ deck grammar matches the reference package's user surface (SURVEY.md §5):
 LAMMPS.
 
     python -m lammps_ucg_dev_tpu_torch.tools.make_deck OUTDIR [--n N] [--steps S]
+
+Beyond the JAX package's arguments, each writer takes ``tabstyle`` (the
+``pair_style`` table style, ``linear`` by default; with ``bitmap`` the
+``tablength`` is its number of index bits), and ``write_ucgld_deck`` takes
+``tilt``: the box's ``xy xz yz`` in units of its length, written to the
+data file.  The data file does not depend on ``tabstyle``: decks that
+differ only in it read the same bytes.
 """
 
 from __future__ import annotations
@@ -42,7 +49,9 @@ def write_ucgld_deck(outdir: str, n: int = 4096, rho: float = 0.6,
                      T: float = 0.8, nsteps: int = 1000, dt: float = 0.004,
                      thermo_every: int = 100,
                      seed: int = 7, mol_per: int = 1,
-                     tablength: int = 2000) -> str:
+                     tablength: int = 2000,
+                     tabstyle: str = "linear",
+                     tilt: tuple[float, float, float] | None = None) -> str:
     """Config-1/2 style deck: 2-state UCG-LD fluid (one actual type, formal
     types 1/2). Returns the input-script path."""
     os.makedirs(outdir, exist_ok=True)
@@ -65,8 +74,10 @@ def write_ucgld_deck(outdir: str, n: int = 4096, rho: float = 0.6,
     with open(os.path.join(outdir, "system.data"), "w") as fh:
         fh.write("2-state UCG-LD fluid\n\n")
         fh.write(f"{n} atoms\n1 atom types\n\n")
-        fh.write(f"0 {L:.10g} xlo xhi\n0 {L:.10g} ylo yhi\n0 {L:.10g} zlo zhi\n\n")
-        fh.write("Masses\n\n1 1.0\n\n")
+        fh.write(f"0 {L:.10g} xlo xhi\n0 {L:.10g} ylo yhi\n0 {L:.10g} zlo zhi\n")
+        if tilt is not None:
+            fh.write(" ".join(f"{t * L:.10g}" for t in tilt) + " xy xz yz\n")
+        fh.write("\nMasses\n\n1 1.0\n\n")
         fh.write("Atoms # ucg\n\n")
         lam0 = rng.uniform(0.2, 0.8, n)
         st0 = (lam0 > 0.5).astype(int)
@@ -82,7 +93,7 @@ def write_ucgld_deck(outdir: str, n: int = 4096, rho: float = 0.6,
         "boundary p p p",
         "atom_style ucg",
         "read_data system.data",
-        f"pair_style table_ucgld linear {tablength} ucg.settings",
+        f"pair_style table_ucgld {tabstyle} {tablength} ucg.settings",
         "pair_coeff 1 1 2 2 "
         f"ucg.table UCG_00 {rc} ucg.table UCG_01 {rc} "
         f"ucg.table UCG_10 {rc} ucg.table UCG_11 {rc}",
@@ -112,7 +123,8 @@ def write_bethe_deck(outdir: str, n: int = 512, rho: float = 0.5,
                      rc: float = 2.5, nsteps: int = 200, dt: float = 0.002,
                      T: float = 0.8, pseudo: str = "yes", method: str = "bethe",
                      thermo_every: int = 50, seed: int = 11,
-                     tablength: int = 1200) -> str:
+                     tablength: int = 1200,
+                     tabstyle: str = "linear") -> str:
     """Config-3 style deck: two-state self-consistent Bethe UCG +
     fix ucgstate."""
     os.makedirs(outdir, exist_ok=True)
@@ -136,7 +148,7 @@ def write_bethe_deck(outdir: str, n: int = 512, rho: float = 0.5,
                      f"{x[k, 2]:.10g} {int(lam0[k] > 0.5)} {lam0[k]:.6f} 5.0\n")
     lines = [
         "units lj", "atom_style ucg", "read_data system.data",
-        f"pair_style table_ucg_bethe linear {tablength} ucg.settings "
+        f"pair_style table_ucg_bethe {tabstyle} {tablength} ucg.settings "
         f"method {method} pseudo {pseudo} prior chemical_potential",
         "pair_coeff 1 1 2 2 "
         f"ucg.table UCG_00 {rc} ucg.table UCG_01 {rc} "
@@ -158,7 +170,8 @@ def write_bethe_density_deck(outdir: str, n: int = 512, rho: float = 0.5,
                              rc: float = 2.5, nsteps: int = 100,
                              dt: float = 0.002, T: float = 0.8,
                              switch_freq: int = 20, thermo_every: int = 50,
-                             seed: int = 13, tablength: int = 1200) -> str:
+                             seed: int = 13, tablength: int = 1200,
+                             tabstyle: str = "linear") -> str:
     """Config-4 style deck: density-dependent states (2 actual types: CG
     solvent + density-CV UCG) + fix cluster_switch."""
     os.makedirs(outdir, exist_ok=True)
@@ -188,7 +201,8 @@ def write_bethe_density_deck(outdir: str, n: int = 512, rho: float = 0.5,
                      f"{x[k, 1]:.10g} {x[k, 2]:.10g} 0 0.5 5.0\n")
     lines = [
         "units lj", "atom_style ucg", "read_data system.data",
-        f"pair_style table_ucg_bethe_density linear {tablength} ucg.settings",
+        f"pair_style table_ucg_bethe_density {tabstyle} {tablength} "
+        "ucg.settings",
         f"pair_coeff 1 1 1 1 ucg.table T11 {rc}",
         "pair_coeff 1 2 1 2 "
         f"ucg.table T12 {rc} ucg.table T13 {rc}",
@@ -212,7 +226,8 @@ def write_bethe_density_deck(outdir: str, n: int = 512, rho: float = 0.5,
 def write_rleucg_deck(outdir: str, n: int = 512, rho: float = 0.5,
                       rc: float = 2.5, nsteps: int = 100, dt: float = 0.002,
                       T: float = 0.8, thermo_every: int = 50, seed: int = 17,
-                      tablength: int = 1200) -> str:
+                      tablength: int = 1200,
+                      tabstyle: str = "linear") -> str:
     """Config-5 style deck: confined-interface RLE-UCG (substate types) +
     fix nve/ucgld/wall/hard."""
     os.makedirs(outdir, exist_ok=True)
@@ -238,7 +253,8 @@ def write_rleucg_deck(outdir: str, n: int = 512, rho: float = 0.5,
                      f"{x[k, 1]:.10g} {x[k, 2]:.10g} 0 0.5 5.0\n")
     lines = [
         "units lj", "atom_style ucg", "read_data system.data",
-        f"pair_style table_rleucg_interface linear {tablength} rle.settings",
+        f"pair_style table_rleucg_interface {tabstyle} {tablength} "
+        "rle.settings",
         f"pair_coeff 1 1 rle.table T11 {rc}",
         f"pair_coeff 1 2 rle.table T12 {rc}",
         f"pair_coeff 1 3 rle.table T13 {rc}",
@@ -262,6 +278,7 @@ def write_molecular_switch_deck(outdir: str, nmol: int = 64, rho: float = 0.1,
                                 dt: float = 0.002, T: float = 0.8,
                                 switch_freq: int = 20, thermo_every: int = 50,
                                 seed: int = 23, tablength: int = 1200,
+                                tabstyle: str = "linear",
                                 bond_r0: float = 0.9, bond_k: float = 50.0,
                                 angle_k: float = 10.0) -> str:
     """Molecular deck: 3-atom bonded molecules (A-B-C chain, 2 harmonic
@@ -318,7 +335,7 @@ def write_molecular_switch_deck(outdir: str, nmol: int = 64, rho: float = 0.1,
 
     lines = [
         "units lj", "atom_style ucg", "read_data system.data",
-        f"pair_style table_ucgld linear {tablength} mol.settings",
+        f"pair_style table_ucgld {tabstyle} {tablength} mol.settings",
         f"pair_coeff 1 1 1 1 mol.table T11 {rc}",
         f"pair_coeff 1 2 1 1 mol.table T12 {rc}",
         f"pair_coeff 2 2 1 1 mol.table T22 {rc}",
@@ -345,6 +362,7 @@ def write_molecular_ucgld_deck(outdir: str, nmol: int = 256,
                                nsteps: int = 200, dt: float = 0.002,
                                thermo_every: int = 50, seed: int = 31,
                                tablength: int = 2000,
+                               tabstyle: str = "linear",
                                bond_r0: float = 0.9, bond_k: float = 50.0,
                                angle_k: float = 10.0) -> str:
     """Molecular UCG-LD deck: bent trimers of ONE 2-state UCG type under
@@ -404,7 +422,7 @@ def write_molecular_ucgld_deck(outdir: str, nmol: int = 256,
     lines = [
         "# molecular 2-state UCG-LD trimers (bonded + exclusion + kernel)",
         "units lj", "atom_style ucg", "read_data system.data",
-        f"pair_style table_ucgld linear {tablength} ucg.settings",
+        f"pair_style table_ucgld {tabstyle} {tablength} ucg.settings",
         "pair_coeff 1 1 2 2 "
         f"ucg.table UCG_00 {rc} ucg.table UCG_01 {rc} "
         f"ucg.table UCG_10 {rc} ucg.table UCG_11 {rc}",
@@ -430,7 +448,8 @@ def write_molecular_tetramer_deck(outdir: str, nmol: int = 128,
                                   lam_mass: float = 5.0, T: float = 0.8,
                                   nsteps: int = 200, dt: float = 0.002,
                                   thermo_every: int = 50, seed: int = 37,
-                                  tablength: int = 2000) -> str:
+                                  tablength: int = 2000,
+                                  tabstyle: str = "linear") -> str:
     """Tetramer chains with the FULL molecular topology surface: harmonic
     bonds + angles + dihedrals + impropers and the LAMMPS-default 1-2/1-3/1-4
     special exclusions — the complete `atom_style ucg` molecular deck
@@ -502,7 +521,7 @@ def write_molecular_tetramer_deck(outdir: str, nmol: int = 128,
     lines = [
         "# tetramer UCG-LD chains: bonds + angles + dihedrals + impropers",
         "units lj", "atom_style ucg", "read_data system.data",
-        f"pair_style table_ucgld linear {tablength} ucg.settings",
+        f"pair_style table_ucgld {tabstyle} {tablength} ucg.settings",
         "pair_coeff 1 1 2 2 "
         f"ucg.table UCG_00 {rc} ucg.table UCG_01 {rc} "
         f"ucg.table UCG_10 {rc} ucg.table UCG_11 {rc}",

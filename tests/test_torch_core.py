@@ -285,12 +285,22 @@ def test_convert_params_match_port_build():
 
 
 def test_non_linear_tables_not_ported():
+    """Every table style builds as in the JAX package (the full parity is
+    tests/test_torch_table.py); what neither package ports is a
+    BITMAP-spaced table FILE, which raises in both."""
+    from lammps_ucg_dev_tpu.io import table_io as jtio
+    from lammps_ucg_dev_tpu.ops.table import build_table as jbuild
+    from lammps_ucg_dev_tpu_torch.io import table_io as ttio
     from lammps_ucg_dev_tpu_torch.ops.table import build_table
 
     tb = helpers.make_soft_table(1.0, 2.5)
-    for style in ("spline", "lookup", "bitmap"):
+    for style, length in (("spline", 1000), ("lookup", 1000), ("bitmap", 12)):
+        np.testing.assert_array_equal(build_table(tb, style, length, 2.5).e,
+                                      jbuild(tb, style, length, 2.5).e)
+    for build, io in ((build_table, ttio), (jbuild, jtio)):
+        bmp = io.RawTable(r=tb.r, e=tb.e, f=tb.f, rflag=io.BMP)
         with pytest.raises(NotImplementedError):
-            build_table(tb, style, 1000, 2.5)
+            build(bmp, "bitmap", 12, 2.5)
 
 
 def _builder_calls():

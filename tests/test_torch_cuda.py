@@ -229,6 +229,48 @@ def test_k2_matches_twin_on_bethe_system(device, method, pseudo, observe):
     k2_vs_twin(sim.state, cl, params, observe)
 
 
+TABLE_STYLES = [("spline", 2000), ("bitmap", 12)]
+
+
+def styled_params(sim, tabstyle, tablength):
+    """``sim``'s pair params with a two-state bank of ``tabstyle`` (the
+    deck's soft tables), through the kernel selection: (params, list)."""
+    b = TablePairBuilder(tabstyle, tablength, parse_state_settings(
+        "1 2 2\n1 2\n1 2\n0.0 0.3\n", "ucgld"))
+    b.pair_coeff(1, 1, 2, 2, [(soft_table(e, n=2000), 2.5)
+                              for e in (1.0, 0.6, 0.6, 0.25)])
+    bank, _ = b.build(device=sim.state.device)
+    assert bank.style == tabstyle and not bank.uniform
+    params = dataclasses.replace(sim.pair_params, bank=bank, cheb=None)
+    sel = select_pair_kernel(params, sim.state, 2.5, 0.4)
+    assert sel is not None and sel[0] is sim.pair_compute
+    _, spec, params = sel
+    assert float(params.cheb.max_rel_err.max()) < 1e-4
+    return params, colpack.build(sim.state.x, sim.state.box, spec)
+
+
+@pytest.mark.parametrize("name,observe,scores", VARIANTS)
+@pytest.mark.parametrize("tabstyle,tablength", TABLE_STYLES)
+def test_k1_matches_twin_with_table_styles(device, tabstyle, tablength, name,
+                                           observe, scores):
+    """K1 on SPLINE and BITMAP banks (their Chebyshev fits), 32,768
+    beads."""
+    sim = flagship.build_sim(n=32768, device=device)
+    params, cl = styled_params(sim, tabstyle, tablength)
+    kernel_vs_twin(sim.state, cl, params, observe, scores)
+
+
+@pytest.mark.parametrize("observe", [True, False])
+@pytest.mark.parametrize("tabstyle,tablength", TABLE_STYLES)
+def test_k2_matches_twin_with_table_styles(device, tabstyle, tablength,
+                                           observe):
+    """K2 on SPLINE and BITMAP banks, 32,768 beads, priors from ucgp."""
+    sim = flagship.build_bethe_sim(n=32768, device=device)
+    sim.setup((0, 10))
+    params, cl = styled_params(sim, tabstyle, tablength)
+    k2_vs_twin(sim.state, cl, params, observe)
+
+
 @pytest.mark.parametrize("method,pseudo,observe", BETHE_VARIANTS)
 def test_k2_matches_twin_multitype(device, method, pseudo, observe):
     bank, tp, state = mixed_system(device)

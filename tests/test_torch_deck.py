@@ -3,11 +3,12 @@ package's on the CPU (float64; the JAX side runs jitted XLA, never
 interpret-mode Pallas; on the CPU the port's kernel selection declines and
 its reference pair paths run).
 
-* Each of the seven deck writers' decks through both runners: the state
-  after ``read_data`` and ``velocity`` bit for bit, and the step-0 thermo
-  row at 1e-10 relative.
+* Each of the seven deck writers' decks (and six on other table styles)
+  through both runners: the state after ``read_data`` and ``velocity``
+  bit for bit, and the step-0 thermo row at 1e-10 relative.
 * NVE trajectories (no thermostat, no ``ucgstate``), thermo rows and state
-  at 1e-9 over 20 steps: the UCG-LD deck, a ``fix nve`` deck (kind
+  at 1e-9 over 20 steps: the UCG-LD deck (also on ``lookup``, ``spline``
+  and ``bitmap`` tables), a ``fix nve`` deck (kind
   ``"nve"``), ``unfix 1`` then ``run`` (kind ``"none"``), and the molecular
   deck under ``run_style respa``.
 * The missing-thermostat guard's errors, word for word the JAX runner's.
@@ -18,10 +19,20 @@ its reference pair paths run).
 * Continuity: ``run 20`` against ``run 10`` + ``write_restart`` + a new
   runner's ``read_restart`` + ``run 10``, and against two ``run 10``, bit
   for bit with the Langevin noise on.
-* The refusals: ``processors 2 1 1``, a tilted box and ``tabstyle spline``
-  raise NotImplementedError; without a GPU the default device raises; a
-  density deck with special exclusions on the kernel path (selection
-  forced here) raises, and its reference path runs it.
+* The refusals: ``processors 2 1 1`` raises NotImplementedError; without
+  a GPU the default device raises.
+* Table styles: decks with ``lookup``, ``spline`` and ``bitmap`` tables
+  at step 0 (cases of ``test_deck_step0_matches_jax``), and a tilted box
+  (``xy xz yz`` in the data file): the runner switches to the nsq list,
+  step 0 and a 20-step NVE trajectory against the JAX runner, then the
+  port's restart of it, read by both runners, 10 steps more.
+* Special exclusions on a style without ``excl_delta`` (a density deck
+  with bonds): the runner takes the reference path, whose list leaves the
+  specials out, and matches the JAX runner at step 0; with the kernel
+  selection forced it raises.
+* Config 4's deck at 4,096 beads runs its events to convergence under
+  the runner's ``max_sweeps`` n + 1 (the second took more than 64 sweeps,
+  the cap that raised before).
 """
 
 import functools
@@ -52,6 +63,20 @@ WRITERS = {
     "molecular_ucgld": (tmd.write_molecular_ucgld_deck, dict(nmol=32)),
     "molecular_tetramer": (tmd.write_molecular_tetramer_deck,
                            dict(nmol=24)),
+    # the table styles: LOOKUP, SPLINE and BITMAP banks (BITMAP's length is
+    # its index bits)
+    "ucgld_lookup": (tmd.write_ucgld_deck,
+                     dict(n=128, tabstyle="lookup", tablength=800)),
+    "ucgld_spline": (tmd.write_ucgld_deck,
+                     dict(n=128, tabstyle="spline", tablength=800)),
+    "ucgld_bitmap": (tmd.write_ucgld_deck,
+                     dict(n=128, tabstyle="bitmap", tablength=12)),
+    "bethe_spline": (tmd.write_bethe_deck,
+                     dict(n=128, tabstyle="spline", tablength=800)),
+    "bethe_density_bitmap": (tmd.write_bethe_density_deck,
+                             dict(n=128, tabstyle="bitmap", tablength=12)),
+    "rleucg_lookup": (tmd.write_rleucg_deck,
+                      dict(n=128, tabstyle="lookup", tablength=800)),
 }
 
 
@@ -107,10 +132,15 @@ def _drop(text, *prefixes):
                      if not s.startswith(prefixes)) + "\n"
 
 
+TABSTYLES = {"ucgld": ("linear", 800), "lookup": ("lookup", 800),
+             "spline": ("spline", 800), "bitmap": ("bitmap", 12)}
+
+
 def nve_deck(tmp_path, kind):
     """Deck text of the NVE trajectory cases: no thermostat and no
-    ucgstate, thermo every 10.  ``ucgld`` and ``respa``: 20 steps;
-    ``nve_none``: ``fix nve`` for 20 steps, then ``unfix 1`` and 10 more."""
+    ucgstate, thermo every 10.  ``ucgld`` (and on ``lookup``, ``spline``
+    and ``bitmap`` tables) and ``respa``: 20 steps; ``nve_none``: ``fix
+    nve`` for 20 steps, then ``unfix 1`` and 10 more."""
     if kind == "respa":
         deck = tmd.write_molecular_ucgld_deck(str(tmp_path), nmol=40,
                                               nsteps=20, thermo_every=10)
@@ -118,9 +148,10 @@ def nve_deck(tmp_path, kind):
         return text.replace("run 20",
                             "run_style respa 2 4 bond 1 angle 1 pair 2\n"
                             "run 20")
+    tabstyle, length = TABSTYLES.get(kind, TABSTYLES["ucgld"])
     deck = tmd.write_ucgld_deck(str(tmp_path), n=128, nsteps=20,
-                                thermo_every=10, tablength=800,
-                                thermostat=False)
+                                thermo_every=10, tablength=length,
+                                tabstyle=tabstyle, thermostat=False)
     text = _drop(open(deck).read(), "fix 3")
     if kind == "nve_none":
         text = text.replace("fix 1 all nve/ucgld/wall/hard bias_potential 0.1",
@@ -136,7 +167,8 @@ def assert_state_close(jstate, tstate, tol=1e-9):
                                    rtol=0, atol=tol, err_msg=f)
 
 
-@pytest.mark.parametrize("kind", ["ucgld", "respa"])
+@pytest.mark.parametrize("kind", ["ucgld", "respa", "lookup", "spline",
+                                  "bitmap"])
 def test_nve_trajectory_matches_jax(tmp_path, kind):
     text = nve_deck(tmp_path, kind)
     jr, tr = runners(tmp_path)
@@ -336,34 +368,42 @@ def test_refusals(tmp_path):
     with pytest.raises(NotImplementedError):
         runner().run_string("processors 2 1 1\n" + text)
     runner().run_string("processors 1 1 1\n" + text)        # one device
-    with pytest.raises(NotImplementedError):
-        runner().run_string(text.replace("linear 800", "spline 800"))
-    data = open(tmp_path / "system.data").read()
-    (tmp_path / "tilted.data").write_text(data.replace(
-        "zlo zhi\n", "zlo zhi\n0.5 0.0 0.0 xy xz yz\n", 1))
-    with pytest.raises(NotImplementedError):
-        runner().run_string(text.replace("system.data", "tilted.data"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             ScriptRunner(workdir=str(tmp_path))
 
 
 def test_exclusions_without_excl_delta_refused(tmp_path, monkeypatch):
-    """table_ucg_bethe_density has no excl_delta: with bonds and
-    ``special_bonds lj 0 0 0`` its kernel path (on the card selected, here
-    forced onto the wrapper's CPU twin) raises instead of running; the
-    reference path runs the same deck."""
+    """table_ucg_bethe_density has no excl_delta.  A deck with bonds and
+    ``special_bonds lj 0 0 0`` runs where the kernel selection declines
+    (the CPU) on the reference path, whose list leaves the specials out:
+    it says so, launches no K3, and matches the JAX runner at step 0.
+    Where the kernels are selected (on the card; here forced onto the
+    wrappers' CPU twins) the deck raises; without exclusions the forced
+    kernel path takes the same deck."""
+    from lammps_ucg_dev_tpu_torch.ops import hopper_density as hd
+
     deck = tmd.add_bonds(tmd.write_bethe_density_deck(
         str(tmp_path), n=512, nsteps=0), nbonds=16)
+    jr, tr = runners(tmp_path)
+    jr.run_file(deck)
+    tr.run_file(deck)
+    assert_rows_close(jr.thermo_rows, tr.thermo_rows, 1e-10)
 
     def runner(logs):
         return ScriptRunner(workdir=str(tmp_path), dtype=torch.float32,
                             device="cpu", log_callback=logs.append)
 
     logs = []
-    runner(logs).run_file(deck)
-    assert any("reference PyTorch pair path" in m and "bonded" in m
-               for m in logs)
+    before = sum(hd.dbethe_pair.launches.values())
+    r = runner(logs)
+    r.run_file(deck)
+    assert sum(hd.dbethe_pair.launches.values()) == before
+    assert [m for m in logs if m.startswith("pair path:")] == [
+        f"pair path: {r.pair_path}"]
+    assert r.pair_path.startswith("reference PyTorch pair path") and \
+        r.pair_path.endswith("(+ bonded terms)")
+    assert r.sim._excl_rows_static is None and r.sim.excl_tags is not None
     monkeypatch.setattr(script_mod, "select_pair_kernel", functools.partial(
         script_mod.select_pair_kernel, force=True))
     with pytest.raises(NotImplementedError, match="excl_delta"):
@@ -374,3 +414,76 @@ def test_exclusions_without_excl_delta_refused(tmp_path, monkeypatch):
     runner(logs).run_string(text)
     assert any("K5 -> K3 -> K6" in m for m in logs)
 
+
+TILT = (0.1, -0.05, 0.08)     # in units of the box length
+
+
+def tilted_deck(tmp_path, n=256, nsteps=20):
+    """The UCG-LD deck under NVE (no thermostat, no ucgstate) in a box
+    tilted by TILT × L."""
+    deck = tmd.write_ucgld_deck(str(tmp_path), n=n, nsteps=nsteps,
+                                thermo_every=10, tablength=800,
+                                thermostat=False, tilt=TILT)
+    return _drop(open(deck).read(), "fix 3")
+
+
+def test_tilted_deck_matches_jax(tmp_path):
+    """A tilted data file: both runners switch to the nsq list; the step-0
+    row at 1e-10 and the 20-step NVE trajectory at 1e-9; write_restart and
+    read_restart keep the tilt and the nsq list."""
+    text = tilted_deck(tmp_path)
+    logs = []
+    jr, tr = runners(tmp_path, logs)
+    jr.run_string(text)
+    tr.run_string(text)
+    assert tr.neighbor_method == "nsq" and tr.state.box.is_triclinic
+    assert tr.sim.nbr_spec.method == "nsq"
+    assert any("on a nsq list" in m for m in logs)
+    assert_rows_close(jr.thermo_rows[:1], tr.thermo_rows[:1], 1e-10)
+    assert_rows_close(jr.thermo_rows, tr.thermo_rows, 1e-9)
+    assert_state_close(jr.state, tr.state)
+    np.testing.assert_array_equal(_np(tr.state.box.tilt),
+                                  np.asarray(jr.state.box.tilt))
+    # the port's restart, read by both runners, continues 10 NVE steps
+    tr.command("write_restart t.npz")
+    cont = [("read_restart t.npz" if s.startswith("read_data") else s)
+            for s in lines_of(text) if not s.startswith(("velocity", "run"))]
+    jc, tc = runners(tmp_path)
+    jc.run_string("\n".join(cont) + "\nrun 10\n")
+    tc.run_string("\n".join(cont) + "\nrun 10\n")
+    assert tc.neighbor_method == jc.neighbor_method == "nsq"
+    assert torch.equal(tc.sim.state.box.tilt, tr.state.box.tilt)
+    np.testing.assert_array_equal(np.asarray(jc.state.box.tilt),
+                                  _np(tr.state.box.tilt))
+    assert_rows_close(jc.thermo_rows, tc.thermo_rows, 1e-9)
+    assert_state_close(jc.state, tc.state)
+    assert tc.state.step == 30
+
+
+def test_config4_deck_events_converge(tmp_path):
+    """Config 4's deck at 4,096 beads through two events (steps 20 and
+    40): every event converges under the runner's ``max_sweeps`` n + 1;
+    the second needs more than the 64 sweeps that capped it before."""
+    from lammps_ucg_dev_tpu_torch.runtime.sim import Simulation
+
+    deck = tmd.write_bethe_density_deck(str(tmp_path), n=4096, nsteps=60,
+                                        thermo_every=20)
+    event, info = Simulation._cswitch_event, []
+
+    def counted(self, *a):
+        out = event(self, *a)
+        info.append((int(out[2]["sweeps"]), bool(out[2]["converged"])))
+        return out
+
+    r = ScriptRunner(workdir=str(tmp_path), dtype=torch.float32,
+                     device="cpu", log_callback=lambda m: None)
+    try:
+        Simulation._cswitch_event = counted
+        r.run_file(deck)
+    finally:
+        Simulation._cswitch_event = event
+    assert r.sim.cswitch[0].max_sweeps == 4097
+    assert len(info) == 2 and all(ok for _, ok in info)
+    assert max(sw for sw, _ in info) > 64, info
+    assert r.state.step == 60 and all(
+        np.isfinite(row["etotal"]) for row in r.thermo_rows)

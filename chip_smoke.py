@@ -114,9 +114,13 @@ which raises on failure:
    ``cluster_switch`` (K5, K3, K6 and its first event at step 20 at 4,096
    beads; at 32,768 its ``run 100`` completes through four events, each
    converged under the runner's ``max_sweeps`` n + 1 and its sweeps
-   printed; with bonds and ``special_bonds lj 0 0 0`` at 4,096 it raises
-   NotImplementedError, as its style has no ``excl_delta``), RLE-UCG (K5,
-   K4, K6) and
+   printed; the config-4 and RLE-UCG decks at 4,096 with 64 bonds and
+   ``special_bonds lj 0 0 0`` run K5, K3/K4 and K6 with the density
+   ``excl_delta``, their step-0 pe within 1e-6 of the float64 reference
+   path on the CPU, and the excluded pairs cancel: the kernel path's
+   forces against its own float32 functional over a list without the
+   specials within TOL of max|f| on the atoms with a special partner),
+   RLE-UCG (K5, K4, K6) and
    molecular UCG-LD (K1 with ``excl_delta``) at 32,768, the molecular
    switch deck at its 192 beads (the reference path: no 2-state type);
    each deck's kernels launched, its rows finite, and each at 4,096 beads
@@ -140,7 +144,16 @@ which raises on failure:
    blocks (``run 10`` then ``run 180``) under 1e-4; at 4,096 to step 0
    against float64 on the CPU; then ``sort_atoms`` on against off on the
    flagship's cell reference path at 32,768 for 20 steps, x by tag within
-   1e-5 of the box.
+   1e-5 of the box;
+26. the spatial drivers (``parallel/spatial.py``) on 3 gloo ranks sharing
+   the card (``run_spatial``): each style's setup at 32,768 beads against
+   one process's column path; the 2^20 flagship on 3 slabs, 100 timed
+   steps, D1 on every rank (no pair that was within cutoff + skin at a
+   rebuild missing from its list), Σ nloc = N and the tags a permutation;
+   Bethe, P3 and P4 at 2^20 for 20 steps; K1–K6 on rank 0's inputs (the x
+   axis not periodic) against their twins (``@slab`` entries); the NVE
+   drift at 32,768; a ``processors 3 1 1`` deck against one process; then
+   a 3×3 pencil grid's setup on 9 ranks at 2^18.
 
 The decks are written into ``_decks/`` beside this script (listed in
 ``.gitignore``) and removed after each phase.
@@ -348,7 +361,8 @@ def bound(kernel: str, args, kw) -> dict:
     observe = kw.get("observe", False)
     pairs = 0
     for *_, mask in hp.span_pairs(scal, z0, span_len, ipack, cols,
-                                  mx=kw["mx"], my=kw["my"], observe=observe):
+                                  mx=kw["mx"], my=kw["my"], observe=observe,
+                                  periodic=kw.get("periodic", (True, True))):
         pairs += int(mask.sum())
     per_slot = span_len.sum(-1).reshape(-1).repeat_interleave(8)
     cand = int((per_slot * (ipack[:, 5] > 0.5)).sum())
@@ -1818,9 +1832,9 @@ def config4_deck_checks(card_name: str) -> None:
     runner's ``max_sweeps`` n + 1: its ``run`` completes with more than one
     event, every event converged, each event's sweeps printed; K5, K3 and
     K6 launch and the rows stay finite.  (b) With bonds and
-    ``special_bonds lj 0 0 0`` the deck must raise NotImplementedError on
-    the card (its style has no ``excl_delta``), not run the reference path
-    there."""
+    ``special_bonds lj 0 0 0``, the config-4 deck and the RLE-UCG deck run
+    their kernels with the density ``excl_delta``
+    (:func:`density_excl_deck`)."""
     from lammps_ucg_dev_tpu_torch.runtime.sim import Simulation
     from lammps_ucg_dev_tpu_torch.tools import make_deck
 
@@ -1860,18 +1874,111 @@ def config4_deck_checks(card_name: str) -> None:
     del r
     shutil.rmtree(d)
 
-    d = DECK_DIR / "config4_bonds"
-    path = make_deck.add_bonds(make_deck.write_bethe_density_deck(
-        str(d), n=4096, nsteps=0), nbonds=64)
-    try:
-        deck_runner(d, []).run_file(path)
-    except NotImplementedError as e:
-        if "excl_delta" not in str(e):
-            raise
-        log(f"[deck bethe_density + bonds n=4096] refused on the card: {e}")
+    for style, writer in (("P3", make_deck.write_bethe_density_deck),
+                          ("P4", make_deck.write_rleucg_deck)):
+        density_excl_deck(style, writer, counters, card_name)
+
+
+def list_functional(state, jrows, params, cheb, style: str):
+    """The density style's forces in its kernels' float32 functional
+    (``excl_rho``, ``excl_dbethe``/``excl_rleucg``, ``excl_force``) summed
+    over the partner lists ``jrows`` ((N, S) rows, N where empty), through
+    the same priors, one-body terms and CV weights as the kernel path."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch.models import pair_bethe_density as pbd
+    from lammps_ucg_dev_tpu_torch.models import pair_rleucg as pr4
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cv as hcv
+    from lammps_ucg_dev_tpu_torch.ops import hopper_density as hd
+    from lammps_ucg_dev_tpu_torch.ops import hopper_rleucg as hr
+
+    typ = state.typ.long()
+    zero = torch.zeros((), device=state.device)
+    if style == "P3":
+        tp = params.tp
+        cv = (params.cv_rad, tp.cutsq[1, 1])
+        rho, n_real = hcv.excl_rho(state, jrows, *cv)
+        prior, partial0 = pbd._priors(params, typ, rho)
+        pi1 = prior[:, 1]
+        one = pbd.one_body(params, typ, torch.log(torch.clamp(
+            prior, min=hd.P_LOG_FLOOR)), n_real)
+        at2, _ = hd.excl_dbethe(state, jrows, params, cheb, pi1, True, True)
+        use_den = (tp.use_density[typ] == 1) & (tp.n_states[typ] > 1)
+        pf = torch.where(use_den[:, None],
+                         torch.stack([at2[:, 3], at2[:, 6]], -1) + one, zero)
+        cvf = torch.where(use_den, pf[:, 0] * partial0 - pf[:, 1] * partial0,
+                          zero)
+        gform = "mder" if params.backforce_derivative else "w"
     else:
-        raise RuntimeError("config 4 with special exclusions ran on the "
-                           "card without excl_delta")
+        cv = (params.cv_rad, params.cutsq[1, 1])
+        rho = hcv.excl_rho(state, jrows, *cv)[0]
+        probs, partial = pr4.substate_probs(params, typ, rho)
+        explicit, pf = pr4.one_body(params, typ, probs)
+        at2, _ = hr.excl_rleucg(state, jrows, params, cheb, probs[:, 1], True,
+                                params.feedback == "always")
+        pf0 = pf[:, 0] + torch.where(explicit[:, 0], at2[:, 3], zero)
+        cvf = torch.sum(torch.cat([pf0[:, None], pf[:, 1:]], 1) * partial, -1)
+        gform = "mder" if params.conservative_sign else "pder"
+    f3, _ = hcv.excl_force(state, jrows, *cv, cvf, gform, True)
+    return at2[:, 0:3] + f3
+
+
+def density_excl_deck(style, writer, counters, card_name) -> None:
+    """A density (P3) or RLE-UCG (P4) deck at 4,096 beads with 64 bonds and
+    ``special_bonds lj 0 0 0``, on the card: K5, K3/K4 and K6 launch with
+    the density ``excl_delta`` (the specials subtracted pass by pass); its
+    step-0 pe against the float64 reference path on the CPU, whose list
+    leaves the specials out, within 1e-6 relative; then the cancellation:
+    the kernel path's forces against its own float32 functional summed
+    over an nsq list built without the specials
+    (:func:`list_functional`), on every atom with a special partner,
+    within TOL of max|f|."""
+    import torch
+
+    from lammps_ucg_dev_tpu_torch import flagship
+    from lammps_ucg_dev_tpu_torch.ops import neighbor as nbrmod
+    from lammps_ucg_dev_tpu_torch.tools import make_deck
+
+    d = DECK_DIR / f"{style}_bonds"
+    path = make_deck.add_bonds(writer(str(d), n=4096, nsteps=0), nbonds=64)
+    r = deck_runner(d, [])
+    zero_launches(counters)
+    r.run_file(path)
+    launches = read_launches(counters)
+    pair = "dbethe_pair" if style == "P3" else "rleucg_pair"
+    for kern, v in (("cv_rho", "rho"), (pair, "full"), ("cv_force", "full")):
+        if not launches.get(kern, {}).get(v):
+            raise RuntimeError(f"{style} deck with exclusions: {kern} {v} "
+                               f"not launched: {launches}")
+    if not (r.sim._excl_route == "rows"
+            and r.sim._excl_rows_static is not None):
+        raise RuntimeError(f"{style} deck: the density excl_delta is off")
+    ref = deck_runner(d, [], device="cpu", dtype=torch.float64)
+    ref.run_file(path)
+    pe_k, pe_r = r.thermo_rows[0]["pe"], ref.thermo_rows[0]["pe"]
+    pe_err = abs(pe_k - pe_r) / abs(pe_r)
+    sim = r.sim
+    state, cl = column_state(sim)
+    params, rows = sim.pair_params, sim._excl_rows_static
+    out = sim.pair_compute(state, cl, params, excl_rows=rows)
+    n = state.n_atoms
+    spec = nbrmod.make_spec(n, state.box.lengths.cpu().numpy(), flagship.RC,
+                            0.0, method="nsq")
+    kept = nbrmod.build(state.x, state.box, spec, excl=rows)
+    if bool(kept.overflow):
+        raise RuntimeError("the excluded nsq list overflowed")
+    f_list = list_functional(state, kept.idx, params, params.cheb, style)
+    has = (rows < n).any(1)
+    worst = float((out.f - f_list)[has].abs().max())
+    scale = float(f_list.abs().max())
+    log(f"[deck {style} + bonds n={n}] {r.pair_path}; launches "
+        f"{json.dumps(launches)}; step-0 pe {pe_k:.6f} vs float64 reference "
+        f"path {pe_r:.6f}: {pe_err:.3e}; excluded pairs: largest residual "
+        f"force {worst:.3e} ({worst / scale:.3e} of max|f|) over "
+        f"{int(has.sum())} atoms with a special partner, on {card_name}")
+    if pe_err > 1e-6 or worst > TOL * scale:
+        raise RuntimeError(f"{style} deck with exclusions: pe {pe_err:.3e}, "
+                           f"residual {worst / scale:.3e}")
     shutil.rmtree(d)
 
 
@@ -2421,6 +2528,9 @@ def main() -> int:
 
     # ---- 25. a tilted box, and the driver's switches --------------------
     triclinic_and_switches(device, card_name)
+
+    # ---- 26. the spatial drivers ---------------------------------------
+    slab = run_spatial(card_name)
     shutil.rmtree(DECK_DIR, ignore_errors=True)
 
     log(f"K1 fast variant (not on the UCG-LD main path under ucgstate ld): "
@@ -2478,12 +2588,213 @@ def main() -> int:
                         k8_launches["full"], k8, K8_REPLACES)]
                + [entry(f"ucgld_ablation[L{lv}]", K7_SOURCE,
                         k7_launches[f"L{lv}"], k7[lv], K7_REPLACES)
-                  for lv in ha.LEVELS])
+                  for lv in ha.LEVELS]
+               + [entry(key, SLAB_KERNELS[name][2], n, r,
+                        CV_REPLACES if name.startswith("cv_") else REPLACES)
+                  for key, (r, n, name) in sorted(slab.items())])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# ---- 26. the spatial drivers ------------------------------------------------
+
+SLABS = 3                      # ranks sharing the card over gloo
+SLAB_STYLES = ("ucgld", "bethe", "p3", "p4")
+SLAB_N = 2**20                 # every style's slab run, the main path's size
+PENCIL_N = 2**18               # the 3x3 pencil grid's setup check
+SLAB_KERNELS = {               # wrapper: (twin, kind of bound, source)
+    "ucgld_pair": ("ucgld_pair_reference", "ucgld", K1_SOURCE),
+    "bethe_pair": ("bethe_pair_reference", "bethe", K2_SOURCE),
+    "dbethe_pair": ("dbethe_pair_reference", "dbethe", K2_SOURCE),
+    "rleucg_pair": ("rleucg_pair_reference", "rleucg", K2_SOURCE),
+    "cv_rho": ("cv_rho_reference", "cv_rho", CV_SOURCE),
+    "cv_force": ("cv_force_reference", "cv_force", CV_SOURCE)}
+
+
+def to_device(obj, dev):
+    """``obj`` with every tensor moved to ``dev`` (tuples, lists, dicts)."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_device(o, dev) for o in obj)
+    if isinstance(obj, dict):
+        return {k: to_device(v, dev) for k, v in obj.items()}
+    return obj
+
+
+def slab_holds(inputs: dict, label: str) -> dict:
+    """Every recorded kernel variant of one rank's slab inputs against its
+    twin on the card (``hold``), with the bound of that rank's work."""
+    from lammps_ucg_dev_tpu_torch.ops import hopper_bethe as hb
+    from lammps_ucg_dev_tpu_torch.ops import hopper_cv as hcv
+    from lammps_ucg_dev_tpu_torch.ops import hopper_density as hd
+    from lammps_ucg_dev_tpu_torch.ops import hopper_pair as hp
+    from lammps_ucg_dev_tpu_torch.ops import hopper_rleucg as hr
+
+    mods = {"ucgld_pair": hp, "bethe_pair": hb, "dbethe_pair": hd,
+            "rleucg_pair": hr, "cv_rho": hcv, "cv_force": hcv}
+    res = {}
+    for key, (args, kw) in sorted(inputs.items()):
+        name = key.split("[")[0]
+        twin, kind, _ = SLAB_KERNELS[name]
+        args = to_device(args, "cuda")
+        if kw.get("periodic", (True, True))[0]:
+            raise RuntimeError(f"{label} {key}: the slab's x axis is "
+                               f"periodic")
+        exact = (1,) if name == "cv_rho" else ()
+        res[key] = hold(label, f"{key} periodic {kw['periodic']}",
+                        getattr(mods[name], name),
+                        getattr(mods[name], twin), args, kw, 20, 1, exact)
+        res[key].update(bound(kind, args, kw))
+    return res
+
+
+def run_spatial(card_name: str) -> dict:
+    """Phase 26: the spatial drivers on ``SLABS`` gloo ranks sharing the
+    card (``parallel/launch.start``, the jobs of ``tools/spatial_check``),
+    then a 3×3 pencil grid of 9.  On the slabs: each style's setup forces
+    and pe at 32,768 beads against one process's column path on the card
+    (f within TOL of max|f|, pe 1e-5 relative); the 2^20 flagship through
+    ``run_fused``, a warm block and 100 timed steps, K1's launches on every
+    rank (counts set to 0 just before the timed steps), overflow raising
+    inside, D1 on every rank (no pair missing from a list that was within
+    cutoff + skin at its rebuild; pairs that came closer since, as on one
+    device after a dangerous build, are printed with their separation at
+    the rebuild), Σ nloc = N and the tags a permutation;
+    Bethe, P3 and P4 at 2^20 through 20 timed steps each, their kernels
+    launched; the kernel inputs of rank 0 (the setup and one block of each
+    style, every variant launched: the x axis not periodic) against the
+    twins with their bounds (``@slab`` entries); the NVE drift of
+    ``bench.run_drift`` at 32,768 under 1e-4; a ``processors 3 1 1`` deck
+    (32,768 beads, 20 steps) against the same deck on one process (pe 1e-5
+    relative).  On the pencils: the flagship's setup at 2^18 against one
+    process (the setup gates; a check of the y halos, which no kernel row
+    reads).  Returns {entry name: (result, launches,
+    wrapper)}."""
+    from lammps_ucg_dev_tpu_torch.compat.script import ScriptRunner
+    from lammps_ucg_dev_tpu_torch.parallel import launch
+    from lammps_ucg_dev_tpu_torch.tools import make_deck
+    from lammps_ucg_dev_tpu_torch.tools import spatial_check as sc
+
+    t0 = time.perf_counter()
+    dims = (SLABS, 1)
+    small = 32768
+    d = DECK_DIR / "spatial"
+    one = DECK_DIR / "spatial_one"
+    path = make_deck.write_ucgld_deck(str(d), n=small, nsteps=20,
+                                      thermo_every=10)
+    text = open(path).read()
+    with open(path, "w") as fh:
+        fh.write(f"processors {SLABS} 1 1\n" + text)
+    setups = [dict(kind="run", style=st, n=small, dims=dims, steps=0,
+                   arrays=True) for st in SLAB_STYLES]
+    main_job = dict(kind="run", style="ucgld", n=SLAB_N, reneigh=20,
+                    dims=dims, steps=100, timed=True, d1=True)
+    mids = [dict(kind="run", style=st, n=SLAB_N, dims=dims, steps=20,
+                 timed=True) for st in SLAB_STYLES[1:]]
+    inputs = ([dict(kind="inputs", style="ucgld", n=SLAB_N, reneigh=20,
+                    dims=dims)]
+              + [dict(kind="inputs", style=st, n=SLAB_N, dims=dims)
+                 for st in SLAB_STYLES[1:]])
+    jobs = (setups + [main_job] + mids + inputs
+            + [dict(kind="drift", n=small, dims=dims),
+               dict(kind="deck", path=path, workdir=str(d), dims=dims)])
+    ranks = launch.start(sc.run_jobs, SLABS, jobs, device="cuda",
+                         timeout=600)
+    # one process's references on the same card meanwhile
+    refs = [sc._single(j, "cuda") for j in setups]
+    pencil = dict(kind="run", style="ucgld", n=PENCIL_N, dims=(3, 3),
+                  steps=0, arrays=True)
+    pencil_ref = sc._single(pencil, "cuda")
+    runner = ScriptRunner(workdir=str(one), log_callback=lambda m: None)
+    runner.run_file(make_deck.write_ucgld_deck(str(one), n=small, nsteps=20,
+                                               thermo_every=10))
+    res = ranks.join()
+    t_slabs = time.perf_counter() - t0
+    r0 = res[0]
+    bad = []
+    for job, ref, got in zip(setups, refs, r0[:4]):
+        e = sc.compare_setup(job, ref, got)
+        log(f"[slabs {job['style']} setup n={small}, {SLABS} gloo ranks on "
+            f"one card] vs one process: f {e['f']:.3e} of max|f|, pe "
+            f"{e['pe']:.3e}; launches {json.dumps(got['launches'])}")
+        if e["f"] > TOL or e["pe"] > 1e-5:
+            bad.append(f"{job['style']} setup {e}")
+    mains = [r[4] for r in res]
+    m = mains[0]
+    nloc = [r["nloc"] for r in mains]
+    d1 = [r["d1"] for r in mains]
+    k1 = [r["launches"].get("ucgld_pair", {}) for r in mains]
+    log(f"[slabs UCG-LD main n={SLAB_N}] 100 steps in {m['seconds']:.3f} s = "
+        f"{m['steps_s']:.2f} steps/s on {SLABS} gloo ranks sharing "
+        f"{card_name}; temp {m['rows'][0]['temp']:.6f} etotal "
+        f"{m['rows'][0]['etotal']:.6f}; Σ nloc {sum(nloc)} {nloc}; tags a "
+        f"permutation {m['tags_ok']}; migrations {m['migrations']}; "
+        f"dangerous builds {m['dangerous']}; D1 per rank {d1}; K1 launches "
+        f"per rank {k1}")
+    if (sum(nloc) != SLAB_N or not m["tags_ok"]
+            or any(x["built_within_rc"] != 0 for x in d1)
+            or any(not k.get("full") or not k.get("noscores") for k in k1)
+            or not finite_row(m["rows"][0])):
+        bad.append("the slab flagship failed its checks")
+    log(f"[slabs UCG-LD main comm, rank 0, one more block with each "
+        f"exchange timed between syncs] {json.dumps(m['comm'])}")
+    launches = {"ucgld": m["launches"]}
+    for job, r in zip(mids, r0[5:8]):
+        launches[job["style"]] = r["launches"]
+        log(f"[slabs {job['style']} n={SLAB_N}] 20 steps "
+            f"{r['steps_s']:.2f} steps/s (informational: ranks share the "
+            f"card, halos staged through the host); launches "
+            f"{json.dumps(r['launches'])}; comm {json.dumps(r['comm'])}")
+    holds = {}
+    for job, r in zip(inputs, r0[8:12]):
+        for key, h in slab_holds(r["inputs"], f"slab rank 0 {job['style']} "
+                                              f"n={job['n']}").items():
+            holds[job["style"], key] = h
+    drift = r0[12]["drift"]
+    log(f"[slabs drift n={small}] {drift:.6e} (slot-major {r0[12]['slot']},"
+        f" limit {DRIFT_MAX:g})")
+    if not drift < DRIFT_MAX:
+        bad.append(f"drift {drift}")
+    deck = r0[13]
+    deck_err = max(abs(a["pe"] - b["pe"]) / abs(b["pe"])
+                   for a, b in zip(deck["rows"], runner.thermo_rows))
+    log(f"[deck processors {SLABS} 1 1 n={small}] spatial {deck['spatial']}"
+        f"; {deck['pair_path']}; pe against one process {deck_err:.3e}; "
+        f"launches {json.dumps(deck['launches'])}")
+    if not deck["spatial"] or deck_err > 1e-5:
+        bad.append(f"deck {deck_err}")
+    t1 = time.perf_counter()
+    pen = launch.spawn(sc.run_jobs, 9, [pencil], device="cuda", timeout=300)
+    e = sc.compare_setup(pencil, pencil_ref, pen[0][0])
+    log(f"[pencils 3x3 UCG-LD setup n={PENCIL_N}, 9 gloo ranks] vs one "
+        f"process: f {e['f']:.3e} of max|f|, pe {e['pe']:.3e} "
+        f"({time.perf_counter() - t1:.1f} s)")
+    if e["f"] > TOL or e["pe"] > 1e-5:
+        bad.append(f"pencil setup {e}")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(one, ignore_errors=True)
+    log(f"[phase 26] {time.perf_counter() - t0:.1f} s (slabs "
+        f"{t_slabs:.1f} s)")
+    if bad:
+        raise RuntimeError("spatial drivers: " + "; ".join(bad))
+    # entry names: "wrapper[variant]@slab", P4's K5/K6 "...@P4@slab"
+    out = {}
+    for (style, key), r in holds.items():
+        name, var = key[:-1].split("[")
+        n = launches[style].get(name, {}).get(var, 0)
+        if not n:
+            raise RuntimeError(f"{style} {key} launched no time in its slab "
+                               f"run: {launches[style]}")
+        tag = "@P4@slab" if (style == "p4" and name.startswith("cv_")) \
+            else "@slab"
+        out[(key if name != "cv_rho" else "cv_rho") + tag] = (r, n, name)
+    return out
 
 
 def mixed_bank(device: str):

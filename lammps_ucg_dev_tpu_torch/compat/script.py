@@ -9,7 +9,7 @@ UCG package touches, so a reference input deck drives the port directly:
     ScriptRunner(workdir).run_file("in.deck")            # on the card
     ScriptRunner(workdir, device="cpu").run_file(...)    # on the CPU
 
-    units / dimension / boundary / atom_style / processors (one device)
+    units / dimension / boundary / atom_style / processors Px Py 1
     read_data / write_data / read_restart / write_restart
     mass, timestep, neighbor, neigh_modify, velocity
     pair_style  table_ucgld | table_ucg_bethe | table_ucg_bethe_density |
@@ -36,11 +36,20 @@ in float32, for an orthogonal box and a LINEAR, SPLINE or BITMAP table
 that fits; on the CPU it declines and the reference pair path runs); one
 log line names the pair path taken.  A tilted box (``read_data`` with an
 ``xy xz yz`` line, or a restart with a tilt) switches the neighbor method
-to ``nsq``.  Special exclusions on a style without an ``excl_delta``
-(``table_ucg_bethe_density``, ``table_rleucg_interface``) run on the
-reference path, whose list leaves the specials out, where the selection
-declines (the CPU); where it selects the kernels they raise
-NotImplementedError.
+to ``nsq``.  Special exclusions run on the reference path, whose list
+leaves the specials out, where the selection declines (the CPU); on the
+kernels the style's ``excl_delta`` subtracts them (the density styles
+pass by pass, ``hopper_density.compute_density``).
+
+``processors Px Py 1`` above one subdomain runs the spatial slab
+(``Py`` 1) or pencil driver (``parallel/spatial.py``) over the process
+group the caller initialised, whose size must be ``Px·Py`` (``*`` for Px
+is the group's size); every rank runs the same deck.  Thermo rows, the
+log, dumps, ``write_data`` and ``write_restart`` come from rank 0 after
+the run gathers the system.  Tilted boxes, grids the decomposition cannot
+cut, topology, ``fix cluster_switch``, r-RESPA and ``rerun`` raise
+NotImplementedError there (ROADMAP M14b), as does a continued run's
+force carry: each ``run`` re-runs setup.
 
 Random state (the port's own, not the JAX package's threefry key, F1).  The
 runner owns the generators: one for the Langevin noise, the noisy Bethe
@@ -60,8 +69,8 @@ and the state was not replaced (``read_data``, ``velocity``, ``rerun``).
 trajectory bit for bit.  A restart without them (the JAX package's)
 restarts the streams from the deck's seed, with a log line.
 
-Not ported: more than one device (``processors`` above 1 raises until the
-multi-GPU drivers land).
+Not ported: the JAX runner's GSPMD atom-decomposition fallback
+(``parallel/domain.py``, ROADMAP M14b).
 """
 
 from __future__ import annotations
@@ -92,7 +101,9 @@ from lammps_ucg_dev_tpu_torch.models.typemap import (RLEUCGBuilder,
                                                      TablePairBuilder)
 from lammps_ucg_dev_tpu_torch.ops import neighbor as nbrmod
 from lammps_ucg_dev_tpu_torch.ops.kernel_select import select_pair_kernel
-from lammps_ucg_dev_tpu_torch.runtime.sim import SimConfig, Simulation
+from lammps_ucg_dev_tpu_torch.parallel import spatial
+from lammps_ucg_dev_tpu_torch.runtime.sim import (SimConfig, Simulation,
+                                                   excl_route)
 
 # the kernel path's pair entries (ops/hopper_*.py) -> the kernels they run
 KERNEL_PATHS = {
@@ -193,7 +204,14 @@ class ScriptRunner:
         self.thermo_columns: list | None = None
         self.thermo_rows: list = []
         self.variables: dict = {}
-        self.log = log_callback or (lambda msg: print(msg))
+        # the rank in a spatial run's process group (0 without one): the
+        # other ranks run the deck silently and write no files
+        self.rank = (torch.distributed.get_rank()
+                     if torch.distributed.is_available()
+                     and torch.distributed.is_initialized() else 0)
+        self.processors = (1, 1)
+        self.log = ((log_callback or (lambda msg: print(msg)))
+                    if self.rank == 0 else (lambda msg: None))
         self.sim: Simulation | None = None
         self.pair_path: str | None = None    # the last run's pair path
         self._restart_settings: dict = {}
@@ -380,6 +398,8 @@ class ScriptRunner:
             self._mc_key = int(extra["mc_rng_key"])
 
     def _cmd_write_restart(self, a):
+        if self.rank != 0:
+            return
         extra = {}
         if self.sim is not None and self.sim.cswitch_stats is not None:
             extra["cswitch_stats"] = self.sim.cswitch_stats.v
@@ -402,6 +422,8 @@ class ScriptRunner:
                           settings=settings, seed=self._deck_seed())
 
     def _cmd_write_data(self, a):
+        if self.rank != 0:
+            return
         dio.write_data(self._path(a[0]), self.state, self.system,
                        topology=self.datafile)
 
@@ -446,23 +468,27 @@ class ScriptRunner:
                 i += 1
 
     def _cmd_processors(self, a):
-        """processors Px Py Pz — the LAMMPS processor grid.  One device only
-        until the multi-GPU drivers are ported: ``1 1 1``, or ``*`` where
-        one device is present; a larger grid raises NotImplementedError.
-        Pz must be 1 or * (the z axis is not decomposed)."""
+        """processors Px Py Pz — the LAMMPS processor grid: Px > 1, Py 1
+        runs Px x-slabs, Px, Py > 1 x-y pencils (parallel/spatial.py), one
+        rank of the caller's process group each; ``*`` for Px is the
+        group's size (one without a group), for Py 1.  Pz must be 1 or *
+        (the z axis is not decomposed).  A grid above one subdomain needs
+        an initialised process group of exactly Px·Py ranks."""
         if len(a) < 3:
             raise ValueError("processors requires Px Py Pz")
         if a[2] not in ("1", "*"):
             raise ValueError("processors: Pz must be 1 or * (the z axis "
                              "is not decomposed)")
-        ndev = (torch.cuda.device_count() if self.device.type == "cuda"
-                else 1)
-        px = ndev if a[0] == "*" else int(a[0])
+        dist = torch.distributed
+        world = (dist.get_world_size()
+                 if dist.is_available() and dist.is_initialized() else 1)
+        px = world if a[0] == "*" else int(a[0])
         py = 1 if a[1] == "*" else int(a[1])
-        if px * py > 1:
-            raise NotImplementedError(
-                f"processors {px}x{py}: the multi-GPU drivers are not "
-                "ported yet (one device only)")
+        if px * py > 1 and px * py != world:
+            raise ValueError(
+                f"processors {px}x{py} needs a process group of {px * py} "
+                f"ranks (parallel/launch.py); this one has {world}")
+        self.processors = (px, py)
 
     def _cmd_run_style(self, a):
         # run_style verlet | respa 2 N bond 1 pair 2  (two-level r-RESPA:
@@ -900,17 +926,17 @@ class ScriptRunner:
         bparams, excl = self._build_bonded(n)
         # the hand-written kernel path (ops/kernel_select.py) on a CUDA
         # device in f32; bonded terms add to it, special exclusions are
-        # subtracted through the style's excl_delta (table_ucgld,
-        # table_ucg_bethe; the other styles raise), and the cluster_switch
-        # event builds its own contact list.  Where the selection declines
-        # (the CPU), the reference list leaves the specials out
+        # subtracted through the style's excl_delta (the density styles
+        # pass by pass), and the cluster_switch event builds its own
+        # contact list.  Where the selection declines (the CPU), the
+        # reference list leaves the specials out
         topo = bparams is not None or excl is not None
         sel = select_pair_kernel(pair_params, self.state, cutoff, self.skin)
         if (sel is not None and excl is not None and np.any(excl)
-                and getattr(sel[0], "excl_delta", None) is None):
+                and excl_route(sel[0]) is None):
             raise NotImplementedError(
                 f"{self.pair.style} with special exclusions has no "
-                "excl_delta on the kernel path yet")
+                "excl_delta on the kernel path")
         if sel is not None:
             pair_compute, spec, pair_params = sel
             self.pair_path = (
@@ -952,6 +978,10 @@ class ScriptRunner:
         if mc and self._mc_key != self.ucgstate_cfg.seed:
             # the fix's seed changed: the Simulation seeds the new stream
             self.mc_generator, self._mc_key = None, self.ucgstate_cfg.seed
+        if self.processors[0] * self.processors[1] > 1:
+            self.sim = self._make_spatial_sim(
+                system, cfg, pair_compute, pair_params, spec, topo, seed, mc)
+            return self.sim
         self.sim = Simulation(system, self.state, pair_compute, pair_params,
                               spec, cfg, seed=seed,
                               cluster_switch=self.cswitch,
@@ -964,6 +994,41 @@ class ScriptRunner:
                 v=torch.as_tensor(self._cs_stats, dtype=self.dtype,
                                   device=self.device))
         return self.sim
+
+    def _make_spatial_sim(self, system, cfg, pair_compute, pair_params, spec,
+                          topo: bool, seed: int, mc: bool):
+        """The slab or pencil driver of a ``processors`` deck (JAX
+        ``script.py:_make_spatial_sim``) on this rank's group."""
+        px, py = self.processors
+        what = f"processors {px}x{py}"
+        if self.state.box.is_triclinic:
+            raise NotImplementedError(f"{what} with a tilted box: the atom "
+                                      f"decomposition is {spatial.M14B}")
+        if topo or self.cswitch is not None or cfg.respa_inner != 1:
+            raise NotImplementedError(
+                f"{what} with topology, fix cluster_switch or r-RESPA: "
+                f"{spatial.M14B}")
+        n = self.state.n_atoms
+        L = dio.host(self.state.box.lengths).astype(np.float64)
+        x = dio.host(self.state.box.wrap(self.state.x)
+                     - self.state.box.lo).astype(np.float64)
+        caps = ({} if self.neighbor_one is None
+                else {"nbr_capacity": self.neighbor_one})
+        try:
+            slab = spatial.make_spec(n, L, spec, (px, py), x, **caps)
+        except ValueError as e:
+            raise NotImplementedError(
+                f"{what}: the decomposition cannot cut this box ({e}); the "
+                f"atom decomposition fallback is {spatial.M14B}") from e
+        sim = spatial.SpatialSimulation(
+            system, self.state, pair_compute, pair_params, slab, cfg,
+            spatial.Ring((px, py)), seed=seed, generator=self.generator,
+            mc_generator=self.mc_generator if mc else None)
+        self.log(f"spatial {'slab' if py == 1 else 'pencil'} decomposition "
+                 f"{px}x{py}: {sim.ring.backend} process group, "
+                 f"{slab.cap_local} local + {2 * slab.cap_halo} x-halo "
+                 f"+ {2 * slab.cap_halo_y} y-halo rows a rank")
+        return sim
 
     def _build_bonded(self, n):
         """BondedParams + special exclusion tags from the data-file topology
@@ -1001,15 +1066,17 @@ class ScriptRunner:
         chunk = min(cadences) if cadences else nsteps
         chunk = max(chunk, 1)
 
+        spatial_run = isinstance(sim, spatial.SpatialSimulation)
+
         def emit():
             step = int(sim.state.step)
             if self.thermo_every and step % self.thermo_every == 0:
                 self._thermo_row(sim, self.thermo_columns)
             for d in self.dumps.values():
-                if step % d.every == 0:
+                if step % d.every == 0 and self.rank == 0:
                     d.writer.write(sim.state)
 
-        if resume is not None:
+        if resume is not None and not spatial_run:
             sim.resume(resume)
         else:
             step0 = int(sim.state.step)
@@ -1023,6 +1090,9 @@ class ScriptRunner:
             emit()
         self.state = sim.state
         self._keep_mc_stream(sim)
+        if spatial_run:
+            self._carry = None       # each spatial run re-runs setup
+            return
         rec = sim.carry()
         rec["spec"] = np.asarray(json.dumps(
             [type(sim.nbr_spec).__name__, dataclasses.asdict(sim.nbr_spec)]))
@@ -1044,6 +1114,9 @@ class ScriptRunner:
         (read_dump.cpp + rerun semantics: re-evaluate forces/posteriors per
         snapshot; fix ucgstate setup-time evaluation enables state
         assignment, fix_ucgstate.cpp:165-169)."""
+        if self.processors[0] * self.processors[1] > 1:
+            raise NotImplementedError(f"rerun under processors "
+                                      f"{self.processors}: {spatial.M14B}")
         fname = self._path(a[0])
         i = 1
         first, last, every = None, None, 1

@@ -195,7 +195,7 @@ struct BethePair {
 };
 
 // The fast variants at most 64 registers (8 blocks of 128 threads an SM).
-template <bool OBSERVE, bool MF, bool SCE, bool MULTI>
+template <bool OBSERVE, bool MF, bool SCE, bool MULTI, bool OPEN>
 __global__ void __launch_bounds__(
     Tile<BethePair<OBSERVE, MF, SCE, MULTI>::NV>::kThreads, OBSERVE ? 1 : 8)
 bethe_pair_kernel(const __grid_constant__ PairArgs a) {
@@ -218,7 +218,7 @@ bethe_pair_kernel(const __grid_constant__ PairArgs a) {
   }
   const Phys phys{c, a.cols, sh.odata, a.degree, a.czp, a.ntypes1,
                   a.ucg_mask, a.scal[6], a.scal[4], a.scal[5], a.scal[3]};
-  colspan::for_each_pair_tile<OBSERVE>(a, cl, sh, phys);
+  colspan::for_each_pair_tile<OBSERVE, OPEN>(a, cl, sh, phys);
   if (lane >= 8) return;
   const int t = cl * 8 + lane;
   const auto r = [&](int k) { return colspan::tile_sum(sh, lane, k); };
@@ -331,7 +331,7 @@ struct DensityPair {
 // registers, so 8 blocks of 128 threads fit an SM (half its threads); the
 // observing ones at most 102, which they need without spilling.
 template <bool OBSERVE, bool MF, bool MULTI, int STYLE, bool SCORES,
-          bool FEEDBACK>
+          bool FEEDBACK, bool OPEN>
 __global__ void __launch_bounds__(kBlock, OBSERVE ? 5 : 8)
 density_pair_kernel(const __grid_constant__ PairArgs a) {
   using Phys = DensityPair<OBSERVE, MF, MULTI, STYLE, SCORES, FEEDBACK>;
@@ -373,9 +373,9 @@ density_pair_kernel(const __grid_constant__ PairArgs a) {
   }
 #pragma unroll
   for (int k = 0; k < Phys::NV; ++k) ph.tally[k] = 0.f;
-  colspan::for_each_pair_compact<OBSERVE>(a, t, in && ib.y > 0.5f, ia.x,
-                                          ia.y, ia.z,
-                                          queue[threadIdx.x >> 5], ph);
+  colspan::for_each_pair_compact<OBSERVE, OPEN>(
+      a, t, in && ib.y > 0.5f, ia.x, ia.y, ia.z, queue[threadIdx.x >> 5],
+      ph);
   if (!in) return;
 
   const float* r = ph.tally;
@@ -396,12 +396,19 @@ density_pair_kernel(const __grid_constant__ PairArgs a) {
   }
 }
 
+template <bool O, bool F, bool S, bool M, bool OPEN>
+void launch_o(const PairArgs& a, cudaStream_t stream) {
+  constexpr int NV = BethePair<O, F, S, M>::NV;
+  bethe_pair_kernel<O, F, S, M, OPEN><<<colspan::tile_grid<NV>(a.n_slots),
+                                        Tile<NV>::kThreads,
+                                        colspan::dyn_bytes<M>(a), stream>>>(
+      a);
+}
+
 template <bool O, bool F, bool S, bool M>
 void launch(const PairArgs& a, cudaStream_t stream) {
-  constexpr int NV = BethePair<O, F, S, M>::NV;
-  bethe_pair_kernel<O, F, S, M><<<colspan::tile_grid<NV>(a.n_slots),
-                                  Tile<NV>::kThreads,
-                                  colspan::dyn_bytes<M>(a), stream>>>(a);
+  if (a.periodic == 3) launch_o<O, F, S, M, false>(a, stream);
+  else launch_o<O, F, S, M, true>(a, stream);
 }
 
 template <bool O, bool F, bool S>
@@ -425,9 +432,15 @@ void launch_fsm(bool mf, bool sce, bool multi, const PairArgs& a,
 
 template <bool O, bool F, bool M, int STYLE, bool SC, bool FB>
 void launch_density(const PairArgs& a, cudaStream_t stream) {
-  density_pair_kernel<O, F, M, STYLE, SC, FB>
-      <<<colspan::grid_of(a.n_slots), kBlock, colspan::dyn_bytes<M>(a),
-         stream>>>(a);
+  if (a.periodic == 3) {
+    density_pair_kernel<O, F, M, STYLE, SC, FB, false>
+        <<<colspan::grid_of(a.n_slots), kBlock, colspan::dyn_bytes<M>(a),
+           stream>>>(a);
+  } else {
+    density_pair_kernel<O, F, M, STYLE, SC, FB, true>
+        <<<colspan::grid_of(a.n_slots), kBlock, colspan::dyn_bytes<M>(a),
+           stream>>>(a);
+  }
 }
 
 // K3: scores only with observe (checked by the entry point)
@@ -464,20 +477,21 @@ bool bad_args(int n_slots, int cz, int czp, int mx, int my, int degree,
 // (full: forces, scores, pe, virial, oob) or observe=0 (fast: forces and
 // scores), each with mf (method mf), sce (pseudo no) and multi (several
 // actual types: coef holds the (ntypes1, ntypes1, 8, degree) rows, at most
-// 4 x 4 pairs).
+// 4 x 4 pairs).  periodic, after the stream: bit 0 x, bit 1 y
+// (colspan::PairArgs).
 extern "C" int bethe_pair_launch(
     const float* scal, const int* span_z0, const int* span_len,
     const float* ipack, const float* cols, const float* coef, float* out,
     float* part, int n_slots, int mx, int my, int cz, int czp, int degree,
     int ntypes1, int ucg_mask, int observe, int mf, int sce, int multi,
-    void* stream) {
+    void* stream, int periodic) {
   if (bad_args(n_slots, cz, czp, mx, my, degree, ntypes1, multi)
       || !colspan::tile_fits(mx, my, czp)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const PairArgs a{scal, span_z0, span_len, ipack, cols, coef, out, part,
                    n_slots, mx, my, cz, czp, degree, multi ? ntypes1 : 0,
-                   ucg_mask};
+                   ucg_mask, periodic};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (observe) launch_fsm<true>(mf, sce, multi, a, st);
   else launch_fsm<false>(mf, sce, multi, a, st);
@@ -488,12 +502,13 @@ extern "C" int bethe_pair_launch(
 // code.  K3 variants: observe=1 with scores (full), observe=0 with or
 // without scores (fast, fast without scores), each with mf and multi.  K4:
 // observe=1 (full) or 0 (fast), with or without feedback; multi required.
+// periodic as for bethe_pair_launch.
 extern "C" int density_pair_launch(
     const float* scal, const int* span_z0, const int* span_len,
     const float* ipack, const float* cols, const float* coef, float* out,
     float* part, int n_slots, int mx, int my, int cz, int czp, int degree,
     int ntypes1, int ucg_mask, int style, int observe, int mf, int scores,
-    int feedback, int multi, void* stream) {
+    int feedback, int multi, void* stream, int periodic) {
   if (bad_args(n_slots, cz, czp, mx, my, degree, ntypes1, multi)
       || (style == kDBethe && observe && !scores)
       || (style == kRleucg && (!multi || scores))
@@ -502,7 +517,7 @@ extern "C" int density_pair_launch(
   }
   const PairArgs a{scal, span_z0, span_len, ipack, cols, coef, out, part,
                    n_slots, mx, my, cz, czp, degree, multi ? ntypes1 : 0,
-                   ucg_mask};
+                   ucg_mask, periodic};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (style == kDBethe) {
     if (observe) launch_dbethe<true, true>(mf, multi, a, st);

@@ -48,7 +48,19 @@ struct PairArgs {
   int n_slots, mx, my, cz, czp, degree;
   int ntypes1;    // T+1 of the per-type-pair rows (0: one actual type)
   int ucg_mask;   // bit t set: actual type t is a 2-state UCG type (K2–K4)
+  int periodic = 3;  // bit 0 x, bit 1 y: on an axis that is not periodic (a
+                     // spatial driver's virtual box, whose images come from
+                     // halos) a neighbour column outside the grid is empty
 };
+
+// Whether the stencil column with image codes (kx, ky) (1: inside the
+// grid) holds candidates: always on a periodic axis.  The walks ask only
+// in their OPEN instantiations (some axis not periodic), which the
+// launchers pick when a.periodic is not 3, so a fully periodic launch runs
+// the walk without the test.
+__device__ __forceinline__ bool stencil_live(int periodic, int kx, int ky) {
+  return (kx == 1 || (periodic & 1)) && (ky == 1 || (periodic & 2));
+}
 
 // The per-type-pair rows in shared memory: the 8 rows of pair (ti, tj)
 // start at (ti (T+1) + tj) * pair_stride, an odd stride, so the rows of
@@ -243,9 +255,9 @@ __device__ __forceinline__ void run_batch(const PairArgs& a,
 
 // Walk every candidate j of i-slot t at (xi, yi, zi) (none when !real), the
 // nine spans in stencil order, and run `phys` on the pairs with
-// 0 < rsq < cutsq (and a valid j-slot when CHECK_VALID) in full warps.
-// Every lane of the warp must call it.
-template <bool CHECK_VALID, class Phys>
+// 0 < rsq < cutsq (and a valid j-slot when CHECK_VALID) in full warps;
+// OPEN as in tile_spans.  Every lane of the warp must call it.
+template <bool CHECK_VALID, bool OPEN = false, class Phys>
 __device__ __forceinline__ void for_each_pair_compact(
     const PairArgs& a, int t, bool real, float xi, float yi, float zi,
     PairQueue& q, Phys& phys) {
@@ -284,6 +296,9 @@ __device__ __forceinline__ void for_each_pair_compact(
       int ax = cx + sx - 1, ay = cy + sy - 1;
       const int kx = ax < 0 ? 0 : (ax >= mx ? 2 : 1);
       const int ky = ay < 0 ? 0 : (ay >= my ? 2 : 1);
+      if constexpr (OPEN) {
+        if (!stencil_live(a.periodic, kx, ky)) continue;
+      }
       ax += (1 - kx) * mx;
       ay += (1 - ky) * my;
       shx = static_cast<float>(kx - 1) * Lx;
@@ -412,6 +427,9 @@ __device__ __forceinline__ bool tile_owner(const float* ipack, int c,
 // The nine spans of cluster c laid end to end: span[s] = [index of its
 // first candidate in the sequence, its cols offset minus that index, its
 // image shift]; span[kNsten].x = the total, which is returned (uniform).
+// OPEN: some axis is not periodic (a.periodic), and a neighbour column
+// outside the grid there is empty.
+template <bool OPEN = false>
 __device__ __forceinline__ int tile_spans(const PairArgs& a, int c,
                                           int4* span) {
   const int lane = threadIdx.x & 31;
@@ -429,6 +447,9 @@ __device__ __forceinline__ int tile_spans(const PairArgs& a, int c,
     int ax = cx + lane / 3 - 1, ay = cy + lane % 3 - 1;
     const int kx = ax < 0 ? 0 : (ax >= mx ? 2 : 1);
     const int ky = ay < 0 ? 0 : (ay >= my ? 2 : 1);
+    if constexpr (OPEN) {
+      if (!stencil_live(a.periodic, kx, ky)) len = 0;
+    }
     ax += (1 - kx) * mx;
     ay += (1 - ky) * my;
     shx = static_cast<float>(kx - 1) * a.scal[0];
@@ -465,14 +486,15 @@ __device__ __forceinline__ int tile_offset(const int4* span, int k, int& s,
 // The tile walk's source over cluster c's nine column spans (span: the
 // warp's table, which the constructor fills).  Candidates carry their
 // column's image shift, so the displacement is a plain difference.
-template <bool CHECK_VALID>
+template <bool CHECK_VALID, bool OPEN = false>
 struct SpanSource {
   const float* __restrict__ cols;
   const int4* span;
   int czp, total, s = 0;
 
   __device__ __forceinline__ SpanSource(const PairArgs& a, int c, int4* sp)
-      : cols(a.cols), span(sp), czp(a.czp), total(tile_spans(a, c, sp)) {}
+      : cols(a.cols), span(sp), czp(a.czp),
+        total(tile_spans<OPEN>(a, c, sp)) {}
 
   __device__ __forceinline__ int fetch(int k, float& xj, float& yj,
                                        float& zj) {
@@ -603,12 +625,13 @@ __device__ __forceinline__ void tile_walk(Src& src, float cutsq,
 }
 
 // The tile walk over cluster c's nine column spans (K1, K2, K5, K6, K7),
-// with 0 < rsq < cutsq and, when CHECK_VALID, a valid j-slot.
-template <bool CHECK_VALID, class Phys>
+// with 0 < rsq < cutsq and, when CHECK_VALID, a valid j-slot; OPEN as in
+// tile_spans (the launchers take it from a.periodic).
+template <bool CHECK_VALID, bool OPEN = false, class Phys>
 __device__ __forceinline__ void for_each_pair_tile(const PairArgs& a, int c,
                                                    TileShared<Phys::NV>& sh,
                                                    const Phys& phys) {
-  SpanSource<CHECK_VALID> src(a, c, sh.span);
+  SpanSource<CHECK_VALID, OPEN> src(a, c, sh.span);
   tile_walk(src, a.scal[2], sh, phys);
 }
 

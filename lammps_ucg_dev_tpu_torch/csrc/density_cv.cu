@@ -147,7 +147,7 @@ struct CvPair {
 
 // K5: 56 registers, 4 warps a block (2 and 8 are slower, and so is
 // capping the registers for more blocks: PERF.md §6).
-template <bool PERTYPE>
+template <bool PERTYPE, bool OPEN>
 __global__ void __launch_bounds__(Tile<RhoPair::NV>::kThreads)
 cv_rho_kernel(const __grid_constant__ CvArgs a) {
   constexpr int NV = RhoPair::NV;
@@ -162,14 +162,14 @@ cv_rho_kernel(const __grid_constant__ CvArgs a) {
     const float ri = radius_of<PERTYPE>(a, ib.w);
     sh.odata[lane] = make_float4(ri, 1.f / (0.1f * ri), 0.f, 0.f);
   }
-  colspan::for_each_pair_tile<false>(a.p, cl, sh, RhoPair{sh.odata});
+  colspan::for_each_pair_tile<false, OPEN>(a.p, cl, sh, RhoPair{sh.odata});
   if (lane >= 8) return;
   reinterpret_cast<float2*>(a.p.out)[cl * 8 + lane] = make_float2(
       colspan::tile_sum(sh, lane, 0), colspan::tile_sum(sh, lane, 1));
 }
 
 // The fast variants at most 64 registers (8 blocks of 128 threads an SM).
-template <int GFORM, bool OBSERVE, bool PERTYPE>
+template <int GFORM, bool OBSERVE, bool PERTYPE, bool OPEN>
 __global__ void __launch_bounds__(
     Tile<CvPair<GFORM, OBSERVE, PERTYPE>::NV>::kThreads, OBSERVE ? 1 : 8)
 cv_force_kernel(const __grid_constant__ CvArgs a) {
@@ -194,7 +194,7 @@ cv_force_kernel(const __grid_constant__ CvArgs a) {
     sh.odata[lane] = make_float4(ib.z, rad1[t].x, rad1[t].y, 0.f);
   }
   const Phys phys{a.p.cols, sh.odata, rad1, a.p.czp, nrad};
-  colspan::for_each_pair_tile<OBSERVE>(a.p, cl, sh, phys);
+  colspan::for_each_pair_tile<OBSERVE, OPEN>(a.p, cl, sh, phys);
   if (lane >= 8) return;
   const int t = cl * 8 + lane;
   const auto r = [&](int k) { return colspan::tile_sum(sh, lane, k); };
@@ -206,14 +206,33 @@ cv_force_kernel(const __grid_constant__ CvArgs a) {
   }
 }
 
-template <int G, bool O>
-void launch_cv(bool pertype, const CvArgs& a, cudaStream_t st) {
+template <int G, bool O, bool OPEN>
+void launch_cv_o(bool pertype, const CvArgs& a, cudaStream_t st) {
   constexpr int NV = CvPair<G, O, false>::NV;
   const int grid = colspan::tile_grid<NV>(a.p.n_slots);
   if (pertype) {
-    cv_force_kernel<G, O, true><<<grid, Tile<NV>::kThreads, 0, st>>>(a);
+    cv_force_kernel<G, O, true, OPEN><<<grid, Tile<NV>::kThreads, 0, st>>>(
+        a);
   } else {
-    cv_force_kernel<G, O, false><<<grid, Tile<NV>::kThreads, 0, st>>>(a);
+    cv_force_kernel<G, O, false, OPEN><<<grid, Tile<NV>::kThreads, 0, st>>>(
+        a);
+  }
+}
+
+template <int G, bool O>
+void launch_cv(bool pertype, const CvArgs& a, cudaStream_t st) {
+  if (a.p.periodic == 3) launch_cv_o<G, O, false>(pertype, a, st);
+  else launch_cv_o<G, O, true>(pertype, a, st);
+}
+
+template <bool OPEN>
+void launch_rho(bool pertype, const CvArgs& a, cudaStream_t st) {
+  constexpr int NV = RhoPair::NV;
+  const int grid = colspan::tile_grid<NV>(a.p.n_slots);
+  if (pertype) {
+    cv_rho_kernel<true, OPEN><<<grid, Tile<NV>::kThreads, 0, st>>>(a);
+  } else {
+    cv_rho_kernel<false, OPEN><<<grid, Tile<NV>::kThreads, 0, st>>>(a);
   }
 }
 
@@ -232,12 +251,14 @@ void launch_cv_g(int gform, bool pertype, const CvArgs& a, cudaStream_t st) {
 // 1 pder, 2 w.  pertype: the radius comes from rad[typ] (nrad entries, at
 // most kMaxRad for K6, any number for K5), else rad[0] for every atom.
 // Both walk the tile walk, so every cols offset shifted left by 3 must fit
-// an int (colspan::tile_fits).
+// an int (colspan::tile_fits).  periodic, after the stream: bit 0 x, bit 1
+// y (colspan::PairArgs).
 extern "C" int density_cv_launch(
     const float* scal, const int* span_z0, const int* span_len,
     const float* ipack, const float* cols, const float* rad, float* out,
     float* part, int n_slots, int mx, int my, int cz, int czp, int nrad,
-    int mode, int gform, int observe, int pertype, void* stream) {
+    int mode, int gform, int observe, int pertype,
+    void* stream, int periodic) {
   if (n_slots <= 0 || (cz & 7) != 0 || nrad < 1 || rad == nullptr
       || mode < 0 || mode > 1 || gform < 0 || gform > 2
       || (mode == 0 && observe) || (observe && part == nullptr)
@@ -246,17 +267,13 @@ extern "C" int density_cv_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const CvArgs a{PairArgs{scal, span_z0, span_len, ipack, cols, nullptr, out,
-                          part, n_slots, mx, my, cz, czp, 0, nrad, 0},
+                          part, n_slots, mx, my, cz, czp, 0, nrad, 0,
+                          periodic},
                  rad};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == 0) {
-    constexpr int NV = RhoPair::NV;
-    const int grid = colspan::tile_grid<NV>(n_slots);
-    if (pertype) {
-      cv_rho_kernel<true><<<grid, Tile<NV>::kThreads, 0, st>>>(a);
-    } else {
-      cv_rho_kernel<false><<<grid, Tile<NV>::kThreads, 0, st>>>(a);
-    }
+    if (periodic == 3) launch_rho<false>(pertype, a, st);
+    else launch_rho<true>(pertype, a, st);
   } else if (observe) {
     launch_cv_g<true>(gform, pertype, a, st);
   } else {

@@ -44,7 +44,7 @@ using colspan::PairArgs;
 using colspan::Tile;
 using colspan::UcgldPair;
 
-template <bool OBSERVE, bool SCORES, bool MULTI>
+template <bool OBSERVE, bool SCORES, bool MULTI, bool OPEN>
 __global__ void __launch_bounds__(
     Tile<UcgldPair<OBSERVE, SCORES, MULTI>::NV>::kThreads, OBSERVE ? 1 : 8)
 ucgld_pair_kernel(const __grid_constant__ PairArgs a) {
@@ -58,8 +58,8 @@ ucgld_pair_kernel(const __grid_constant__ PairArgs a) {
   const int cl = blockIdx.x * Tile<NV>::kWarps + (threadIdx.x >> 5);
   if (cl >= (a.n_slots >> 3)) return;     // whole warps
   float r[NV];
-  colspan::ucgld_tile<OBSERVE, SCORES, MULTI>(a, c, cl, tiles[threadIdx.x >> 5],
-                                              r);
+  colspan::ucgld_tile<OBSERVE, SCORES, MULTI, OPEN>(
+      a, c, cl, tiles[threadIdx.x >> 5], r);
   const int lane = threadIdx.x & 31;
   if (lane >= 8) return;
   const int t = cl * 8 + lane;
@@ -74,12 +74,18 @@ ucgld_pair_kernel(const __grid_constant__ PairArgs a) {
   }
 }
 
+template <bool O, bool S, bool M, bool OPEN>
+void launch_o(const PairArgs& a, cudaStream_t stream) {
+  constexpr int NV = UcgldPair<O, S, M>::NV;
+  ucgld_pair_kernel<O, S, M, OPEN><<<colspan::tile_grid<NV>(a.n_slots),
+                                     Tile<NV>::kThreads,
+                                     colspan::dyn_bytes<M>(a), stream>>>(a);
+}
+
 template <bool O, bool S, bool M>
 void launch(const PairArgs& a, cudaStream_t stream) {
-  constexpr int NV = UcgldPair<O, S, M>::NV;
-  ucgld_pair_kernel<O, S, M><<<colspan::tile_grid<NV>(a.n_slots),
-                               Tile<NV>::kThreads, colspan::dyn_bytes<M>(a),
-                               stream>>>(a);
+  if (a.periodic == 3) launch_o<O, S, M, false>(a, stream);
+  else launch_o<O, S, M, true>(a, stream);
 }
 
 }  // namespace
@@ -87,19 +93,23 @@ void launch(const PairArgs& a, cudaStream_t stream) {
 // Returns 0 on success, else a cudaError_t code.  Variants: observe=1 with
 // scores=1 (full), observe=0 with scores=1 (fast), observe=0 with scores=0
 // (fast without scores); multi: several actual types, coef holds the
-// (ntypes1, ntypes1, 8, degree) rows, at most 4 x 4 pairs.
+// (ntypes1, ntypes1, 8, degree) rows, at most 4 x 4 pairs.  periodic
+// (after the stream, so builds without it ignore it): bit 0 x, bit 1 y
+// (colspan::PairArgs).
 extern "C" int ucgld_pair_launch(
     const float* scal, const int* span_z0, const int* span_len,
     const float* ipack, const float* cols, const float* coef, float* out,
     float* part, int n_slots, int mx, int my, int cz, int czp, int degree,
-    int ntypes1, int observe, int scores, int multi, void* stream) {
+    int ntypes1, int observe, int scores, int multi,
+    void* stream, int periodic) {
   if (degree < 2 || degree > kMaxDeg || (observe && !scores) || n_slots <= 0
       || (cz & 7) != 0 || !colspan::tile_fits(mx, my, czp)
       || (multi && (ntypes1 < 2 || ntypes1 > colspan::kMaxTypes1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const PairArgs a{scal, span_z0, span_len, ipack, cols, coef, out, part,
-                   n_slots, mx, my, cz, czp, degree, multi ? ntypes1 : 0, 0};
+                   n_slots, mx, my, cz, czp, degree, multi ? ntypes1 : 0, 0,
+                   periodic};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (multi) {
     if (observe) launch<true, true, true>(a, st);

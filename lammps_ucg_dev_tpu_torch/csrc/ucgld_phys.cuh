@@ -78,7 +78,7 @@ struct UcgldPair {
 // ``a`` (rows ``c`` staged in shared memory), the owner data of cluster
 // ``cl`` (lanes 0..7) and the walk; lanes 0..7 then hold their i-slot's
 // sums in ``r`` (zero for a slot without a real atom).
-template <bool OBSERVE, bool SCORES, bool MULTI>
+template <bool OBSERVE, bool SCORES, bool MULTI, bool OPEN = false>
 __device__ __forceinline__ void ucgld_tile(
     const PairArgs& a, const float* c, int cl,
     TileShared<UcgldPair<OBSERVE, SCORES, MULTI>::NV>& sh,
@@ -92,7 +92,7 @@ __device__ __forceinline__ void ucgld_tile(
   }
   const Phys phys{c, a.cols, sh.odata, a.degree, a.czp, a.ntypes1,
                   a.scal[4], a.scal[5], a.scal[3]};
-  for_each_pair_tile<OBSERVE>(a, cl, sh, phys);
+  for_each_pair_tile<OBSERVE, OPEN>(a, cl, sh, phys);
   if (lane < 8) {
 #pragma unroll
     for (int k = 0; k < Phys::NV; ++k) r[k] = tile_sum(sh, lane, k);

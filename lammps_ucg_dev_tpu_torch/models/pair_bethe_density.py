@@ -119,7 +119,11 @@ def one_body(params: BetheDensityParams, typ: torch.Tensor,
 
 
 def compute(state: SimState, nbr: NeighborList,
-            params: BetheDensityParams) -> ForceOut:
+            params: BetheDensityParams, xchg=None) -> ForceOut:
+    """The three passes on the reference list.  ``xchg``: a spatial
+    driver's halo exchange of per-atom rows (ghost rows get their owners'
+    values), applied to ρ after pass 1 and to the CV weights before pass
+    3: a ghost's ρ from its truncated neighbourhood would be wrong."""
     tp, bank, kT = params.tp, params.bank, params.kT
     typ = state.typ.long()
     n = state.n_atoms
@@ -143,6 +147,8 @@ def compute(state: SimState, nbr: NeighborList,
         rho.append(torch.sum(w, dim=1))
         n_real.append(torch.sum(within, dim=1))
     rho, n_real = torch.cat(rho), torch.cat(n_real)
+    if xchg is not None:
+        rho = xchg(rho)
 
     prior, partial0 = _priors(params, typ, rho)
     pi1_all = prior[:, 1]
@@ -207,6 +213,8 @@ def compute(state: SimState, nbr: NeighborList,
     # ∂p1/∂ρ = -∂p0/∂ρ under the reference's [0]-is-threshold ordering
     cvf_all = pforce[:, 0] * partial0 - pforce[:, 1] * partial0
     cvf_all = torch.where(use_den, cvf_all, zero)
+    if xchg is not None:
+        cvf_all = xchg(cvf_all)
     fcv = []
     for rows in rows_all:
         jc, _, within, dr, rsq = geom(rows)
@@ -226,3 +234,6 @@ def compute(state: SimState, nbr: NeighborList,
     return ForceOut(f=f + torch.cat(fcv), ucgforce=torch.zeros_like(rho),
                     scores=scores, pe=pe, virial=virial, oob_low=oob_lo,
                     oob_high=oob_hi, ucgp=ucgp)
+
+
+compute.supports_halo_xchg = True

@@ -133,7 +133,9 @@ def one_body(params: RLEUCGParams, typ: torch.Tensor, probs: torch.Tensor):
 
 
 def compute(state: SimState, nbr: NeighborList,
-            params: RLEUCGParams) -> ForceOut:
+            params: RLEUCGParams, xchg=None) -> ForceOut:
+    """The three passes on the reference list; ``xchg`` as in
+    ``pair_bethe_density.compute`` (ρ and the CV weights)."""
     bank, kT = params.bank, params.kT
     typ = state.typ.long()
     n = state.n_atoms
@@ -156,6 +158,8 @@ def compute(state: SimState, nbr: NeighborList,
             within, density.proximity(r, radius_all[rows][:, None]), zero),
             dim=1))
     rho = torch.cat(rho)
+    if xchg is not None:
+        rho = xchg(rho)
     probs_all, partial = substate_probs(params, typ, rho)
     explicit_all, pforce = one_body(params, typ, probs_all)
 
@@ -194,6 +198,8 @@ def compute(state: SimState, nbr: NeighborList,
 
     # ---- pass 3: CV back-force (:444-502) --------------------------------
     cvf_all = torch.sum(pforce * partial, dim=-1)
+    if xchg is not None:
+        cvf_all = xchg(cvf_all)
     sign = -1.0 if params.conservative_sign else 1.0
     fcv = []
     for rows in rows_all:
@@ -209,6 +215,9 @@ def compute(state: SimState, nbr: NeighborList,
     return ForceOut(f=f + torch.cat(fcv), ucgforce=torch.zeros_like(rho),
                     scores=torch.zeros((n, 2), dtype=dt, device=state.device),
                     pe=pe, virial=virial, oob_low=oob_lo, oob_high=oob_hi)
+
+
+compute.supports_halo_xchg = True
 
 
 def potential_energy(x: torch.Tensor, state: SimState, nbr: NeighborList,

@@ -28,6 +28,14 @@ Two ways to fill the kernels' inputs each step:
   :func:`build` derives: each bottom row's source rank and liveness, and
   each top copy's flat target.
 
+The spatial drivers (``parallel/spatial.py``) build on a subdomain's
+virtual box, whose x (slabs) or x and y (pencils) images come from the
+halos, not from periodicity: ``ColumnSpec.periodic_x``/``periodic_y``
+False make a neighbour column outside the grid empty (the stencil gives
+-1, its spans are ``[0, 0)``, and the kernels skip it), ``build(valid=)``
+drops the padding rows of a fixed-capacity block from every column, and
+:func:`restrict_i` stops the ghost atoms' i-slots from tallying.
+
 Left out from the JAX structure: the overlapped z-pages, the (G, S) page
 geometry, the packed destination lane and NV sizing, and the window
 metadata.  They exist only for the TPU's data movement.
@@ -74,6 +82,11 @@ class ColumnList:
     gz: int                      # bottom ghost-zone slots per column
     gzt: int                     # top ghost-copy capacity per column
     czp: int                     # total slots per column
+    periodic_x: bool = True      # False: the x images come from halos
+    periodic_y: bool = True
+    i_tally: torch.Tensor | None = None  # (ncol*cz,) bool — the real slots
+                                 # whose atoms tally (restrict_i); None:
+                                 # every real atom
 
     @property
     def ncol(self) -> int:
@@ -82,6 +95,16 @@ class ColumnList:
     @property
     def n_slots(self) -> int:
         return self.ncol * self.cz
+
+    @property
+    def periodic(self) -> tuple:
+        return (self.periodic_x, self.periodic_y)
+
+    @property
+    def i_owner(self) -> torch.Tensor:
+        """(ncol*cz,) bool: the i-slots that tally (the kernels' valid
+        flag)."""
+        return self.i_valid if self.i_tally is None else self.i_tally
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +117,8 @@ class ColumnSpec:
     gz: int
     gzt: int
     czp: int
+    periodic_x: bool = True    # False on a slab's or pencil's virtual box:
+    periodic_y: bool = True    # halos provide those images
 
     @property
     def rc(self) -> float:
@@ -116,43 +141,62 @@ def _grid_dims(box_lengths, rc):
     return L, mx, my
 
 
-def stencil(mx: int, my: int):
+def stencil(mx: int, my: int, periodic_x: bool = True,
+            periodic_y: bool = True):
     """(ncol, 9) stencil columns and (ncol, 9) x/y image shifts (units of
     Lx/Ly) in x-row-major order: s = (dx+1)*3 + (dy+1).  The shift moves a
     partner's position next to the center column across the periodic
-    boundary; the kernel derives the same values by grid arithmetic."""
+    boundary; the kernel derives the same values by grid arithmetic.  On
+    an axis that is not periodic a neighbour outside the grid is -1 (JAX
+    ``colpack._stencil``), with shift 0."""
     cx, cy = np.divmod(np.arange(mx * my, dtype=np.int64), my)
     cols, sx, sy = [], [], []
     for dx in (-1, 0, 1):
         for dy in (-1, 0, 1):
-            cols.append(((cx + dx) % mx) * my + (cy + dy) % my)
-            sx.append((cx + dx) // mx)
-            sy.append((cy + dy) // my)
+            nx, ny = cx + dx, cy + dy
+            col = (nx % mx) * my + ny % my
+            bad = np.zeros_like(col, dtype=bool)
+            if not periodic_x:
+                bad |= (nx < 0) | (nx >= mx)
+            if not periodic_y:
+                bad |= (ny < 0) | (ny >= my)
+            cols.append(np.where(bad, -1, col))
+            sx.append(np.where(bad, 0, nx // mx))
+            sy.append(np.where(bad, 0, ny // my))
     return (np.stack(cols, 1).astype(np.int64), np.stack(sx, 1),
             np.stack(sy, 1))
 
 
-def measure_spec(x, box_lengths, cutoff: float,
-                 skin: float = 0.4) -> ColumnSpec:
+def measure_spec(x, box_lengths, cutoff: float, skin: float = 0.4,
+                 periodic_x: bool = True,
+                 periodic_y: bool = True) -> ColumnSpec:
     """Data-driven spec from one (N, 3) configuration already normalized to
-    [0, L) per axis (host numpy): column capacity ``cz`` and ghost
-    capacities ``gz``/``gzt`` with Poisson margins, as the JAX package sizes
-    them.  The runtime overflow flag is the backstop as atoms move."""
+    [0, L) per axis (host numpy), or from a list of them measured jointly
+    (one spec sized for the worst: the spatial drivers' subdomains in
+    their virtual-box frames): column capacity ``cz`` and ghost capacities
+    ``gz``/``gzt`` with Poisson margins, as the JAX package sizes them.
+    The runtime overflow flag is the backstop as atoms move."""
+    configs = x if isinstance(x, (list, tuple)) else [x]
     rc = cutoff + skin
     L, mx, my = _grid_dims(box_lengths, rc)
     ncol = mx * my
     Lz = L[2]
-    xn = np.asarray(x, np.float64)
-    ccx = np.clip((xn[:, 0] / L[0] * mx).astype(np.int64), 0, mx - 1)
-    ccy = np.clip((xn[:, 1] / L[1] * my).astype(np.int64), 0, my - 1)
-    col = ccx * my + ccy
-    z = np.mod(xn[:, 2], Lz)
-    counts = np.bincount(col, minlength=ncol)
-    mean_col = max(xn.shape[0] / ncol, 1.0)
-    cap = int(counts.max()) + 4.0 * math.sqrt(mean_col) + 8
+    cmax, need_b, need_t, nmax = 0, 0, 0, 1
+    for xc in configs:
+        xn = np.asarray(xc, np.float64)
+        ccx = np.clip((xn[:, 0] / L[0] * mx).astype(np.int64), 0, mx - 1)
+        ccy = np.clip((xn[:, 1] / L[1] * my).astype(np.int64), 0, my - 1)
+        col = ccx * my + ccy
+        z = np.mod(xn[:, 2], Lz)
+        cmax = max(cmax, int(np.bincount(col, minlength=ncol).max()))
+        need_b = max(need_b, int(np.bincount(col[z > Lz - rc],
+                                             minlength=ncol).max()))
+        need_t = max(need_t, int(np.bincount(col[z < rc],
+                                             minlength=ncol).max()))
+        nmax = max(nmax, xn.shape[0])
+    mean_col = max(nmax / ncol, 1.0)
+    cap = cmax + 4.0 * math.sqrt(mean_col) + 8
     cz = int(-(-cap // CL) * CL)
-    need_b = int(np.bincount(col[z > Lz - rc], minlength=ncol).max())
-    need_t = int(np.bincount(col[z < rc], minlength=ncol).max())
 
     def margin(need):
         return int(-(-(need + 4.0 * math.sqrt(max(need, 1.0)) + 4) // CL) * CL)
@@ -161,12 +205,18 @@ def measure_spec(x, box_lengths, cutoff: float,
     # round the column stride to 32 slots (128-byte rows)
     czp = int(-(-(gz + cz + gzt) // 32) * 32)
     return ColumnSpec(cutoff=cutoff, skin=skin, mx=mx, my=my, cz=cz, gz=gz,
-                      gzt=gzt, czp=czp)
+                      gzt=gzt, czp=czp, periodic_x=periodic_x,
+                      periodic_y=periodic_y)
 
 
-def build(x: torch.Tensor, box: Box, spec: ColumnSpec) -> ColumnList:
+def build(x: torch.Tensor, box: Box, spec: ColumnSpec,
+          valid: torch.Tensor | None = None) -> ColumnList:
     """Bin, z-sort, lay out the extended columns and find every cluster's
-    nine candidate spans.  ``x`` must be wrapped into the box."""
+    nine candidate spans.  ``x`` must be wrapped into the box.  ``valid``
+    (N,) bool: the rows to include (a spatial driver's fixed-capacity
+    block, whose rows past the live ones are inert padding); the others
+    are in no column, so never candidates, and their ``atom_slot`` is 0,
+    whose outputs the caller discards."""
     if box.is_triclinic:
         raise ValueError("the column kernel path requires an orthogonal box")
     dev = x.device
@@ -186,32 +236,40 @@ def build(x: torch.Tensor, box: Box, spec: ColumnSpec) -> ColumnList:
     ccx = torch.clamp((fx * mx).to(i64), 0, mx - 1)
     ccy = torch.clamp((fy * my).to(i64), 0, my - 1)
     col = ccx * my + ccy
+    if valid is not None:
+        col = torch.where(valid, col, ncol)    # padding sorts past the end
     z = x[:, 2] - box.lo[2]
     # lexsort (z, col): stable sort by z, then stable sort by column
     oz = torch.sort(z, stable=True).indices
     order = oz[torch.sort(col[oz], stable=True).indices]
     sorted_col = col[order]
-    count = torch.bincount(col, minlength=ncol)                # (ncol,)
+    count_all = torch.bincount(col, minlength=ncol + (valid is not None))
+    count = count_all[:ncol]                                   # (ncol,)
     # rank within the column = sorted position - the column's first position
-    first = torch.cumsum(count, 0) - count
+    first = torch.cumsum(count_all, 0) - count_all
     rank = torch.arange(n, device=dev) - first[sorted_col]
-    col_overflow = rank.max() >= cz
+    inr = None if valid is None else sorted_col < ncol
+    col_overflow = (rank if inr is None
+                    else torch.where(inr, rank, 0)).max() >= cz
     rank_c = torch.clamp(rank, 0, cz - 1)
     rslot_sorted = sorted_col * cz + rank_c
 
     atom_slot = torch.empty(n, dtype=i64, device=dev)
-    atom_slot[order] = rslot_sorted
+    atom_slot[order] = (rslot_sorted if inr is None
+                        else torch.where(inr, rslot_sorted, 0))
     z_sorted = z[order]
     # real-region z values; pads take z = Lz so every column row is ascending
-    z_real = Lz.expand(ncol * cz).clone()
-    z_real[rslot_sorted] = z_sorted
-    z_real = z_real.reshape(ncol, cz)
+    # (padding rows write to one row past the end, which is dropped)
+    z_real = Lz.expand(ncol * cz + (inr is not None)).clone()
+    z_real[rslot_sorted if inr is None
+           else torch.where(inr, rslot_sorted, ncol * cz)] = z_sorted
+    z_real = z_real[:ncol * cz].reshape(ncol, cz)
 
     # ---- extended column layout ---------------------------------------------
     # [gz ghost-bottom | count real | <= gzt ghost-top copies | pads]; each
     # sorted atom is scattered to its up-to-three extended rows; invalid
     # copies go to the dump row past the end and are dropped
-    cnt_s = count[sorted_col]
+    cnt_s = count_all[sorted_col]
     ebase = sorted_col * czp
     dump = ncol * czp
     t_real = ebase + gz + rank_c
@@ -219,6 +277,10 @@ def build(x: torch.Tensor, box: Box, spec: ColumnSpec) -> ColumnList:
     t_bot = torch.where((qb_at >= 0) & (qb_at < gz), ebase + qb_at, dump)
     qt_at = gz + cnt_s + rank                       # top-copy row
     t_top = torch.where((rank < gzt) & (qt_at < czp), ebase + qt_at, dump)
+    if inr is not None:
+        t_real = torch.where(inr, t_real, dump)
+        t_bot = torch.where(inr, t_bot, dump)
+        t_top = torch.where(inr, t_top, dump)
 
     sa = torch.full((dump + 1,), n, dtype=i64, device=dev)
     sa[t_real] = order
@@ -274,13 +336,19 @@ def build(x: torch.Tensor, box: Box, spec: ColumnSpec) -> ColumnList:
     far = 4 * Lz                                   # past every extended row
     zlo = torch.where(has, torch.gather(z_real, 1, lo_i) - rc, far)
     zhi = torch.where(has, torch.gather(z_real, 1, hi_i) + rc, far)
-    sten = torch.as_tensor(stencil(mx, my)[0], device=dev)      # (ncol, 9)
+    sten_np = stencil(mx, my, spec.periodic_x, spec.periodic_y)[0]
+    sten = torch.as_tensor(np.maximum(sten_np, 0), device=dev)  # (ncol, 9)
     zs = zext[sten]                                            # (ncol, 9, czp)
     qlo = zlo[:, None, :].expand(ncol, NSTEN, cpc).contiguous()
     qhi = zhi[:, None, :].expand(ncol, NSTEN, cpc).contiguous()
     z0 = torch.searchsorted(zs, qlo, right=False)
     z1 = torch.searchsorted(zs, qhi, right=True)
     span = torch.clamp(z1 - z0, min=0)
+    if np.any(sten_np < 0):
+        # a neighbour outside a non-periodic grid: the empty span [0, 0)
+        ok = torch.as_tensor(sten_np >= 0, device=dev)[:, :, None]
+        z0 = torch.where(ok, z0, 0)
+        span = torch.where(ok, span, 0)
     z0 = z0.transpose(1, 2).contiguous().to(torch.int32)   # (ncol, cpc, 9)
     span = span.transpose(1, 2).contiguous().to(torch.int32)
 
@@ -290,7 +358,20 @@ def build(x: torch.Tensor, box: Box, spec: ColumnSpec) -> ColumnList:
         x0=x,
         overflow=col_overflow | ghost_overflow,
         max_occupancy=span.sum(dim=2).max(),
-        mx=mx, my=my, cz=cz, gz=gz, gzt=gzt, czp=czp)
+        mx=mx, my=my, cz=cz, gz=gz, gzt=gzt, czp=czp,
+        periodic_x=spec.periodic_x, periodic_y=spec.periodic_y)
+
+
+def restrict_i(cl: ColumnList, i_mask: torch.Tensor) -> ColumnList:
+    """Only the atoms with ``i_mask`` (N,) True tally (JAX
+    ``colpack.restrict_i``): the spatial drivers' ghost atoms stay
+    candidates but their i-slots write zero rows and add nothing to pe
+    and the virial.  ``i_valid`` still marks every real atom, so the
+    slot-major interior carries the ghosts too."""
+    ids = cl.slot_atom_ext.reshape(cl.ncol, cl.czp)[
+        :, cl.gz:cl.gz + cl.cz].reshape(-1)                    # (n_slots,)
+    m = torch.cat([i_mask, i_mask.new_zeros(1)])[ids]          # id N: False
+    return dataclasses.replace(cl, i_tally=cl.i_valid & m)
 
 
 def _pad_row(dtype, device) -> torch.Tensor:
@@ -310,7 +391,8 @@ def pack(cl: ColumnList, box: Box, x: torch.Tensor, lam: torch.Tensor,
 
     Returns (ipack, cols):
       ipack (ncol*cz, 8) real slots, rows = [x y z λ state valid aux typ]
-            (valid is 0 for pads and for ghost-top copies in the region;
+            (valid is 0 for pads, for ghost-top copies in the region and
+            for the slots :func:`restrict_i` leaves out;
             aux and typ are 0 when not given — the Bethe kernel carries its
             i-role prior in aux)
       cols  (ncol, 8, czp) the extended slots, attribute-major
@@ -331,13 +413,16 @@ def pack(cl: ColumnList, box: Box, x: torch.Tensor, lam: torch.Tensor,
         (torch.zeros_like(ones) if typ is None else typ.to(dtype)[:, None]),
     ], dim=1)
     if slot:
-        return attrs, pack_slots(cl, box, attrs)
+        cols = pack_slots(cl, box, attrs)
+        if cl.i_tally is not None:
+            attrs[:, 5] = cl.i_tally.to(dtype)
+        return attrs, cols
     attrs = torch.cat([attrs, _pad_row(dtype, dev)[None]])
     ext = attrs[cl.slot_atom_ext]                               # (ncol*czp, 8)
     ext[:, 2] += cl.zshift.to(dtype) * box.lengths[2].to(dtype)
     ext3 = ext.reshape(cl.ncol, cl.czp, 8)
     ipack = ext3[:, cl.gz:cl.gz + cl.cz, :].reshape(cl.n_slots, 8).clone()
-    ipack[:, 5] *= cl.i_valid.to(dtype)
+    ipack[:, 5] *= cl.i_owner.to(dtype)
     return ipack, ext3.transpose(1, 2).contiguous()
 
 

@@ -126,7 +126,7 @@ def partner_is_ucg(coef, jattr, ucg_mask: int):
 
 def bethe_pair_reference(scal, z0, span_len, ipack, cols, coef, *, mx: int,
                          my: int, degree: int, ucg_mask: int, observe: bool,
-                         mf: bool, sce: bool):
+                         mf: bool, sce: bool, periodic: tuple = (True, True)):
     """Plain PyTorch version of the kernel (same arguments, same outputs),
     computed in the tensors' dtype; the span walk, series and channels are
     K1's twin's (ops/hopper_pair.py)."""
@@ -137,7 +137,8 @@ def bethe_pair_reference(scal, z0, span_len, ipack, cols, coef, *, mx: int,
     innersq, uscale, uoff, kT = scal[3], scal[4], scal[5], scal[6]
     zero = torch.zeros((), dtype=dt, device=dev)
     for sl, irows, jattr, dx, dy, dz, rsq, mask in hp.span_pairs(
-            scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe):
+            scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe,
+            periodic=periodic):
         u = torch.clamp(rsq * uscale + uoff, min=-1.0)
         eA, eB, eC, eD, fA, fB, fC, fD = hp.pair_channels(
             coef, u, irows, jattr, degree)
@@ -180,13 +181,13 @@ def _lib():
     fn = cuda_lib.load("bethe_pair").lib.bethe_pair_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_int])
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch_cuda(scal, z0, span_len, ipack, cols, coef, *, mx, my, degree,
-                 ucg_mask, observe, mf, sce):
+                 ucg_mask, observe, mf, sce, periodic=(True, True)):
     dev = ipack.device
     f32, i32 = torch.float32, torch.int32
     ncol, cpc, _ = z0.shape
@@ -214,7 +215,8 @@ def _launch_cuda(scal, z0, span_len, ipack, cols, coef, *, mx, my, degree,
                     out.data_ptr(), part.data_ptr() if observe else None,
                     n_slots, mx, my, cz, czp, degree, ntypes1,
                     int(ucg_mask), int(observe), int(mf), int(sce),
-                    int(ntypes1 > 0), stream)
+                    int(ntypes1 > 0), stream,
+                    hp.periodic_bits(periodic))
     if rc != 0:
         raise RuntimeError(f"bethe_pair kernel launch failed: CUDA error {rc}")
     bethe_pair.launches[variant(observe)] += 1
@@ -223,12 +225,12 @@ def _launch_cuda(scal, z0, span_len, ipack, cols, coef, *, mx, my, degree,
 
 def bethe_pair(scal, z0, span_len, ipack, cols, coef, *, mx: int, my: int,
                degree: int, ucg_mask: int, observe: bool, mf: bool,
-               sce: bool):
+               sce: bool, periodic: tuple = (True, True)):
     """K2: the hand-written kernel on CUDA tensors (launch or raise), its
     plain twin on CPU tensors.  Returns (out, part); part is None unless
     ``observe``."""
     kw = dict(mx=mx, my=my, degree=degree, ucg_mask=ucg_mask,
-              observe=observe, mf=mf, sce=sce)
+              observe=observe, mf=mf, sce=sce, periodic=periodic)
     if ipack.is_cuda:
         return _launch_cuda(scal, z0, span_len, ipack, cols, coef, **kw)
     if ipack.device.type == "cpu":
@@ -258,8 +260,8 @@ def kernel_inputs(state: SimState, cl: colpack.ColumnList,
     coef = hp.kernel_rows(cheb, tp, True, True, f32, state.device)
     scal = kernel_scalars(state.box, params, cheb, f32)
     return ((scal, cl.z0, cl.L, ipack, cols, coef),
-            dict(mx=cl.mx, my=cl.my, degree=cheb.degree,
-                 ucg_mask=ucg_mask(tp), observe=observe,
+            dict(mx=cl.mx, my=cl.my, periodic=cl.periodic,
+                 degree=cheb.degree, ucg_mask=ucg_mask(tp), observe=observe,
                  mf=params.method == "mf", sce=not params.pseudo))
 
 

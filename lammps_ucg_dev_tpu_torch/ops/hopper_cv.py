@@ -84,7 +84,8 @@ def cv_inputs(state: SimState, cl: colpack.ColumnList, cv_rad, cutsq,
                                aux=c, typ=state.typ if pertype else None,
                                slot=slot)
     return ((cv_scalars(state.box, cutsq, innersq), cl.z0, cl.L, ipack, cols,
-             rad), dict(mx=cl.mx, my=cl.my, pertype=pertype))
+             rad), dict(mx=cl.mx, my=cl.my, periodic=cl.periodic,
+                        pertype=pertype))
 
 
 # ---- the plain PyTorch twins -------------------------------------------------
@@ -103,13 +104,14 @@ def _g(t, R, gform: str):
 
 
 def cv_rho_reference(scal, z0, span_len, ipack, cols, rad, *, mx: int,
-                     my: int, pertype: bool):
+                     my: int, pertype: bool, periodic: tuple = (True, True)):
     """Plain PyTorch version of K5 (same arguments, same output)."""
     out = torch.zeros((ipack.shape[0], 2), dtype=ipack.dtype,
                       device=ipack.device)
     zero = torch.zeros((), dtype=ipack.dtype, device=ipack.device)
     for sl, irows, _, _, _, _, rsq, mask in hp.span_pairs(
-            scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=False):
+            scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=False,
+            periodic=periodic):
         r = torch.sqrt(torch.where(mask, rsq, torch.ones_like(rsq)))
         ri = _radius(rad, irows[:, :, 7:8], pertype)
         t = torch.tanh((r - ri) / (0.1 * ri))
@@ -120,7 +122,8 @@ def cv_rho_reference(scal, z0, span_len, ipack, cols, rad, *, mx: int,
 
 
 def cv_force_reference(scal, z0, span_len, ipack, cols, rad, *, mx: int,
-                       my: int, gform: str, observe: bool, pertype: bool):
+                       my: int, gform: str, observe: bool, pertype: bool,
+                       periodic: tuple = (True, True)):
     """Plain PyTorch version of K6 (same arguments, same outputs)."""
     dev, dt = ipack.device, ipack.dtype
     n_slots = ipack.shape[0]
@@ -128,7 +131,8 @@ def cv_force_reference(scal, z0, span_len, ipack, cols, rad, *, mx: int,
     part = torch.zeros((n_slots, 8), dtype=dt, device=dev) if observe else None
     zero = torch.zeros((), dtype=dt, device=dev)
     for sl, irows, jattr, dx, dy, dz, rsq, mask in hp.span_pairs(
-            scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe):
+            scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe,
+            periodic=periodic):
         r = torch.sqrt(torch.where(mask, rsq, torch.ones_like(rsq)))
         ri = _radius(rad, irows[:, :, 7:8], pertype)
         gi = _g(torch.tanh((r - ri) / (0.1 * ri)), ri, gform)
@@ -151,6 +155,53 @@ def cv_force_reference(scal, z0, span_len, ipack, cols, rad, *, mx: int,
     return out, part
 
 
+# ---- special exclusions: compute and subtract --------------------------------
+
+def excl_rho(state: SimState, jrows: torch.Tensor, cv_rad, cutsq):
+    """K5's two sums over the (N, S) special-partner lists ``jrows`` (row
+    indices, == N where empty): (ρ, n_real) of the listed partners within
+    the cutoff, in K5's float32 functional (the i-atom's radius from the
+    style's :func:`radius_table`).  The density styles subtract them after
+    K5, so ρ and the count leave the specials out as the reference path's
+    list does."""
+    rad, pertype = cv_rad
+    _, _, rsq, mask = hp.excl_geometry(state, jrows, cutsq)
+    zero = torch.zeros((), dtype=rsq.dtype, device=rsq.device)
+    r = torch.sqrt(torch.where(mask, rsq, torch.ones_like(rsq)))
+    ri = _radius(rad, state.typ[:, None], pertype)
+    t = torch.tanh((r - ri) / (0.1 * ri))
+    return (torch.sum(torch.where(mask, 0.5 * (1.0 - t), zero), 1),
+            torch.sum(mask, 1).to(rsq.dtype))
+
+
+def excl_force(state: SimState, jrows: torch.Tensor, cv_rad, cutsq,
+               cvf: torch.Tensor, gform: str, observe: bool):
+    """K6's back-force of the listed special pairs at the CV weights
+    ``cvf``: ((N, 3) forces, (8,) [0 virial 0] summed, or None unless
+    ``observe``), in K6's float32 functional, for the density styles to
+    subtract after K6."""
+    rad, pertype = cv_rad
+    jc, dr, rsq, mask = hp.excl_geometry(state, jrows, cutsq)
+    zero = torch.zeros((), dtype=rsq.dtype, device=rsq.device)
+    r = torch.sqrt(torch.where(mask, rsq, torch.ones_like(rsq)))
+    ti = state.typ[:, None]
+    ri = _radius(rad, ti, pertype)
+    gi = _g(torch.tanh((r - ri) / (0.1 * ri)), ri, gform)
+    if pertype:
+        rj = _radius(rad, state.typ[jc], True)
+        gj = _g(torch.tanh((r - rj) / (0.1 * rj)), rj, gform)
+    else:
+        gj = gi
+    c = cvf.to(rsq.dtype)
+    fcv = torch.where(mask, (c[:, None] * gi + c[jc] * gj) / r, zero)
+    dx, dy, dz = dr[..., 0], dr[..., 1], dr[..., 2]
+    f = torch.stack([torch.sum(fcv * dx, 1), torch.sum(fcv * dy, 1),
+                     torch.sum(fcv * dz, 1)], 1)
+    part = (hp.observed(torch.zeros_like(fcv), fcv, dx, dy, dz, mask, rsq,
+                        zero).sum(0) if observe else None)
+    return f, part
+
+
 # ---- the CUDA launch -----------------------------------------------------------
 
 def _lib():
@@ -159,13 +210,13 @@ def _lib():
     fn = cuda_lib.load("density_cv").lib.density_cv_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_int])
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch_cuda(mode: int, scal, z0, span_len, ipack, cols, rad, *, mx, my,
-                 gform, observe, pertype):
+                 gform, observe, pertype, periodic=(True, True)):
     dev = ipack.device
     f32, i32 = torch.float32, torch.int32
     ncol, cpc, _ = z0.shape
@@ -193,25 +244,26 @@ def _launch_cuda(mode: int, scal, z0, span_len, ipack, cols, rad, *, mx, my,
                     ipack.data_ptr(), cols.data_ptr(), rad.data_ptr(),
                     out.data_ptr(), part.data_ptr() if observe else None,
                     n_slots, mx, my, cz, czp, rad.shape[0], mode,
-                    GFORMS.index(gform), int(observe), int(pertype), stream)
+                    GFORMS.index(gform), int(observe), int(pertype),
+                    stream, hp.periodic_bits(periodic))
     if rc != 0:
         raise RuntimeError(f"density_cv kernel launch failed: CUDA error {rc}")
     return out, part
 
 
 def cv_rho(scal, z0, span_len, ipack, cols, rad, *, mx: int, my: int,
-           pertype: bool):
+           pertype: bool, periodic: tuple = (True, True)):
     """K5: the hand-written kernel on CUDA tensors (launch or raise), its
     plain twin on CPU tensors.  Returns out (n_slots, 2) [ρ n_real]."""
     if ipack.is_cuda:
         out, _ = _launch_cuda(0, scal, z0, span_len, ipack, cols, rad, mx=mx,
                               my=my, gform="mder", observe=False,
-                              pertype=pertype)
+                              pertype=pertype, periodic=periodic)
         cv_rho.launches["rho"] += 1
         return out
     if ipack.device.type == "cpu":
         return cv_rho_reference(scal, z0, span_len, ipack, cols, rad, mx=mx,
-                                my=my, pertype=pertype)
+                                my=my, pertype=pertype, periodic=periodic)
     raise ValueError(f"no K5 implementation for device {ipack.device}")
 
 
@@ -219,11 +271,13 @@ cv_rho.launches = {"rho": 0}
 
 
 def cv_force(scal, z0, span_len, ipack, cols, rad, *, mx: int, my: int,
-             gform: str, observe: bool, pertype: bool):
+             gform: str, observe: bool, pertype: bool,
+             periodic: tuple = (True, True)):
     """K6: the hand-written kernel on CUDA tensors (launch or raise), its
     plain twin on CPU tensors.  Returns (out, part); part is None unless
     ``observe``."""
-    kw = dict(mx=mx, my=my, gform=gform, observe=observe, pertype=pertype)
+    kw = dict(mx=mx, my=my, gform=gform, observe=observe, pertype=pertype,
+              periodic=periodic)
     if ipack.is_cuda:
         res = _launch_cuda(1, scal, z0, span_len, ipack, cols, rad, **kw)
         cv_force.launches["full" if observe else "fast"] += 1

@@ -14,8 +14,11 @@ wrappers, and the three-pass kernel path of the style (port of
   K3 (Bethe mixing, prior-force tallies, scores) → the posterior and the CV
   weights → K6 (the CV back-force).
 * :func:`compute_style_density` (+ ``.fast_variant`` /
-  ``.fast_variant_noscores``, ``.slot_fast`` / ``.slot_fast_noscores``) is
-  the ``Simulation`` pair entry.  The score-free variants return
+  ``.fast_variant_noscores``, ``.slot_fast`` / ``.slot_fast_noscores``)
+  is the ``Simulation`` pair entry.  The atom-ordered entries take the
+  special-exclusion lists (``excl_rows=``, subtracted pass by pass, since
+  ρ feeds the priors; ``takes_excl_rows``) and a spatial driver's halo exchange (``xchg=``,
+  ``supports_halo_xchg``).  The score-free variants return
   ``ucgp=None``, so the driver keeps the carried posterior.  With
   ``slot=True`` the state is slot-resident (``Simulation``'s slot-major
   interior): ρ, the priors and the CV weights stay in slot order between
@@ -82,9 +85,55 @@ def variant(observe: bool, want_scores: bool) -> str:
 
 # ---- the plain PyTorch twin ------------------------------------------------
 
+def dbethe_pairs(ch, pi1, pj1, sj, jug, mask, kT, mf: bool,
+                 want_scores: bool, observe: bool):
+    """K3's terms on a batch of candidate pairs (any shape, pairs along the
+    last axis): ``ch`` the D-form channels at u, ``pi1``/``pj1`` the
+    partners' priors, ``sj`` the partner's state, ``jug`` whether its type
+    has two states, ``mask`` the pairs that count.  Returns (fmix, emix,
+    cols): emix None unless ``observe``; cols the five last-axis sums of
+    out's columns 3–7, [-Σpf0, s0, s1, -Σpf1, 0].  The twin and the
+    exclusion lists share it, so both are K3's arithmetic."""
+    eA, eB, eC, eD, fA, fB, fC, fD = ch
+    zero = torch.zeros((), dtype=fA.dtype, device=fA.device)
+
+    def log_floor(v):
+        return torch.log(torch.clamp(v, min=P_LOG_FLOOR))
+
+    p11, xk, bb = hb.closed_form(eD, pi1, pj1, kT, mf)
+    fmix = torch.where(mask, fA + pi1 * fB + pj1 * fC + p11 * fD, zero)
+    lp0, lp1 = log_floor(1.0 - pi1), log_floor(pi1)
+    if mf:
+        lr = lp1 - lp0
+    else:
+        # stable ln(p11/p01) (pallas_pair.py:293-300)
+        est = bb * (pj1 - pi1) + (1.0 - pi1 - pj1)
+        dst = torch.sqrt(est * est + (4.0 * bb) * (pi1 * (1.0 - pi1)))
+        lr = torch.where(est >= 0.0,
+                         xk + log_floor(2.0 * pi1) - log_floor(est + dst),
+                         log_floor(dst - est)
+                         - log_floor(2.0 * (1.0 - pi1)))
+    pf0 = torch.where(jug, zero, eA + kT * lp0)
+    pf1 = torch.where(jug, (eB + eD) + kT * lr, (eA + eB) + kT * lp1)
+    cols = [-torch.sum(torch.where(mask, pf0, zero), -1)]
+    if want_scores:
+        cols += [
+            -torch.sum(torch.where(mask, eA + sj * eC, zero), -1),
+            -torch.sum(torch.where(mask, (eA + eB) + sj * (eC + eD),
+                                   zero), -1)]
+    else:
+        cols += [torch.zeros_like(cols[0])] * 2
+    cols += [-torch.sum(torch.where(mask, pf1, zero), -1),
+             torch.zeros_like(cols[0])]
+    emix = (torch.where(mask, eA + pi1 * eB + pj1 * eC + p11 * eD, zero)
+            if observe else None)
+    return fmix, emix, cols
+
+
 def dbethe_pair_reference(scal, z0, span_len, ipack, cols, coef, *,
                           mx: int, my: int, degree: int, ucg_mask: int,
-                          observe: bool, mf: bool, want_scores: bool):
+                          observe: bool, mf: bool, want_scores: bool,
+                          periodic: tuple = (True, True)):
     """Plain PyTorch version of K3 (same arguments, same outputs), computed
     in the tensors' dtype; the span walk, series and channels are K1's twin's
     (ops/hopper_pair.py), the closed form K2's (ops/hopper_bethe.py)."""
@@ -94,49 +143,20 @@ def dbethe_pair_reference(scal, z0, span_len, ipack, cols, coef, *,
     out = torch.zeros((n_slots, 8), dtype=dt, device=dev)
     part = torch.zeros((n_slots, 8), dtype=dt, device=dev) if observe else None
     innersq, uscale, uoff, kT = scal[3], scal[4], scal[5], scal[6]
-    zero = torch.zeros((), dtype=dt, device=dev)
-
-    def log_floor(v):
-        return torch.log(torch.clamp(v, min=P_LOG_FLOOR))
-
     for sl, irows, jattr, dx, dy, dz, rsq, mask in hp.span_pairs(
-            scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe):
+            scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe,
+            periodic=periodic):
         u = torch.clamp(rsq * uscale + uoff, min=-1.0)
-        eA, eB, eC, eD, fA, fB, fC, fD = hp.pair_channels(
-            coef, u, irows, jattr, degree)
-        pi1, pj1 = irows[:, :, 6:7], jattr(3)
-        p11, xk, bb = hb.closed_form(eD, pi1, pj1, kT, mf)
-        fmix = torch.where(mask, fA + pi1 * fB + pj1 * fC + p11 * fD, zero)
-        lp0, lp1 = log_floor(1.0 - pi1), log_floor(pi1)
-        if mf:
-            lr = lp1 - lp0
-        else:
-            # stable ln(p11/p01) (pallas_pair.py:293-300)
-            est = bb * (pj1 - pi1) + (1.0 - pi1 - pj1)
-            dst = torch.sqrt(est * est + (4.0 * bb) * (pi1 * (1.0 - pi1)))
-            lr = torch.where(est >= 0.0,
-                             xk + log_floor(2.0 * pi1) - log_floor(est + dst),
-                             log_floor(dst - est)
-                             - log_floor(2.0 * (1.0 - pi1)))
-        jug = hb.partner_is_ucg(coef, jattr, ucg_mask)
-        pf0 = torch.where(jug, zero, eA + kT * lp0)
-        pf1 = torch.where(jug, (eB + eD) + kT * lr, (eA + eB) + kT * lp1)
-        cols_out = [torch.sum(fmix * dx, -1), torch.sum(fmix * dy, -1),
-                    torch.sum(fmix * dz, -1),
-                    -torch.sum(torch.where(mask, pf0, zero), -1)]
-        if want_scores:
-            sj = jattr(4)
-            cols_out += [
-                -torch.sum(torch.where(mask, eA + sj * eC, zero), -1),
-                -torch.sum(torch.where(mask, (eA + eB) + sj * (eC + eD),
-                                       zero), -1)]
-        else:
-            cols_out += [torch.zeros_like(cols_out[0])] * 2
-        cols_out += [-torch.sum(torch.where(mask, pf1, zero), -1),
-                     torch.zeros_like(cols_out[0])]
-        out[sl] = torch.stack(cols_out, -1).reshape(-1, 8)
+        ch = hp.pair_channels(coef, u, irows, jattr, degree)
+        fmix, emix, tail = dbethe_pairs(
+            ch, irows[:, :, 6:7], jattr(3), jattr(4),
+            hb.partner_is_ucg(coef, jattr, ucg_mask), mask, kT, mf,
+            want_scores, observe)
+        out[sl] = torch.stack([torch.sum(fmix * dx, -1),
+                               torch.sum(fmix * dy, -1),
+                               torch.sum(fmix * dz, -1), *tail],
+                              -1).reshape(-1, 8)
         if observe:
-            emix = torch.where(mask, eA + pi1 * eB + pj1 * eC + p11 * eD, zero)
             part[sl] = hp.observed(emix, fmix, dx, dy, dz, mask, rsq, innersq)
     return out, part
 
@@ -149,14 +169,14 @@ def _lib():
     fn = cuda_lib.load("bethe_pair").lib.density_pair_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_int])
         fn.restype = ctypes.c_int
     return fn
 
 
 def launch_density_pair(style: int, scal, z0, span_len, ipack, cols, coef,
                         *, mx, my, degree, ucg_mask, observe, mf, scores,
-                        feedback):
+                        feedback, periodic=(True, True)):
     """One launch of K3 (``style`` 1) or K4 (2) on CUDA tensors, after the
     same checks as K2's; returns (out, part)."""
     dev = ipack.device
@@ -188,7 +208,8 @@ def launch_density_pair(style: int, scal, z0, span_len, ipack, cols, coef,
                     out.data_ptr(), part.data_ptr() if observe else None,
                     n_slots, mx, my, cz, czp, degree, ntypes1,
                     int(ucg_mask), style, int(observe), int(mf), int(scores),
-                    int(feedback), int(ntypes1 > 0), stream)
+                    int(feedback), int(ntypes1 > 0),
+                    stream, hp.periodic_bits(periodic))
     if rc != 0:
         raise RuntimeError(f"density pair kernel launch failed: CUDA error "
                            f"{rc}")
@@ -197,12 +218,12 @@ def launch_density_pair(style: int, scal, z0, span_len, ipack, cols, coef,
 
 def dbethe_pair(scal, z0, span_len, ipack, cols, coef, *, mx: int, my: int,
                 degree: int, ucg_mask: int, observe: bool, mf: bool,
-                want_scores: bool):
+                want_scores: bool, periodic: tuple = (True, True)):
     """K3: the hand-written kernel on CUDA tensors (launch or raise), its
     plain twin on CPU tensors.  Returns (out, part); part is None unless
     ``observe``."""
     kw = dict(mx=mx, my=my, degree=degree, ucg_mask=ucg_mask,
-              observe=observe, mf=mf)
+              observe=observe, mf=mf, periodic=periodic)
     name = variant(observe, want_scores)
     if ipack.is_cuda:
         res = launch_density_pair(STYLE_DBETHE, scal, z0, span_len, ipack,
@@ -242,34 +263,80 @@ def density_inputs(state: SimState, cl: colpack.ColumnList,
     coef = hp.kernel_rows(cheb, tp, True, True, f32, state.device)
     scal = hb.kernel_scalars(state.box, params, cheb, f32)
     return ((scal, cl.z0, cl.L, ipack, cols, coef),
-            dict(mx=cl.mx, my=cl.my, degree=cheb.degree,
-                 ucg_mask=hb.ucg_mask(tp), observe=observe,
+            dict(mx=cl.mx, my=cl.my, periodic=cl.periodic,
+                 degree=cheb.degree, ucg_mask=hb.ucg_mask(tp),
+                 observe=observe,
                  mf=params.method == "mf", want_scores=want_scores))
 
 
-def totals(part2, part3, observe: bool, device):
+def totals(part2, part3, observe: bool, device, less2=None, less3=None):
     """(pe, virial, oob_low) from the pair pass's and the CV pass's
-    per-slot rows, halved (full list, newton off)."""
+    per-slot rows, halved (full list, newton off); ``less2``/``less3``
+    (8,) sums of the same rows to take off (the special pairs)."""
     f32 = torch.float32
     if not observe:
         return (torch.zeros((), dtype=f32, device=device),
                 torch.zeros(6, dtype=f32, device=device),
                 torch.zeros((), dtype=torch.int32, device=device))
     tot2, tot3 = part2.sum(0), part3.sum(0)
+    if less2 is not None:
+        tot2, tot3 = tot2 - less2, tot3 - less3
     return (0.5 * tot2[0], 0.5 * (tot2[1:7] + tot3[1:7]),
             tot2[7].to(torch.int32))
+
+
+def excl_dbethe(state: SimState, jrows: torch.Tensor,
+                params: BetheDensityParams, cheb: ChebBank, pi1: torch.Tensor,
+                observe: bool, want_scores: bool):
+    """K3's output rows over the (N, S) special-partner lists ``jrows``
+    (row indices, == N where empty) at the priors ``pi1`` the pass packed:
+    ((N, 8) out columns, (8,) per-slot sums or None unless ``observe``),
+    through :func:`dbethe_pairs` on K3's float32 D-form rows and u map
+    (``hopper_pair.excl_geometry``), for :func:`compute_density` to
+    subtract."""
+    f32 = torch.float32
+    tp = params.tp
+    jc, dr, rsq, mask = hp.excl_geometry(state, jrows, tp.cutsq[1, 1])
+    uscale, uoff = hp.u_map(cheb, f32)
+    u = torch.clamp(rsq * uscale + uoff, min=-1.0)
+    coef = hp.kernel_rows(cheb, tp, True, True, f32, state.device)
+    typ = state.typ.long()
+    ch = hp.typed_channels(coef, u, typ[:, None], typ[jc], cheb.degree)
+    p1 = pi1.to(f32)
+    fmix, emix, tail = dbethe_pairs(
+        ch, p1[:, None], p1[jc], state.ucgstate[jc].to(f32),
+        tp.n_states[typ[jc]] > 1, mask, params.kT.to(f32),
+        params.method == "mf", want_scores, observe)
+    dx, dy, dz = dr[..., 0], dr[..., 1], dr[..., 2]
+    out = torch.stack([torch.sum(fmix * dx, -1), torch.sum(fmix * dy, -1),
+                       torch.sum(fmix * dz, -1), *tail], -1)
+    part = (hp.observed(emix, fmix, dx, dy, dz, mask, rsq,
+                        params.bank.innersq[0].to(f32)).sum(0)
+            if observe else None)
+    return out, part
 
 
 def compute_density(state: SimState, cl: colpack.ColumnList,
                     params: BetheDensityParams, cheb: ChebBank,
                     observe: bool = True, want_scores: bool = True,
-                    slot: bool = False) -> ForceOut:
+                    slot: bool = False, excl_rows: torch.Tensor | None = None,
+                    xchg=None) -> ForceOut:
     """Pair evaluation through K5 → K3 → K6, with ``params`` as
     ``select_pair_kernel`` returns them (``cv_rad`` set).
     ``observe=False`` drops pe/virial/oob (they come back 0);
     ``want_scores=False`` also drops the scores, and ``ucgp`` is then None
     — valid only when nothing feeds the scores back (``Simulation`` gates
-    this).  ``slot``: ``state`` is slot-resident and so is the result."""
+    this).  ``slot``: ``state`` is slot-resident and so is the result.
+
+    ``excl_rows`` ((N, S) special partners as rows, N where empty): the
+    kernels take every in-cutoff pair, so each pass's sums over the
+    specials are subtracted after it (compute and subtract; the reference
+    path leaves them out of its list): ρ and the count after K5, before
+    the priors read them (:func:`hopper_cv.excl_rho`); K3's columns at
+    those priors (:func:`excl_dbethe`); K6's back-force at the CV weights
+    that follow (:func:`hopper_cv.excl_force`).  ``xchg``: a spatial
+    driver's halo exchange of per-atom rows (ghost rows get their owners'
+    values), applied to ρ after K5 and to the CV weights before K6."""
     tp = params.tp
     f32 = torch.float32
     dev = state.device
@@ -287,17 +354,28 @@ def compute_density(state: SimState, cl: colpack.ColumnList,
 
     args, kw = hcv.cv_inputs(state, cl, *cv_args, None, slot)
     at1 = rows(hcv.cv_rho(*args, **kw))
-    prior, partial0 = pbd._priors(params, typ, at1[:, 0])
+    rho, n_real = at1[:, 0], at1[:, 1]
+    if excl_rows is not None:
+        ex_rho, ex_n = hcv.excl_rho(state, excl_rows, *cv_args[:2])
+        rho, n_real = rho - ex_rho, n_real - ex_n
+    if xchg is not None:
+        rho = xchg(rho)            # ghosts need their owners' densities
+    prior, partial0 = pbd._priors(params, typ, rho)
     pi1 = prior[:, 1]
     one_body = pbd.one_body(params, typ,
                             torch.log(torch.clamp(prior, min=P_LOG_FLOOR)),
-                            at1[:, 1])
+                            n_real)
 
     # ---- pass 2: Bethe mixing, prior forces, scores (K3) -----------------
     args, kw = density_inputs(state, cl, params, cheb, pi1, observe,
                               want_scores, slot)
     out2, part2 = dbethe_pair(*args, **kw)
     at2 = rows(out2)
+    less2 = less3 = None
+    if excl_rows is not None:
+        ex2, less2 = excl_dbethe(state, excl_rows, params, cheb, pi1, observe,
+                                 want_scores)
+        at2 = at2 - ex2
     pforce = torch.stack([at2[:, 3], at2[:, 6]], dim=-1)
     pforce = torch.where(use_den[:, None], pforce + one_body, zero)
     if want_scores:
@@ -313,12 +391,18 @@ def compute_density(state: SimState, cl: colpack.ColumnList,
     # ---- pass 3: the CV back-force (K6) -----------------------------------
     cvf = pforce[:, 0] * partial0 - pforce[:, 1] * partial0
     cvf = torch.where(use_den, cvf, zero)
+    if xchg is not None:
+        cvf = xchg(cvf)            # ghost CV weights from their owners
+    gform = "mder" if params.backforce_derivative else "w"
     args, kw = hcv.cv_inputs(state, cl, *cv_args, cvf, slot)
-    out3, part3 = hcv.cv_force(
-        *args, gform="mder" if params.backforce_derivative else "w",
-        observe=observe, **kw)
-    pe, virial, oob_low = totals(part2, part3, observe, dev)
-    return ForceOut(f=at2[:, 0:3] + rows(out3)[:, 0:3],
+    out3, part3 = hcv.cv_force(*args, gform=gform, observe=observe, **kw)
+    f3 = rows(out3)[:, 0:3]
+    if excl_rows is not None:
+        ex3, less3 = hcv.excl_force(state, excl_rows, *cv_args[:2], cvf,
+                                    gform, observe)
+        f3 = f3 - ex3
+    pe, virial, oob_low = totals(part2, part3, observe, dev, less2, less3)
+    return ForceOut(f=at2[:, 0:3] + f3,
                     ucgforce=torch.zeros(n, dtype=f32, device=dev),
                     scores=scores, pe=pe, virial=virial, oob_low=oob_low,
                     oob_high=torch.zeros((), dtype=torch.int32, device=dev),
@@ -326,25 +410,32 @@ def compute_density(state: SimState, cl: colpack.ColumnList,
 
 
 def compute_style_density(state: SimState, cl: colpack.ColumnList,
-                          params: BetheDensityParams) -> ForceOut:
+                          params: BetheDensityParams,
+                          excl_rows: torch.Tensor | None = None,
+                          xchg=None) -> ForceOut:
     """Simulation pair entry: reads the ChebBank from ``params.cheb``."""
-    return compute_density(state, cl, params, params.cheb)
+    return compute_density(state, cl, params, params.cheb,
+                           excl_rows=excl_rows, xchg=xchg)
 
 
 def compute_style_density_fast(state: SimState, cl: colpack.ColumnList,
-                               params: BetheDensityParams) -> ForceOut:
+                               params: BetheDensityParams,
+                               excl_rows: torch.Tensor | None = None,
+                               xchg=None) -> ForceOut:
     """Interior-step variant: no energy/virial/oob (observe=False)."""
-    return compute_density(state, cl, params, params.cheb, observe=False)
+    return compute_density(state, cl, params, params.cheb, observe=False,
+                           excl_rows=excl_rows, xchg=xchg)
 
 
 def compute_style_density_fast_noscores(state: SimState,
                                         cl: colpack.ColumnList,
-                                        params: BetheDensityParams
-                                        ) -> ForceOut:
+                                        params: BetheDensityParams,
+                                        excl_rows: torch.Tensor | None = None,
+                                        xchg=None) -> ForceOut:
     """Interior-step variant without scores (ucgp None) — selected by the
     ``Simulation`` only when no ``fix ucgstate`` reads them."""
     return compute_density(state, cl, params, params.cheb, observe=False,
-                           want_scores=False)
+                           want_scores=False, excl_rows=excl_rows, xchg=xchg)
 
 
 def compute_style_density_slot_fast(state: SimState, cl: colpack.ColumnList,
@@ -369,3 +460,7 @@ compute_style_density.fast_variant_noscores = (
 compute_style_density.slot_fast = compute_style_density_slot_fast
 compute_style_density.slot_fast_noscores = (
     compute_style_density_slot_fast_noscores)
+compute_style_density.takes_excl_rows = True
+for _fn in (compute_style_density, compute_style_density_fast,
+            compute_style_density_fast_noscores):
+    _fn.supports_halo_xchg = True

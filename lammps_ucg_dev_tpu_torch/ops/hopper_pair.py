@@ -31,6 +31,10 @@ Kernel contract (both the CUDA kernel and the twin):
          ordered type pair (ti, tj), zero where a state pair has no table
   out    (n_slots, 8) [fx fy fz lamf s0 s1 0 0]
   part   (n_slots, 8) [pe vxx vyy vzz vxy vxz vyz oob] per i-slot (observe)
+  periodic  (x, y) bools, the column list's (``ColumnList.periodic``): on
+         an axis that is not periodic (a spatial driver's virtual box) a
+         stencil column outside the grid holds no candidate; K2–K6 take
+         it alike
 Rows of invalid i-slots are zero.
 """
 
@@ -155,7 +159,8 @@ def kernel_scalars(box, params: UCGLDParams, cheb: ChebBank,
 # ---- the plain PyTorch twin ------------------------------------------------
 
 def span_pairs(scal, z0, span_len, ipack, cols, *, mx: int, my: int,
-               observe: bool, every: bool = False):
+               observe: bool, every: bool = False,
+               periodic: tuple = (True, True)):
     """The twins' walk over the column spans (shared by the twins of K1–K7).
     Each cluster's nine spans expand into a padded candidate index;
     clusters go in chunks of at most ``TWIN_CHUNK_ELEMS`` (i-row,
@@ -164,12 +169,14 @@ def span_pairs(scal, z0, span_len, ipack, cols, *, mx: int, my: int,
     (C, 8, 8) i-slot rows, ``jattr(a)`` the (C, 1, K) candidate attribute
     a, and ``mask`` the pairs with 0 < rsq < cutsq from a real i-slot (and,
     with ``observe``, to a valid j-slot); with ``every``, every candidate
-    of a real i-slot, with no distance test."""
+    of a real i-slot, with no distance test.  ``periodic`` (x, y): on an
+    axis that is not, a stencil column outside the grid holds no
+    candidate, whatever its span says (the kernels' rule)."""
     dev, dt = ipack.device, ipack.dtype
     ncol, cpc, _ = z0.shape
     czp = cols.shape[2]
     nclus = ncol * cpc
-    sten_np, sx_np, sy_np = colpack.stencil(mx, my)
+    sten_np, sx_np, sy_np = colpack.stencil(mx, my, *periodic)
     sten = torch.as_tensor(sten_np, device=dev)
     sx = torch.as_tensor(sx_np, dtype=dt, device=dev)
     sy = torch.as_tensor(sy_np, dtype=dt, device=dev)
@@ -192,11 +199,11 @@ def span_pairs(scal, z0, span_len, ipack, cols, *, mx: int, my: int,
         kk = torch.arange(K, device=dev)
         s_of = torch.searchsorted(cum, kk.expand(C, K).contiguous(),
                                   right=True)                  # (C, K)
-        live = s_of < NSTEN
         s_c = s_of.clamp(max=NSTEN - 1)
+        colc = (torch.arange(c0, c1, device=dev) // cpc)[:, None]
+        live = (s_of < NSTEN) & (sten[colc, s_c] >= 0)
         jslot = (starts.gather(1, s_c) + kk[None, :]
                  - (cum - lens).gather(1, s_c))
-        colc = (torch.arange(c0, c1, device=dev) // cpc)[:, None]
         base = torch.where(live, sten[colc, s_c] * (8 * czp) + jslot, 0)
 
         def jattr(a, _base=base):
@@ -282,7 +289,7 @@ def observed(emix, fmix, dx, dy, dz, mask, rsq, innersq):
 
 def ucgld_pair_reference(scal, z0, span_len, ipack, cols, coef, *,
                          mx: int, my: int, degree: int, observe: bool,
-                         want_scores: bool):
+                         want_scores: bool, periodic: tuple = (True, True)):
     """Plain PyTorch version of the kernel (same arguments, same outputs),
     computed in the tensors' dtype."""
     variant(observe, want_scores)
@@ -293,7 +300,8 @@ def ucgld_pair_reference(scal, z0, span_len, ipack, cols, coef, *,
     innersq, uscale, uoff = scal[3], scal[4], scal[5]
     zero = torch.zeros((), dtype=dt, device=dev)
     for sl, irows, jattr, dx, dy, dz, rsq, mask in span_pairs(
-            scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe):
+            scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe,
+            periodic=periodic):
         # lower clamp only; past-cutoff lanes may run to inf/NaN and are
         # selected out below
         u = torch.clamp(rsq * uscale + uoff, min=-1.0)
@@ -330,7 +338,7 @@ def _lib():
     fn = nl.lib.ucgld_pair_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_int])
         fn.restype = ctypes.c_int
     return fn
 
@@ -359,8 +367,13 @@ def coef_shape(coef, degree: int, nrow: int):
     return (nrow, degree), 0
 
 
+def periodic_bits(periodic) -> int:
+    """The kernels' ``periodic`` argument: bit 0 x, bit 1 y."""
+    return int(bool(periodic[0])) | (int(bool(periodic[1])) << 1)
+
+
 def _launch_cuda(scal, z0, span_len, ipack, cols, coef, *, mx, my, degree,
-                 observe, want_scores):
+                 observe, want_scores, periodic=(True, True)):
     dev = ipack.device
     f32, i32 = torch.float32, torch.int32
     ncol, cpc, _ = z0.shape
@@ -388,7 +401,8 @@ def _launch_cuda(scal, z0, span_len, ipack, cols, coef, *, mx, my, degree,
                     ipack.data_ptr(), cols.data_ptr(), coef.data_ptr(),
                     out.data_ptr(), part.data_ptr() if observe else None,
                     n_slots, mx, my, cz, czp, degree, ntypes1,
-                    int(observe), int(want_scores), int(ntypes1 > 0), stream)
+                    int(observe), int(want_scores), int(ntypes1 > 0),
+                    stream, periodic_bits(periodic))
     if rc != 0:
         raise RuntimeError(f"ucgld_pair kernel launch failed: CUDA error {rc}")
     ucgld_pair.launches[variant(observe, want_scores)] += 1
@@ -396,12 +410,13 @@ def _launch_cuda(scal, z0, span_len, ipack, cols, coef, *, mx, my, degree,
 
 
 def ucgld_pair(scal, z0, span_len, ipack, cols, coef, *, mx: int, my: int,
-               degree: int, observe: bool, want_scores: bool):
+               degree: int, observe: bool, want_scores: bool,
+               periodic: tuple = (True, True)):
     """K1: the hand-written kernel on CUDA tensors (launch or raise), its
     plain twin on CPU tensors.  Returns (out, part); part is None unless
     ``observe``."""
     kw = dict(mx=mx, my=my, degree=degree, observe=observe,
-              want_scores=want_scores)
+              want_scores=want_scores, periodic=periodic)
     if ipack.is_cuda:
         return _launch_cuda(scal, z0, span_len, ipack, cols, coef, **kw)
     if ipack.device.type == "cpu":
@@ -432,7 +447,8 @@ def kernel_inputs(state: SimState, cl: colpack.ColumnList,
     coef = kernel_rows(cheb, tp, observe, want_scores, f32, state.device)
     scal = kernel_scalars(state.box, params, cheb, f32)
     return ((scal, cl.z0, cl.L, ipack, cols, coef),
-            dict(mx=cl.mx, my=cl.my, degree=cheb.degree, observe=observe,
+            dict(mx=cl.mx, my=cl.my, periodic=cl.periodic,
+                 degree=cheb.degree, observe=observe,
                  want_scores=want_scores))
 
 
@@ -528,6 +544,24 @@ compute_style.slot_fast_noscores = compute_style_slot_fast_noscores
 
 # ---- special exclusions: compute and subtract ------------------------------
 
+def excl_geometry(state: SimState, jrows: torch.Tensor, cutsq):
+    """(jc, dr, rsq, mask) of the (N, S) partner lists ``jrows`` (row
+    indices, == N where empty) in the kernels' float32: the minimum-image
+    displacements, their squares and 0 < rsq < cutsq of a listed
+    partner; ``jc`` the partner rows with empty entries at 0."""
+    f32 = torch.float32
+    n = state.n_atoms
+    ok = jrows < n
+    jc = torch.where(ok, jrows, 0)
+    x = state.x.to(f32)
+    box = dataclasses.replace(state.box, lo=state.box.lo.to(f32),
+                              hi=state.box.hi.to(f32))
+    dr = box.min_image(x[:, None, :] - x[jc])                   # (N, S, 3)
+    rsq = torch.sum(dr * dr, dim=-1)
+    mask = ok & (rsq < cutsq.to(f32)) & (rsq > 0.0)
+    return jc, dr, rsq, mask
+
+
 def excl_channels(state: SimState, jrows: torch.Tensor, params, coef):
     """Geometry and D-form channels of the (N, S) partner lists ``jrows``
     (row indices, == N where empty) in K1's arithmetic: float32, the u map
@@ -539,16 +573,7 @@ def excl_channels(state: SimState, jrows: torch.Tensor, params, coef):
     listed partner."""
     f32 = torch.float32
     cheb = params.cheb
-    n = state.n_atoms
-    ok = jrows < n
-    jc = torch.where(ok, jrows, 0)
-    x = state.x.to(f32)
-    box = dataclasses.replace(state.box, lo=state.box.lo.to(f32),
-                              hi=state.box.hi.to(f32))
-    dr = box.min_image(x[:, None, :] - x[jc])                   # (N, S, 3)
-    rsq = torch.sum(dr * dr, dim=-1)
-    cutsq = params.tp.cutsq[1, 1].to(f32)
-    mask = ok & (rsq < cutsq) & (rsq > 0.0)
+    jc, dr, rsq, mask = excl_geometry(state, jrows, params.tp.cutsq[1, 1])
     uscale, uoff = u_map(cheb, f32)
     u = torch.clamp(rsq * uscale + uoff, min=-1.0)
     typ = state.typ.long()

@@ -14,7 +14,9 @@ wrappers, and the three-pass kernel path of the style (port of
   one-body forces → K4 (mean-field mixing, feedback tally) → the CV
   weights → K6 (the CV back-force).
 * :func:`compute_style_rleucg` (+ ``.fast_variant``, ``.slot_fast``) is
-  the ``Simulation`` pair entry.  With ``slot=True`` the state is
+  the ``Simulation`` pair entry; its atom-ordered entries take
+  ``excl_rows=`` (``takes_excl_rows``) and ``xchg=`` as P3's do
+  (``hopper_density``).  With ``slot=True`` the state is
   slot-resident (``Simulation``'s slot-major interior): ρ, the
   probabilities and the CV weights stay in slot order between the passes,
   each pass packs through ``colpack.pack_slots``, and the ForceOut rows
@@ -96,7 +98,7 @@ def kernel_scalars(box, params: RLEUCGParams, cheb: ChebBank,
 
 def rleucg_pair_reference(scal, z0, span_len, ipack, cols, coef, *,
                           mx: int, my: int, degree: int, observe: bool,
-                          feedback: bool):
+                          feedback: bool, periodic: tuple = (True, True)):
     """Plain PyTorch version of K4 (same arguments, same outputs), computed
     in the tensors' dtype on K1's twin's span walk, series and channels."""
     dev, dt = ipack.device, ipack.dtype
@@ -104,34 +106,47 @@ def rleucg_pair_reference(scal, z0, span_len, ipack, cols, coef, *,
     out = torch.zeros((n_slots, 8), dtype=dt, device=dev)
     part = torch.zeros((n_slots, 8), dtype=dt, device=dev) if observe else None
     innersq, uscale, uoff = scal[3], scal[4], scal[5]
-    zero = torch.zeros((), dtype=dt, device=dev)
     for sl, irows, jattr, dx, dy, dz, rsq, mask in hp.span_pairs(
-            scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe):
+            scal, z0, span_len, ipack, cols, mx=mx, my=my, observe=observe,
+            periodic=periodic):
         u = torch.clamp(rsq * uscale + uoff, min=-1.0)
-        eA, eB, eC, eD, fA, fB, fC, fD = hp.pair_channels(
-            coef, u, irows, jattr, degree)
-        pi1, pj1 = irows[:, :, 6:7], jattr(3)
-        p11 = pi1 * pj1
-        fmix = torch.where(mask, fA + pi1 * fB + pj1 * fC + p11 * fD, zero)
-        zc = torch.zeros_like(fmix[..., 0])
-        pf0 = (torch.sum(torch.where(mask, eB + pj1 * eD, zero), -1)
-               if feedback else zc)
-        out[sl] = torch.stack([torch.sum(fmix * dx, -1),
-                               torch.sum(fmix * dy, -1),
-                               torch.sum(fmix * dz, -1), pf0,
-                               zc, zc, zc, zc], -1).reshape(-1, 8)
+        ch = hp.pair_channels(coef, u, irows, jattr, degree)
+        out[sl], emix, fmix = rleucg_rows(ch, irows[:, :, 6:7], jattr(3),
+                                          mask, dx, dy, dz, feedback, observe)
         if observe:
-            emix = torch.where(mask, eA + pi1 * eB + pj1 * eC + p11 * eD, zero)
             part[sl] = hp.observed(emix, fmix, dx, dy, dz, mask, rsq, innersq)
     return out, part
 
 
+def rleucg_rows(ch, pi1, pj1, mask, dx, dy, dz, feedback: bool,
+                observe: bool):
+    """K4's output rows from a batch of candidate pairs (pairs along the
+    last axis): (rows [fx fy fz pf0 0 0 0 0] flattened to (-1, 8), emix
+    or None unless ``observe``, fmix).  The twin and the exclusion lists
+    share it."""
+    eA, eB, eC, eD, fA, fB, fC, fD = ch
+    zero = torch.zeros((), dtype=fA.dtype, device=fA.device)
+    p11 = pi1 * pj1
+    fmix = torch.where(mask, fA + pi1 * fB + pj1 * fC + p11 * fD, zero)
+    zc = torch.zeros_like(fmix[..., 0])
+    pf0 = (torch.sum(torch.where(mask, eB + pj1 * eD, zero), -1)
+           if feedback else zc)
+    rows = torch.stack([torch.sum(fmix * dx, -1), torch.sum(fmix * dy, -1),
+                        torch.sum(fmix * dz, -1), pf0, zc, zc, zc, zc],
+                       -1).reshape(-1, 8)
+    emix = (torch.where(mask, eA + pi1 * eB + pj1 * eC + p11 * eD, zero)
+            if observe else None)
+    return rows, emix, fmix
+
+
 def rleucg_pair(scal, z0, span_len, ipack, cols, coef, *, mx: int, my: int,
-                degree: int, observe: bool, feedback: bool):
+                degree: int, observe: bool, feedback: bool,
+                periodic: tuple = (True, True)):
     """K4: the hand-written kernel on CUDA tensors (launch or raise), its
     plain twin on CPU tensors.  Returns (out, part); part is None unless
     ``observe``."""
-    kw = dict(mx=mx, my=my, degree=degree, observe=observe)
+    kw = dict(mx=mx, my=my, degree=degree, observe=observe,
+              periodic=periodic)
     if ipack.is_cuda:
         res = hd.launch_density_pair(hd.STYLE_RLEUCG, scal, z0, span_len,
                                      ipack, cols, coef, ucg_mask=0,
@@ -168,17 +183,49 @@ def rleucg_inputs(state: SimState, cl: colpack.ColumnList,
     coef = kernel_rows(cheb, params, f32, state.device)
     return ((kernel_scalars(state.box, params, cheb), cl.z0, cl.L, ipack,
              cols, coef),
-            dict(mx=cl.mx, my=cl.my, degree=cheb.degree, observe=observe,
+            dict(mx=cl.mx, my=cl.my, periodic=cl.periodic,
+                 degree=cheb.degree, observe=observe,
                  feedback=params.feedback == "always"))
+
+
+def excl_rleucg(state: SimState, jrows: torch.Tensor, params: RLEUCGParams,
+                cheb: ChebBank, a1: torch.Tensor, observe: bool,
+                feedback: bool):
+    """K4's output rows over the (N, S) special-partner lists ``jrows`` at
+    the substate probabilities ``a1`` the pass packed: ((N, 8) rows, (8,)
+    per-slot sums or None unless ``observe``), through
+    :func:`rleucg_rows` on K4's float32 rows of each substate-type pair,
+    for :func:`compute_rleucg` to subtract."""
+    f32 = torch.float32
+    jc, dr, rsq, mask = hp.excl_geometry(state, jrows, params.cutsq[1, 1])
+    uscale, uoff = hp.u_map(cheb, f32)
+    u = torch.clamp(rsq * uscale + uoff, min=-1.0)
+    typ = state.typ.long()
+    ch = hp.typed_channels(kernel_rows(cheb, params, f32, state.device), u,
+                           typ[:, None], typ[jc], cheb.degree)
+    a = a1.to(f32)
+    dx, dy, dz = dr[..., 0], dr[..., 1], dr[..., 2]
+    out, emix, fmix = rleucg_rows(ch, a[:, None], a[jc], mask, dx, dy, dz,
+                                  feedback, observe)
+    part = (hp.observed(emix, fmix, dx, dy, dz, mask, rsq,
+                        params.bank.innersq[0].to(f32)).sum(0)
+            if observe else None)
+    return out, part
 
 
 def compute_rleucg(state: SimState, cl: colpack.ColumnList,
                    params: RLEUCGParams, cheb: ChebBank,
-                   observe: bool = True, slot: bool = False) -> ForceOut:
+                   observe: bool = True, slot: bool = False,
+                   excl_rows: torch.Tensor | None = None,
+                   xchg=None) -> ForceOut:
     """Pair evaluation through K5 → K4 → K6, with ``params`` as
     ``select_pair_kernel`` returns them (``cv_rad`` set).  ``observe=False``
     is the fast variant (pe/virial/oob come back 0) for interior MD
-    steps.  ``slot``: ``state`` is slot-resident and so is the result."""
+    steps.  ``slot``: ``state`` is slot-resident and so is the result.
+    ``excl_rows`` and ``xchg`` as in ``hopper_density.compute_density``:
+    the special pairs' sums leave ρ after K5, K4's rows after K4
+    (:func:`excl_rleucg`) and the back-force after K6; the halo exchange
+    takes ρ and the CV weights."""
     f32 = torch.float32
     dev = state.device
     typ = state.typ
@@ -192,6 +239,10 @@ def compute_rleucg(state: SimState, cl: colpack.ColumnList,
 
     args, kw = hcv.cv_inputs(state, cl, *cv_args, None, slot)
     rho = rows(hcv.cv_rho(*args, **kw))[:, 0]
+    if excl_rows is not None:
+        rho = rho - hcv.excl_rho(state, excl_rows, *cv_args[:2])[0]
+    if xchg is not None:
+        rho = xchg(rho)            # ghosts need their owners' densities
     probs, partial = pr4.substate_probs(params, typ, rho)
     explicit, pforce = pr4.one_body(params, typ, probs)
 
@@ -200,17 +251,28 @@ def compute_rleucg(state: SimState, cl: colpack.ColumnList,
                              slot)
     out2, part2 = rleucg_pair(*args, **kw)
     at2 = rows(out2)
+    less2 = less3 = None
+    if excl_rows is not None:
+        ex2, less2 = excl_rleucg(state, excl_rows, params, cheb, probs[:, 1],
+                                 observe, kw["feedback"])
+        at2 = at2 - ex2
     pf0 = pforce[:, 0] + torch.where(explicit[:, 0], at2[:, 3], zero)
     pforce = torch.cat([pf0[:, None], pforce[:, 1:]], dim=1)
 
     # ---- pass 3: the CV back-force (K6) -----------------------------------
     cvf = torch.sum(pforce * partial, dim=-1)
+    if xchg is not None:
+        cvf = xchg(cvf)            # ghost CV weights from their owners
+    gform = "mder" if params.conservative_sign else "pder"
     args, kw = hcv.cv_inputs(state, cl, *cv_args, cvf, slot)
-    out3, part3 = hcv.cv_force(
-        *args, gform="mder" if params.conservative_sign else "pder",
-        observe=observe, **kw)
-    pe, virial, oob_low = hd.totals(part2, part3, observe, dev)
-    return ForceOut(f=at2[:, 0:3] + rows(out3)[:, 0:3],
+    out3, part3 = hcv.cv_force(*args, gform=gform, observe=observe, **kw)
+    f3 = rows(out3)[:, 0:3]
+    if excl_rows is not None:
+        ex3, less3 = hcv.excl_force(state, excl_rows, *cv_args[:2], cvf,
+                                    gform, observe)
+        f3 = f3 - ex3
+    pe, virial, oob_low = hd.totals(part2, part3, observe, dev, less2, less3)
+    return ForceOut(f=at2[:, 0:3] + f3,
                     ucgforce=torch.zeros(n, dtype=f32, device=dev),
                     scores=torch.zeros((n, 2), dtype=f32, device=dev),
                     pe=pe, virial=virial, oob_low=oob_low,
@@ -218,15 +280,21 @@ def compute_rleucg(state: SimState, cl: colpack.ColumnList,
 
 
 def compute_style_rleucg(state: SimState, cl: colpack.ColumnList,
-                         params: RLEUCGParams) -> ForceOut:
+                         params: RLEUCGParams,
+                         excl_rows: torch.Tensor | None = None,
+                         xchg=None) -> ForceOut:
     """Simulation pair entry: reads the ChebBank from ``params.cheb``."""
-    return compute_rleucg(state, cl, params, params.cheb)
+    return compute_rleucg(state, cl, params, params.cheb,
+                          excl_rows=excl_rows, xchg=xchg)
 
 
 def compute_style_rleucg_fast(state: SimState, cl: colpack.ColumnList,
-                              params: RLEUCGParams) -> ForceOut:
+                              params: RLEUCGParams,
+                              excl_rows: torch.Tensor | None = None,
+                              xchg=None) -> ForceOut:
     """Interior-step variant: no energy/virial/oob (observe=False)."""
-    return compute_rleucg(state, cl, params, params.cheb, observe=False)
+    return compute_rleucg(state, cl, params, params.cheb, observe=False,
+                          excl_rows=excl_rows, xchg=xchg)
 
 
 def compute_style_rleucg_slot_fast(state: SimState, cl: colpack.ColumnList,
@@ -238,3 +306,6 @@ def compute_style_rleucg_slot_fast(state: SimState, cl: colpack.ColumnList,
 
 compute_style_rleucg.fast_variant = compute_style_rleucg_fast
 compute_style_rleucg.slot_fast = compute_style_rleucg_slot_fast
+compute_style_rleucg.takes_excl_rows = True
+compute_style_rleucg.supports_halo_xchg = True
+compute_style_rleucg_fast.supports_halo_xchg = True

@@ -18,10 +18,10 @@ Eligibility (all must hold; otherwise the style's reference pair path,
 
 Topology composes with the kernel path, so selection ignores it (the JAX
 package's ``kernel_select.py:24-33``): bonded terms add to the pair pass
-(``models/bonded.py``), special exclusions are computed by the kernel and
-subtracted through the style's ``excl_delta`` (``table_ucgld`` and
-``table_ucg_bethe``; for the other styles the deck runner drops the
-selection and takes the reference path, and ``Simulation`` raises), and
+(``models/bonded.py``), special exclusions are computed by the kernels
+and subtracted through the style's ``excl_delta`` (the density styles'
+entries take the lists and subtract pass by pass: ``sim.excl_route``),
+and
 the ``cluster_switch`` event builds its own contact list
 (``Simulation._cswitch_event``), so config-4 decks keep their kernels.
 """

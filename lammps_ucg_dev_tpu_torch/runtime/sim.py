@@ -30,7 +30,10 @@ Topology (``bonded``, ``excl_tags``): the bonded terms add to the pair
 pass's ForceOut.  Special exclusions leave the reference path's lists at
 the build; the kernels have no per-pair identity, so on the kernel path
 they compute every in-cutoff pair and the driver subtracts the style's
-``excl_delta`` over the special lists (styles without one raise).  With
+``excl_delta`` over the special lists (styles without one raise).  The
+density styles' entries (``takes_excl_rows``) take the lists themselves
+(``excl_rows=``) and subtract each pass's sums, since ρ feeds the priors
+of the next pass (:func:`excl_route`).  With
 ``respa_inner > 1`` the bonded terms move to the inner level of a two-level
 r-RESPA, the full pair entry runs once per outer step, and thermo adds the
 bonded pe and virial.  The molecular paths run atom-ordered.
@@ -129,6 +132,20 @@ class SimConfig:
         return 0.0
 
 
+
+def excl_route(pair_compute) -> str | None:
+    """How a kernel path's pair entry leaves the special pairs out:
+    ``"rows"`` when the entry takes the lists itself (``excl_rows=``; the
+    density styles, whose ρ feeds the priors, subtract each pass's sums
+    over them), ``"delta"`` when the driver subtracts its ``excl_delta``
+    from the result, None when it cannot."""
+    if getattr(pair_compute, "takes_excl_rows", False):
+        return "rows"
+    if getattr(pair_compute, "excl_delta", None) is not None:
+        return "delta"
+    return None
+
+
 class Simulation:
     """Assembles state + pair style + fixes into a stepper.
 
@@ -186,13 +203,14 @@ class Simulation:
             excl_tags = None                     # nothing excluded
         self.excl_tags = (None if excl_tags is None else torch.as_tensor(
             np.asarray(excl_tags), dtype=torch.int64, device=state.device))
+        self._excl_route = excl_route(pair_compute)
         if (self.excl_tags is not None and self._is_kernel
-                and getattr(pair_compute, "excl_delta", None) is None):
+                and self._excl_route is None):
             raise NotImplementedError(
                 "special exclusions on a kernel path need the style's "
-                "excl_delta (compute-and-subtract): table_ucgld and "
-                "table_ucg_bethe have one; use the reference path "
-                "(a NeighborSpec) for other styles")
+                "excl_delta (compute-and-subtract): the four column "
+                "styles have one; use the reference path (a NeighborSpec) "
+                "for other styles")
         # the kernel path's special lists as rows: its rows never permute,
         # so the tag→row map is fixed
         self._excl_rows_static = (self._excl_rows(state)
@@ -287,9 +305,12 @@ class Simulation:
                    None) == "chemical_potential_noise":
             # table_ucg_bethe's noisy first-step priors, drawn by tag
             kw["prior_u"] = self._uniforms(state)
+        excl = self._excl_rows_static
+        in_pass = self._excl_route == "rows"
+        pkw = dict(kw, excl_rows=excl) if excl is not None and in_pass else kw
         fout = (pair_fn or self.pair_compute)(state, nbr, self.pair_params,
-                                              **kw)
-        if self._excl_rows_static is not None:
+                                              **pkw)
+        if excl is not None and not in_pass:
             # the kernel computed every in-cutoff pair, the special
             # partners too: subtract them, in the kernel's own functional
             d = self.pair_compute.excl_delta(state, self._excl_rows_static,

@@ -15,8 +15,9 @@ its three variants and K7 at L0–L4 on the flagship fluid, K2 fast and full
 on the Bethe system (config 3) after setup, K5 and K6 fast and full (the
 paths' g-form, ``mder``) on the P3 and P4 systems after setup, and K8 on
 the cluster path's inputs, all at ``--n`` beads.  The builds must share
-this tree's C entry points (K8's may end at the stream: its occupied list
-comes after it).
+this tree's C entry points up to the stream (K8's occupied list and the
+others' periodic flags come after it, so builds from before them ignore
+them).
 
 Prints the card's name and power limit and each build's ptxas lines, then
 one line per kernel: each tag's mean ms over its two turns (the tags in
@@ -50,13 +51,13 @@ from lammps_ucg_dev_tpu_torch.tools.timing import card, cuda_ms
 P, I = ctypes.c_void_p, ctypes.c_int
 # (kernels, wrapper module, source, C entry point, its argument types)
 ENTRIES = ((("K1",), hp, "ucgld_pair", "ucgld_pair_launch",
-            [P] * 8 + [I] * 10 + [P]),
+            [P] * 8 + [I] * 10 + [P, I]),
            (("K5", "K6"), hcv, "density_cv", "density_cv_launch",
-            [P] * 8 + [I] * 10 + [P]),
+            [P] * 8 + [I] * 10 + [P, I]),
            (("K7",), ha, "ucgld_ablation", "ucgld_ablation_launch",
             [P] * 7 + [I] * 7 + [P]),
            (("K2",), hb, "bethe_pair", "bethe_pair_launch",
-            [P] * 8 + [I] * 12 + [P]),
+            [P] * 8 + [I] * 12 + [P, I]),
            (("K8",), hc, "ucgld_cluster", "ucgld_cluster_launch",
             [P] * 6 + [I] * 3 + [P] * 2 + [I]))
 

@@ -714,12 +714,13 @@ def test_launchers_refuse_more_types_than_the_rows_hold(density_systems):
             out.data_ptr(), None]
     geo_c = [ipack.shape[0], mx, my, cz, czp, deg, 5]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    periodic = 3                     # both axes, after the stream
     assert hd._lib()(*ptrs, *geo_c, 0, hd.STYLE_DBETHE, 0, 0, 0, 0, 1,
-                     stream) == 1
+                     stream, periodic) == 1
     assert hd._lib()(*ptrs, *geo_c, 0, hd.STYLE_RLEUCG, 0, 1, 0, 1, 1,
-                     stream) == 1
-    assert hb._lib()(*ptrs, *geo_c, 0, 0, 0, 0, 1, stream) == 1
-    assert hp._lib()(*ptrs, *geo_c, 0, 1, 1, stream) == 1
+                     stream, periodic) == 1
+    assert hb._lib()(*ptrs, *geo_c, 0, 0, 0, 0, 1, stream, periodic) == 1
+    assert hp._lib()(*ptrs, *geo_c, 0, 1, 1, stream, periodic) == 1
 
 
 @pytest.mark.parametrize("style", ["p3", "p4"])
@@ -1135,17 +1136,30 @@ def test_deck_selects_and_launches_its_kernel(device, tmp_path, deck):
 
 
 def test_density_deck_with_exclusions_raises(device, tmp_path):
-    """table_ucg_bethe_density has no excl_delta: a config-4 deck with
-    bonds and ``special_bonds lj 0 0 0`` raises on the card instead of
-    running the reference path there."""
+    """A config-4 deck with bonds and ``special_bonds lj 0 0 0``, which
+    used to raise on the card, runs there on K5 -> K3 -> K6 with the
+    density ``excl_delta`` (the specials subtracted pass by pass), and its
+    step-0 pe is within 1e-6 of the float64 reference path's on the CPU,
+    whose list leaves the specials out."""
     from lammps_ucg_dev_tpu_torch.compat.script import ScriptRunner
     from lammps_ucg_dev_tpu_torch.tools import make_deck
 
     path = make_deck.add_bonds(make_deck.write_bethe_density_deck(
         str(tmp_path), n=4096, nsteps=0), nbonds=64)
+    before = dict(hd.dbethe_pair.launches)
     r = ScriptRunner(workdir=str(tmp_path), log_callback=lambda m: None)
-    with pytest.raises(NotImplementedError, match="excl_delta"):
-        r.run_file(path)
+    r.run_file(path)
+    assert r.sim.pair_compute is hd.compute_style_density
+    assert r.sim._excl_route == "rows"
+    assert r.sim._excl_rows_static is not None
+    assert hd.dbethe_pair.launches["full"] > before["full"]
+    ref = ScriptRunner(workdir=str(tmp_path), dtype=torch.float64,
+                       device="cpu", log_callback=lambda m: None)
+    ref.run_file(path)
+    assert ref.sim._excl_rows_static is None
+    pe_k, pe_r = r.thermo_rows[0]["pe"], ref.thermo_rows[0]["pe"]
+    assert abs(pe_k - pe_r) <= 1e-6 * abs(pe_r), (pe_k, pe_r)
+
 
 def test_native_dump_writer_loads(device, tmp_path):
     from lammps_ucg_dev_tpu_torch.io import dump as dmp

@@ -365,7 +365,9 @@ def test_refusals(tmp_path):
         return ScriptRunner(workdir=str(tmp_path), dtype=torch.float64,
                             device="cpu", log_callback=lambda m: None)
 
-    with pytest.raises(NotImplementedError):
+    # a grid above one subdomain needs a process group of its size (the
+    # spatial drivers, tests/test_torch_spatial.py); here there is none
+    with pytest.raises(ValueError, match="process group"):
         runner().run_string("processors 2 1 1\n" + text)
     runner().run_string("processors 1 1 1\n" + text)        # one device
     if not torch.cuda.is_available():
@@ -373,46 +375,98 @@ def test_refusals(tmp_path):
             ScriptRunner(workdir=str(tmp_path))
 
 
-def test_exclusions_without_excl_delta_refused(tmp_path, monkeypatch):
-    """table_ucg_bethe_density has no excl_delta.  A deck with bonds and
-    ``special_bonds lj 0 0 0`` runs where the kernel selection declines
-    (the CPU) on the reference path, whose list leaves the specials out:
-    it says so, launches no K3, and matches the JAX runner at step 0.
-    Where the kernels are selected (on the card; here forced onto the
-    wrappers' CPU twins) the deck raises; without exclusions the forced
-    kernel path takes the same deck."""
-    from lammps_ucg_dev_tpu_torch.ops import hopper_density as hd
+def exclusion_deck_checks(tmp_path, monkeypatch, writer, entry):
+    """The checks of the density styles' special exclusions on one deck
+    style (``writer``, whose kernel entry is ``entry``): bonds with
+    ``special_bonds lj 0 0 0``; the float64 reference path where the
+    selection declines (the CPU) at step 0 against the JAX runner at
+    1e-10; then the kernel path forced onto the wrappers' CPU twins
+    (float32) with the density ``excl_delta``, against the JAX runner's
+    float64 rows at step 0 and over 20 steps and against the float32
+    reference path, at 1e-6 relative in temp, pe, ke and press (measured
+    ≤ 2.5e-7 against float64, ≤ 1.4e-7 against float32).  λ's rows are
+    not compared over the run: the two runners draw different Langevin
+    noise (ROADMAP F1), which these styles' forces never read."""
+    def deck(nsteps):
+        d = tmp_path / f"n{nsteps}"
+        kw = dict(thermo_every=10) if nsteps else {}
+        return tmd.add_bonds(writer(str(d), n=512, nsteps=nsteps, **kw),
+                             nbonds=16), d
 
-    deck = tmd.add_bonds(tmd.write_bethe_density_deck(
-        str(tmp_path), n=512, nsteps=0), nbonds=16)
-    jr, tr = runners(tmp_path)
-    jr.run_file(deck)
-    tr.run_file(deck)
+    def runner(d, logs, dtype=torch.float32):
+        return ScriptRunner(workdir=str(d), dtype=dtype, device="cpu",
+                            log_callback=logs.append)
+
+    path, d = deck(0)
+    jr, tr = runners(d)
+    jr.run_file(path)
+    tr.run_file(path)
     assert_rows_close(jr.thermo_rows, tr.thermo_rows, 1e-10)
-
-    def runner(logs):
-        return ScriptRunner(workdir=str(tmp_path), dtype=torch.float32,
-                            device="cpu", log_callback=logs.append)
-
     logs = []
-    before = sum(hd.dbethe_pair.launches.values())
-    r = runner(logs)
-    r.run_file(deck)
-    assert sum(hd.dbethe_pair.launches.values()) == before
-    assert [m for m in logs if m.startswith("pair path:")] == [
-        f"pair path: {r.pair_path}"]
+    r = runner(d, logs)
+    r.run_file(path)
     assert r.pair_path.startswith("reference PyTorch pair path") and \
         r.pair_path.endswith("(+ bonded terms)")
     assert r.sim._excl_rows_static is None and r.sim.excl_tags is not None
     monkeypatch.setattr(script_mod, "select_pair_kernel", functools.partial(
         script_mod.select_pair_kernel, force=True))
-    with pytest.raises(NotImplementedError, match="excl_delta"):
-        runner([]).run_file(deck)
-    # without exclusions the forced kernel path takes the same deck
-    text = open(deck).read().replace("lj 0 0 0", "lj 1 1 1")
+    for nsteps in (0, 20):
+        path, d = deck(nsteps)
+        jr = runners(d)[0]
+        jr.run_file(path)
+        logs = []
+        k = runner(d, logs)
+        k.run_file(path)
+        assert k.sim.pair_compute is entry and k.sim._excl_route == "rows"
+        assert k.pair_path.endswith("(+ bonded terms, excl_delta "
+                                    "subtracted)")
+        monkeypatch.undo()
+        ref = runner(d, [])
+        ref.run_file(path)
+        monkeypatch.setattr(script_mod, "select_pair_kernel",
+                            functools.partial(
+                                script_mod.select_pair_kernel, force=True))
+        assert ref.sim._excl_rows_static is None
+        assert len(k.thermo_rows) == len(jr.thermo_rows) == len(
+            ref.thermo_rows) == (3 if nsteps else 1)
+        for other in (jr.thermo_rows, ref.thermo_rows):
+            for a, b in zip(other, k.thermo_rows):
+                for key in ("temp", "pe", "ke", "press"):
+                    np.testing.assert_allclose(b[key], a[key], rtol=1e-6,
+                                               err_msg=key)
+                assert (b["oob_low"], b["oob_high"]) == (a["oob_low"],
+                                                         a["oob_high"])
+
+
+def test_exclusions_without_excl_delta_refused(tmp_path, monkeypatch):
+    """table_ucg_bethe_density with special exclusions: the reference path
+    on the CPU, and the kernel path (K5 → K3 → K6, forced onto the twins)
+    with the density ``excl_delta``, which used to be refused
+    (:func:`exclusion_deck_checks`); without exclusions the forced kernel
+    path takes the same deck."""
+    from lammps_ucg_dev_tpu_torch.ops import hopper_density as hd
+
+    exclusion_deck_checks(tmp_path, monkeypatch, tmd.write_bethe_density_deck,
+                          hd.compute_style_density)
+    path = tmd.add_bonds(tmd.write_bethe_density_deck(
+        str(tmp_path / "plain"), n=512, nsteps=0), nbonds=16)
+    text = open(path).read().replace("lj 0 0 0", "lj 1 1 1")
     logs = []
-    runner(logs).run_string(text)
+    r = ScriptRunner(workdir=str(tmp_path / "plain"), dtype=torch.float32,
+                     device="cpu", log_callback=logs.append)
+    r.run_string(text)
     assert any("K5 -> K3 -> K6" in m for m in logs)
+    assert r.sim.excl_tags is None and r.sim._excl_rows_static is None
+
+
+def test_rleucg_deck_with_exclusions(tmp_path, monkeypatch):
+    """table_rleucg_interface with special exclusions
+    (:func:`exclusion_deck_checks`): K5 → K4 → K6 with the density
+    ``excl_delta``."""
+    from lammps_ucg_dev_tpu_torch.ops import hopper_rleucg as hr
+
+    exclusion_deck_checks(tmp_path, monkeypatch, tmd.write_rleucg_deck,
+                          hr.compute_style_rleucg)
 
 
 TILT = (0.1, -0.05, 0.08)     # in units of the box length

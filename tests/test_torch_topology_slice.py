@@ -457,9 +457,19 @@ def test_errors():
     dens = flagship.build_density_sim(n=512, device="cpu", kernel=True)
     excl = np.zeros((512, 1), np.int32)
     excl[0, 0], excl[1, 0] = 2, 1
+    # a kernel path whose entry has no excl_delta (K8's) refuses exclusions
+    clus = flagship.build_cluster_sim(n=512, device="cpu")
+    assert getattr(clus.pair_compute, "excl_delta", None) is None
     with pytest.raises(NotImplementedError):
-        Simulation(dens.system, dens.state, dens.pair_compute,
-                   dens.pair_params, dens.nbr_spec, dens.cfg, excl_tags=excl)
+        Simulation(clus.system, clus.state, clus.pair_compute,
+                   clus.pair_params, clus.nbr_spec, clus.cfg, excl_tags=excl)
+    # the density styles take them pass by pass (tests/test_torch_density_
+    # excl.py holds the result against the reference path)
+    taken = Simulation(dens.system, dens.state, dens.pair_compute,
+                       dens.pair_params, dens.nbr_spec, dens.cfg,
+                       excl_tags=excl)
+    assert (taken._excl_route == "rows"
+            and taken._excl_rows_static is not None)
     # an all-zero list excludes nothing and is accepted
     Simulation(dens.system, dens.state, dens.pair_compute, dens.pair_params,
                dens.nbr_spec, dens.cfg, excl_tags=np.zeros((512, 1)))

@@ -153,7 +153,18 @@ which raises on failure:
    Bethe, P3 and P4 at 2^20 for 20 steps; K1–K6 on rank 0's inputs (the x
    axis not periodic) against their twins (``@slab`` entries); the NVE
    drift at 32,768; a ``processors 3 1 1`` deck against one process; then
-   a 3×3 pencil grid's setup on 9 ranks at 2^18.
+   a 3×3 pencil grid's setup on 9 ranks at 2^18;
+27. the rest of the spatial drivers (``run_spatial_rest``) on 3 gloo ranks
+   sharing the card: the molecular trimers (K1 with ``excl_delta`` on the
+   owned rows, the bonded terms by member share) at 32,769 beads, their
+   setup against one process; at 1,048,575, 20 timed steps beside phase
+   17's one card, D1 per rank, the excluded pairs' residual on rank 0 and
+   K1 on rank 0's inputs against its twin (``@molecular@slab``
+   entries); the topology drift at 32,769 (Verlet and r-RESPA); config 4
+   with its switch at 2^20 through two events (sweeps and ms each, K5, K3
+   and K6 launched); then the ``processors 2 1 1`` flagship deck at 32,768
+   on 2 ranks through the atom decomposition (``parallel/domain.py``), K1
+   launched, bit for bit one process's state.
 
 The decks are written into ``_decks/`` beside this script (listed in
 ``.gitignore``) and removed after each phase.
@@ -176,7 +187,8 @@ The line before the last is a JSON object of the kernels on the main paths
 (times, errors, launches and the bound each kernel's work puts on its time),
 one entry per kernel variant and path: a kernel that runs on several main
 paths has an entry for each (``@molecular``, ``@P4``,
-``@P3+cluster_switch``), with that path's launches and its times, error and
+``@P3+cluster_switch``, ``@slab``, ``@molecular@slab``), with that path's
+launches and its times, error and
 bound on that path's inputs;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero and prints no
@@ -2498,7 +2510,8 @@ def main() -> int:
         check_excl_oracle(device, style)
 
     # ---- 17. the molecular main path --------------------------------------
-    mol_launches, _, k1_mol = run_molecular_main(device, card_name)
+    mol_launches, mol_steps_s, k1_mol = run_molecular_main(device,
+                                                           card_name)
 
     # ---- 18. drift with topology ---------------------------------------
     topology_drift(device)
@@ -2531,6 +2544,9 @@ def main() -> int:
 
     # ---- 26. the spatial drivers ---------------------------------------
     slab = run_spatial(card_name)
+
+    # ---- 27. the rest of the spatial drivers -----------------------------
+    slab.update(run_spatial_rest(card_name, mol_steps_s))
     shutil.rmtree(DECK_DIR, ignore_errors=True)
 
     log(f"K1 fast variant (not on the UCG-LD main path under ucgstate ld): "
@@ -2794,6 +2810,208 @@ def run_spatial(card_name: str) -> dict:
         tag = "@P4@slab" if (style == "p4" and name.startswith("cv_")) \
             else "@slab"
         out[(key if name != "cv_rho" else "cv_rho") + tag] = (r, n, name)
+    return out
+
+
+# ---- 27. the rest of the spatial drivers -----------------------------------
+
+MOL_SLAB_N = 1048575           # the molecular main path's 349,525 trimers
+TOPO_N = 32769                 # its setup and drift legs
+# the molecular setup on slabs against one process's kernel path, f of
+# max|f|: read 4.468e-5 (the largest sound reading, PR 14); the control,
+# that path against the float64 reference path, reads 1.344e-4
+MOL_SETUP_TOL = 1e-4
+SWITCH_SLAB_N = 2**20          # config 4 with its switch
+DOMAIN_N = 32768               # the processors 2 1 1 deck
+
+
+def run_spatial_rest(card_name: str, mol_steps_s: float) -> dict:
+    """Phase 27: topology, r-RESPA and ``fix cluster_switch`` on ``SLABS``
+    gloo ranks sharing the card, and the atom decomposition on 2
+    (``parallel/launch.start``, the jobs of ``tools/spatial_check``).
+    Molecular trimers (K1 with ``excl_delta`` on each rank's owned rows,
+    the bonded terms by member share): the setup at 32,769 against one
+    process's kernel path on the card, f within MOL_SETUP_TOL of max|f|
+    (each float32 side sums the specials' cancellation in its own order;
+    the float64 reference path's distance from one process's kernel path
+    printed beside it), pe within 1e-5 of both; the 2^20 path, a
+    warm block and 20 timed steps, K1's launches per rank, D1 per rank
+    (no pair within cutoff + skin at a rebuild missing), Σ nloc and the
+    tags, beside phase 17's one-card steps/s, the excluded pairs' residual
+    on rank 0 at its last rebuild (K1 - ``excl_delta`` against K1's
+    functional over a list without the specials, within TOL of max|f|,
+    phase 16's check), then K1's variants against
+    their twin on rank 0's inputs (``@molecular@slab``); NVE drift with
+    topology at 32,769, Verlet (bonds 50/0.9, dt 0.001) under 1e-4 and
+    r-RESPA (K 400, 4 inner steps, dt 0.004) under 2e-4, D1 per rank.
+    Config 4 with its switch at 2^20 through 60 steps: two events that
+    converge (the driver raises otherwise), each event's sweeps and its
+    block's ms beside a plain block's, K5, K3 and K6 launched, D1 per
+    rank.  The ``processors 2 1 1`` flagship deck at 32,768 (a grid the
+    slabs cannot cut) on 2 ranks: the atom decomposition, K1 launched, the
+    final state bit for bit one process's.  Returns {entry name: (result,
+    launches, wrapper)} of the ``@molecular@slab`` entries."""
+    import numpy as np
+    import torch
+
+    from lammps_ucg_dev_tpu_torch.compat.script import ScriptRunner
+    from lammps_ucg_dev_tpu_torch.parallel import launch
+    from lammps_ucg_dev_tpu_torch.tools import make_deck
+    from lammps_ucg_dev_tpu_torch.tools import spatial_check as sc
+
+    t0 = time.perf_counter()
+    dims = (SLABS, 1)
+    setup = dict(kind="run", style="molecular", n=TOPO_N, dims=dims,
+                 steps=0, arrays=True)
+    jobs = [setup,
+            dict(kind="run", style="molecular", n=MOL_SLAB_N, dims=dims,
+                 steps=20, timed=True, d1=True, residual=True, inputs=True),
+            dict(kind="topo_drift", n=TOPO_N, respa_inner=1, dt=0.001,
+                 bond_k=50.0, warm=10, dims=dims),
+            dict(kind="topo_drift", n=TOPO_N, respa_inner=4, dt=0.004,
+                 bond_k=400.0, warm=5, dims=dims),
+            dict(kind="switch_events", n=SWITCH_SLAB_N, steps=60,
+                 dims=dims)]
+    ranks = launch.start(sc.run_jobs, SLABS, jobs, device="cuda",
+                         timeout=600)
+    d = DECK_DIR / "domain"
+    one = DECK_DIR / "domain_one"
+    path = make_deck.write_ucgld_deck(str(d), n=DOMAIN_N, nsteps=20,
+                                      thermo_every=10)
+    text = open(path).read()
+    with open(path, "w") as fh:
+        fh.write("processors 2 1 1\n" + text)
+    dom_run = dict(kind="domain", style="ucgld", n=DOMAIN_N, steps=100,
+                   dims=(2, 1))
+    dom = launch.start(sc.run_jobs, 2, [dict(kind="deck", path=path,
+                                             workdir=str(d), dims=(2, 1),
+                                             arrays=True), dom_run],
+                       device="cuda", timeout=600)
+    # one process's references on the same card meanwhile: the kernel
+    # path, and the float64 reference path with the specials left out
+    ref = sc._single(setup, "cuda")
+    ref64 = sc._single(dict(setup, kernel=False, dtype="float64"), "cuda")
+    one_sim = sc.build(dict(dom_run, kind="run"), "cuda")
+    one_sim.setup((0, dom_run["steps"]))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    one_sim.run(dom_run["steps"])
+    torch.cuda.synchronize()
+    one_steps_s = dom_run["steps"] / (time.perf_counter() - t1)
+    del one_sim
+    runner = ScriptRunner(workdir=str(one), log_callback=lambda m: None)
+    runner.run_file(make_deck.write_ucgld_deck(str(one), n=DOMAIN_N,
+                                               nsteps=20, thermo_every=10))
+    ref_deck = sc.arrays_of(runner.state, runner.sim._fcarry)
+    res = ranks.join()
+    t_slabs = time.perf_counter() - t0
+    r0 = res[0]
+    bad = []
+
+    def d1_ok(d1s):
+        return all(x is not None and x["built_within_rc"] == 0
+                   for x in d1s)
+
+    # K1 sums the specials' large forces and excl_delta takes them off, so
+    # each float32 side carries the cancellation's rounding in its own
+    # order: one process's kernel path sits 1.344e-4 of max|f| from the
+    # float64 reference path (the control, printed beside the reading)
+    e = sc.compare_setup(setup, ref, r0[0])
+    e64 = sc.compare_setup(setup, ref64, r0[0])
+    one64 = sc.compare_setup(setup, ref64, ref)
+    log(f"[slabs molecular setup n={TOPO_N}, {SLABS} gloo ranks on one "
+        f"card] vs one process's kernel path: f {e['f']:.3e} of max|f|, pe "
+        f"{e['pe']:.3e}; vs its float64 reference path: f {e64['f']:.3e}, "
+        f"pe {e64['pe']:.3e} (the control, one process's kernel path "
+        f"there: f {one64['f']:.3e}, pe {one64['pe']:.3e}); limits: f "
+        f"{MOL_SETUP_TOL:g}, pe 1e-5; launches "
+        f"{json.dumps(r0[0]['launches'])}")
+    if e["f"] > MOL_SETUP_TOL or max(e["pe"], e64["pe"]) > 1e-5:
+        bad.append(f"molecular setup {e} {e64} {one64}")
+    mains = [r[1] for r in res]
+    resid = mains[0]["residual"]
+    worst = resid["residual"] / resid["fscale"]
+    log(f"[slabs molecular excl residual n={MOL_SLAB_N}, rank 0 at its "
+        f"last rebuild] K1 - excl_delta vs K1's functional over its list "
+        f"without the specials: largest residual force "
+        f"{resid['residual']:.3e} over {resid['atoms']} owned atoms with a "
+        f"special partner; {worst:.3e} of max|f| (limit {TOL:g})")
+    if worst > TOL or resid["overflow"]:
+        bad.append(f"excluded pairs do not cancel on slabs: {worst}")
+    m = mains[0]
+    nloc = [x["nloc"] for x in mains]
+    d1 = [x["d1"] for x in mains]
+    k1 = [x["launches"].get("ucgld_pair", {}) for x in mains]
+    log(f"[slabs molecular main n={MOL_SLAB_N}] 20 steps in "
+        f"{m['seconds']:.3f} s = {m['steps_s']:.2f} steps/s on {SLABS} "
+        f"gloo ranks sharing {card_name} (one card, phase 17: "
+        f"{mol_steps_s:.2f}); temp {m['rows'][0]['temp']:.6f} etotal "
+        f"{m['rows'][0]['etotal']:.6f}; Σ nloc {sum(nloc)} {nloc}; tags a "
+        f"permutation {m['tags_ok']}; migrations {m['migrations']}; "
+        f"dangerous builds {m['dangerous']}; D1 per rank {d1}; K1 launches "
+        f"per rank {k1}; rank 0's exchanges, one more block timed "
+        f"{json.dumps(m['comm'])}")
+    if (sum(nloc) != MOL_SLAB_N or not m["tags_ok"] or not d1_ok(d1)
+            or any(not x.get("full") or not x.get("noscores") for x in k1)
+            or not finite_row(m["rows"][0])):
+        bad.append("the molecular slab path failed its checks")
+    holds = slab_holds(m["inputs"], f"slab rank 0 molecular n={MOL_SLAB_N}")
+    drift = {"verlet": [r[2] for r in res], "respa": [r[3] for r in res]}
+    log(f"[slabs topology drift n={TOPO_N}] Verlet (bonds 50/0.9, dt 0.001)"
+        f" {drift['verlet'][0]['drift']:.6e}, r-RESPA (K 400, 4 inner, dt "
+        f"0.004) {drift['respa'][0]['drift']:.6e} (limits 1e-4, 2e-4); D1 "
+        f"per rank {[x['d1'] for x in drift['verlet'] + drift['respa']]}")
+    if not (drift["verlet"][0]["drift"] < DRIFT_MAX
+            and drift["respa"][0]["drift"] < 2e-4):
+        bad.append(f"topology drift on slabs {drift}")
+    if not d1_ok([x["d1"] for x in drift["verlet"] + drift["respa"]]):
+        bad.append("topology drift D1")
+    sw = [r[4] for r in res]
+    s0 = sw[0]
+    launched = s0["launches"]
+    log(f"[slabs config 4 + cluster_switch n={SWITCH_SLAB_N}] 60 steps, "
+        f"events at steps 20 and 40: sweeps {s0['sweeps']}, the event "
+        f"blocks {[round(v, 1) for v in s0['event_block_ms']]} ms against "
+        f"a plain block's {s0['block_ms']:.1f} ms (an event's cost: the "
+        f"difference); stats {s0['stats']}; temp {s0['row']['temp']:.6f}; "
+        f"launches {json.dumps(launched)}; D1 per rank "
+        f"{[x['d1'] for x in sw]}")
+    if (len(s0["sweeps"]) < 2 or not finite_row(s0["row"])
+            or any(not launched.get(k) for k in ("cv_rho", "dbethe_pair",
+                                                 "cv_force"))
+            or not d1_ok([x["d1"] for x in sw])):
+        bad.append(f"config 4 with its switch on slabs: {s0['sweeps']}")
+    dres = dom.join()
+    got = dres[0][0]
+    same = all(np.array_equal(got["arrays"][k], ref_deck[k])
+               for k in ref_deck)
+    log(f"[atom decomposition UCG-LD n={DOMAIN_N}, 2 gloo ranks sharing "
+        f"{card_name}] 100 steps through run: "
+        f"{dres[0][1]['steps_s']:.2f} steps/s (one process on the card, "
+        f"the same run: {one_steps_s:.2f}); launches per rank "
+        f"{[r[1]['launches'] for r in dres]}")
+    log(f"[deck processors 2 1 1 n={DOMAIN_N}, 2 gloo ranks] "
+        f"{got['driver']}; {got['pair_path']}; launches "
+        f"{json.dumps(got['launches'])}; final state bit for bit one "
+        f"process's: {same}")
+    if (got["driver"] != "DomainSimulation" or not same
+            or not got["launches"].get("ucgld_pair")):
+        bad.append("the atom decomposition deck")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(one, ignore_errors=True)
+    log(f"[phase 27] {time.perf_counter() - t0:.1f} s (slabs "
+        f"{t_slabs:.1f} s)")
+    if bad:
+        raise RuntimeError("the rest of the spatial drivers: "
+                           + "; ".join(bad))
+    out = {}
+    for key, h in holds.items():
+        name, var = key[:-1].split("[")
+        n = m["launches"].get(name, {}).get(var, 0)
+        if not n:
+            raise RuntimeError(f"molecular {key} launched no time in its "
+                               f"slab run: {m['launches']}")
+        out[key + "@molecular@slab"] = (h, n, name)
     return out
 
 

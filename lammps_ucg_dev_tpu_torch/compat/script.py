@@ -44,12 +44,16 @@ pass by pass, ``hopper_density.compute_density``).
 ``processors Px Py 1`` above one subdomain runs the spatial slab
 (``Py`` 1) or pencil driver (``parallel/spatial.py``) over the process
 group the caller initialised, whose size must be ``Px·Py`` (``*`` for Px
-is the group's size); every rank runs the same deck.  Thermo rows, the
-log, dumps, ``write_data`` and ``write_restart`` come from rank 0 after
-the run gathers the system.  Tilted boxes, grids the decomposition cannot
-cut, topology, ``fix cluster_switch``, r-RESPA and ``rerun`` raise
-NotImplementedError there (ROADMAP M14b), as does a continued run's
-force carry: each ``run`` re-runs setup.
+is the group's size); every rank runs the same deck, topology,
+``fix cluster_switch`` and r-RESPA included.  A tilted box, or a grid the
+slabs and pencils cannot cut (fewer than 3 cuts on an axis, subdomains
+narrower than cutoff + skin), falls back to the atom decomposition
+(``parallel/domain.py``) with a log line.  Thermo rows, the log, dumps,
+the event logs, ``write_data`` and ``write_restart`` come from rank 0
+after the run gathers the system; a ``rerun`` sets each snapshot on every
+rank.  A spatial run's carry is each rank's own (its rows), so the next
+``run`` on the same ranks continues it; ``write_restart`` stores no such
+carry.
 
 Random state (the port's own, not the JAX package's threefry key, F1).  The
 runner owns the generators: one for the Langevin noise, the noisy Bethe
@@ -68,9 +72,6 @@ and the state was not replaced (``read_data``, ``velocity``, ``rerun``).
 ``extra_`` entries, so ``read_restart`` and the same styles continue the
 trajectory bit for bit.  A restart without them (the JAX package's)
 restarts the streams from the deck's seed, with a log line.
-
-Not ported: the JAX runner's GSPMD atom-decomposition fallback
-(``parallel/domain.py``, ROADMAP M14b).
 """
 
 from __future__ import annotations
@@ -101,7 +102,7 @@ from lammps_ucg_dev_tpu_torch.models.typemap import (RLEUCGBuilder,
                                                      TablePairBuilder)
 from lammps_ucg_dev_tpu_torch.ops import neighbor as nbrmod
 from lammps_ucg_dev_tpu_torch.ops.kernel_select import select_pair_kernel
-from lammps_ucg_dev_tpu_torch.parallel import spatial
+from lammps_ucg_dev_tpu_torch.parallel import domain, spatial
 from lammps_ucg_dev_tpu_torch.runtime.sim import (SimConfig, Simulation,
                                                    excl_route)
 
@@ -414,7 +415,9 @@ class ScriptRunner:
         if self.mc_generator is not None:
             extra["mc_rng_state"] = self.mc_generator.get_state()
             extra["mc_rng_key"] = np.asarray(self._mc_key)
-        if self._carry is not None:
+        if (self._carry is not None
+                and not isinstance(self.sim, spatial.SpatialSimulation)):
+            # one process's carry (a spatial rank's rows do not restart)
             key, rec = self._carry
             settings["carry_key"] = key
             extra.update({f"carry_{k}": v for k, v in rec.items()})
@@ -860,7 +863,7 @@ class ScriptRunner:
             "device": self.device.type, "dt": self.dt, "skin": self.skin,
             "neigh": [self.reneigh_every, self.reneigh_check,
                       self.neighbor_method, self.neighbor_one],
-            "respa": self.respa_inner,
+            "respa": self.respa_inner, "processors": self.processors,
             "pair": None if p is None else [p.args, p.coeffs],
             "fixes": sorted(self._fix_args.values()),
             "groups": {k: _mask_key(v) for k, v in self.groups.items()},
@@ -978,17 +981,17 @@ class ScriptRunner:
         if mc and self._mc_key != self.ucgstate_cfg.seed:
             # the fix's seed changed: the Simulation seeds the new stream
             self.mc_generator, self._mc_key = None, self.ucgstate_cfg.seed
+        kw = dict(seed=seed, cluster_switch=self.cswitch,
+                  log_dir=self.workdir if self.cswitch else None,
+                  bonded=bparams, excl_tags=excl, generator=self.generator,
+                  mc_generator=self.mc_generator if mc else None)
         if self.processors[0] * self.processors[1] > 1:
             self.sim = self._make_spatial_sim(
-                system, cfg, pair_compute, pair_params, spec, topo, seed, mc)
-            return self.sim
-        self.sim = Simulation(system, self.state, pair_compute, pair_params,
-                              spec, cfg, seed=seed,
-                              cluster_switch=self.cswitch,
-                              log_dir=self.workdir if self.cswitch else None,
-                              bonded=bparams, excl_tags=excl,
-                              generator=self.generator,
-                              mc_generator=self.mc_generator if mc else None)
+                system, cfg, pair_compute, pair_params, spec,
+                None if resume is None else resume.get("slab"), kw)
+        else:
+            self.sim = Simulation(system, self.state, pair_compute,
+                                  pair_params, spec, cfg, **kw)
         if self.sim.cswitch_stats is not None and self._cs_stats is not None:
             self.sim.cswitch_stats = fcs.ClusterSwitchStats(
                 v=torch.as_tensor(self._cs_stats, dtype=self.dtype,
@@ -996,34 +999,35 @@ class ScriptRunner:
         return self.sim
 
     def _make_spatial_sim(self, system, cfg, pair_compute, pair_params, spec,
-                          topo: bool, seed: int, mc: bool):
+                          slab, kw: dict):
         """The slab or pencil driver of a ``processors`` deck (JAX
-        ``script.py:_make_spatial_sim``) on this rank's group."""
+        ``script.py:_make_spatial_sim``) on this rank's group, on the
+        decomposition ``slab`` when a continued run hands it over; the
+        atom decomposition for a tilted box or a grid the slabs and pencils
+        cannot cut."""
         px, py = self.processors
-        what = f"processors {px}x{py}"
-        if self.state.box.is_triclinic:
-            raise NotImplementedError(f"{what} with a tilted box: the atom "
-                                      f"decomposition is {spatial.M14B}")
-        if topo or self.cswitch is not None or cfg.respa_inner != 1:
-            raise NotImplementedError(
-                f"{what} with topology, fix cluster_switch or r-RESPA: "
-                f"{spatial.M14B}")
+        ring = spatial.Ring((px, py))
         n = self.state.n_atoms
-        L = dio.host(self.state.box.lengths).astype(np.float64)
-        x = dio.host(self.state.box.wrap(self.state.x)
-                     - self.state.box.lo).astype(np.float64)
-        caps = ({} if self.neighbor_one is None
-                else {"nbr_capacity": self.neighbor_one})
-        try:
-            slab = spatial.make_spec(n, L, spec, (px, py), x, **caps)
-        except ValueError as e:
-            raise NotImplementedError(
-                f"{what}: the decomposition cannot cut this box ({e}); the "
-                f"atom decomposition fallback is {spatial.M14B}") from e
-        sim = spatial.SpatialSimulation(
-            system, self.state, pair_compute, pair_params, slab, cfg,
-            spatial.Ring((px, py)), seed=seed, generator=self.generator,
-            mc_generator=self.mc_generator if mc else None)
+        why = "a tilted box" if self.state.box.is_triclinic else None
+        if why is None and slab is None:
+            L = dio.host(self.state.box.lengths).astype(np.float64)
+            x = dio.host(self.state.box.wrap(self.state.x)
+                         - self.state.box.lo).astype(np.float64)
+            caps = ({} if self.neighbor_one is None
+                    else {"nbr_capacity": self.neighbor_one})
+            try:
+                slab = spatial.make_spec(n, L, spec, (px, py), x, **caps)
+            except ValueError as e:
+                why = f"the spatial decomposition is infeasible ({e})"
+        if why is not None:
+            self.log(f"processors {px}x{py}: {why}; falling back to the "
+                     f"atom decomposition (parallel/domain.py) over "
+                     f"{ring.world} ranks")
+            return domain.DomainSimulation(system, self.state, pair_compute,
+                                           pair_params, spec, cfg, ring,
+                                           **kw)
+        sim = spatial.SpatialSimulation(system, self.state, pair_compute,
+                                        pair_params, slab, cfg, ring, **kw)
         self.log(f"spatial {'slab' if py == 1 else 'pencil'} decomposition "
                  f"{px}x{py}: {sim.ring.backend} process group, "
                  f"{slab.cap_local} local + {2 * slab.cap_halo} x-halo "
@@ -1066,8 +1070,6 @@ class ScriptRunner:
         chunk = min(cadences) if cadences else nsteps
         chunk = max(chunk, 1)
 
-        spatial_run = isinstance(sim, spatial.SpatialSimulation)
-
         def emit():
             step = int(sim.state.step)
             if self.thermo_every and step % self.thermo_every == 0:
@@ -1076,7 +1078,7 @@ class ScriptRunner:
                 if step % d.every == 0 and self.rank == 0:
                     d.writer.write(sim.state)
 
-        if resume is not None and not spatial_run:
+        if resume is not None:
             sim.resume(resume)
         else:
             step0 = int(sim.state.step)
@@ -1090,12 +1092,11 @@ class ScriptRunner:
             emit()
         self.state = sim.state
         self._keep_mc_stream(sim)
-        if spatial_run:
-            self._carry = None       # each spatial run re-runs setup
-            return
         rec = sim.carry()
-        rec["spec"] = np.asarray(json.dumps(
-            [type(sim.nbr_spec).__name__, dataclasses.asdict(sim.nbr_spec)]))
+        if not isinstance(sim, spatial.SpatialSimulation):
+            rec["spec"] = np.asarray(json.dumps(
+                [type(sim.nbr_spec).__name__,
+                 dataclasses.asdict(sim.nbr_spec)]))
         self._carry = (self._physics_key(), rec)
         if sim.cswitch_stats is not None:
             self._cs_stats = sim.cswitch_stats.v
@@ -1113,10 +1114,9 @@ class ScriptRunner:
         """rerun dumpfile [first N last N every N] dump x y z [ucgl ucgp ucgstate ...]
         (read_dump.cpp + rerun semantics: re-evaluate forces/posteriors per
         snapshot; fix ucgstate setup-time evaluation enables state
-        assignment, fix_ucgstate.cpp:165-169)."""
-        if self.processors[0] * self.processors[1] > 1:
-            raise NotImplementedError(f"rerun under processors "
-                                      f"{self.processors}: {spatial.M14B}")
+        assignment, fix_ucgstate.cpp:165-169).  Under ``processors`` every
+        rank sets each snapshot and runs the setup; rank 0 writes the
+        dumps."""
         fname = self._path(a[0])
         i = 1
         first, last, every = None, None, 1
@@ -1133,6 +1133,9 @@ class ScriptRunner:
                 break
             else:
                 i += 1
+        if self.processors[0] * self.processors[1] > 1:
+            # rank 0's dump frames are whole before any rank reads them
+            spatial.Ring(self.processors).barrier()
         snaps = dmp.read_dump(fname)
         sim = self._make_sim()
         for snap in snaps:
@@ -1145,13 +1148,19 @@ class ScriptRunner:
             if every > 1 and snap.step % every:
                 continue
             st = dmp.apply_snapshot(sim.state, snap, fields=tuple(fields))
-            sim.state = dataclasses.replace(st, step=int(snap.step))
-            sim._fcarry = None
-            sim.setup()
+            st = dataclasses.replace(st, step=int(snap.step))
+            if isinstance(sim, spatial.SpatialSimulation):
+                sim.set_state(st)
+                sim.setup()
+                sim.state, sim._fcarry = sim.gather()
+            else:
+                sim.state, sim._fcarry = st, None
+                sim.setup()
             if self.thermo_every:
                 self._thermo_row(sim)
             for d in self.dumps.values():
-                d.writer.write(sim.state)
+                if self.rank == 0:
+                    d.writer.write(sim.state)
         self.state = sim.state
         self._keep_mc_stream(sim)
 

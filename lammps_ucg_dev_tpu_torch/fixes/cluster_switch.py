@@ -24,6 +24,17 @@ the fixpoint or at ``max_sweeps``; it reads the change flag every
 ``SWEEP_CHECK`` sweeps (sweeps past the fixpoint change nothing), and
 reports the sweeps the JAX loop runs and its ``converged`` flag.  The
 accept draws are an input: (maxmol + 1,) uniforms.
+
+Distributed form (``ring=``, ``valid=``; JAX ``check_cluster(axis=)``),
+for the spatial drivers: each rank sweeps the contact edges of its owned
+rows (``valid`` marks its live rows, owned and ghost); ``mol_state`` and
+``present`` are max-merged over the ranks, and every sweep min-merges the
+labels over the ranks, the reference's local sweep and
+``MPI_Allreduce(MIN)`` (``fix_cluster_switch.cpp:596-685``).  The merged
+labels are the same on every rank, so the change flag read from them is
+too, and the loop ends on every rank at once.  The accept draws come from
+the replicated generator over per-molecule slots, so owned and ghost copies
+of a molecule flip alike on every rank.
 """
 
 from __future__ import annotations
@@ -98,19 +109,22 @@ def make_params(ntypes: int, contacts, atomtypes_on, atomtypes_off,
         mol_seed=int(mol_seed), mol_offset=int(mol_offset))
 
 
-def _mol_state(state: SimState, params: ClusterSwitchParams):
+def _mol_state(state: SimState, params: ClusterSwitchParams, valid=None):
     """(mol_state, present): per molecule 1 (ON), 0 (OFF) or -1, and its
-    presence, from the atom types (constructor logic, :129-159)."""
+    presence, from the atom types (constructor logic, :129-159); rows
+    outside ``valid`` (a spatial rank's padding) count for no molecule."""
     M = params.maxmol
     dev = state.device
     typ, mol = state.typ.long(), state.mol.long()
+    if valid is not None:
+        mol = torch.where(valid, mol, M + 1)            # slot M + 1: dropped
     val = torch.where(params.is_on[typ], 1,
                       torch.where(params.is_off[typ], 0, -1))
-    mol_state = torch.full((M + 1,), -1, dtype=torch.int64, device=dev)
+    mol_state = torch.full((M + 2,), -1, dtype=torch.int64, device=dev)
     mol_state.scatter_reduce_(0, mol, val, "amax")
-    present = torch.zeros(M + 1, dtype=torch.bool, device=dev)
+    present = torch.zeros(M + 2, dtype=torch.bool, device=dev)
     present[mol] = True
-    return mol_state, present
+    return mol_state[:M + 1], present[:M + 1]
 
 
 def _contact_edges(state: SimState, nbr, params: ClusterSwitchParams):
@@ -145,15 +159,20 @@ def sweep(labels, edges, partner, present):
     return torch.minimum(upd, torch.where(present, upd[partner], upd))
 
 
-def check_cluster(state: SimState, nbr, params: ClusterSwitchParams):
+def check_cluster(state: SimState, nbr, params: ClusterSwitchParams,
+                  ring=None, valid=None):
     """Connected-component labeling over molecules (:537-731).  Returns
     (labels, mol_state, present, in_cluster, n_cluster, converged,
     sweeps): ``converged`` is False when ``max_sweeps`` cut the propagation
     short (the labels may then be wrong); ``sweeps`` is the number of
-    sweeps the JAX package's loop runs."""
+    sweeps the JAX package's loop runs.  ``ring`` (``parallel.comm.Ring``)
+    and ``valid``: the distributed form (module docstring)."""
     M = params.maxmol
     dev = state.device
-    mol_state, present = _mol_state(state, params)
+    mol_state, present = _mol_state(state, params, valid)
+    if ring is not None:
+        mol_state = ring.all_reduce(mol_state, "max")
+        present = ring.all_reduce(present.to(torch.int32), "max") > 0
     switchable = (mol_state == 0) | (mol_state == 1)
     m_idx = torch.arange(M + 1, device=dev)
     partner = torch.where(switchable, m_idx - params.mol_offset,
@@ -175,6 +194,8 @@ def check_cluster(state: SimState, nbr, params: ClusterSwitchParams):
         changed = []
         for _ in range(batch):
             upd = sweep(labels, edges, partner, present)
+            if ring is not None:
+                upd = ring.all_reduce(upd, "min")
             changed.append(torch.any(upd != labels))
             labels = upd
         changed = torch.stack(changed).tolist()
@@ -215,13 +236,16 @@ def attempt_switch(u: torch.Tensor, state: SimState, mol_state, present,
 
 
 def apply(u: torch.Tensor, state: SimState, nbr,
-          params: ClusterSwitchParams, stats: ClusterSwitchStats):
+          params: ClusterSwitchParams, stats: ClusterSwitchStats,
+          ring=None, valid=None):
     """One cluster-switch event with the accept uniforms ``u``.  Returns
     (state', stats', info); info holds the per-molecule cluster and state
     vectors for the event logs (cluster_assignment.log /
-    state_assignment.log, :704-725), ``converged`` and ``sweeps``."""
+    state_assignment.log, :704-725), ``converged`` and ``sweeps``.
+    ``ring`` and ``valid``: the distributed form (module docstring); the
+    stats and info are then the same on every rank."""
     (labels, mol_state, present, in_cluster, n_cluster, converged,
-     sweeps) = check_cluster(state, nbr, params)
+     sweeps) = check_cluster(state, nbr, params, ring, valid)
     # the cluster's switchable molecules become designated ON (:693-697)
     switchable = (mol_state == 0) | (mol_state == 1)
     mol_state = torch.where(switchable & in_cluster, 1, mol_state)

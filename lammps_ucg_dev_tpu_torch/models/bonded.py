@@ -27,6 +27,7 @@ lists.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -307,6 +308,102 @@ def compute(state: SimState, params: BondedParams):
             vir = vir + torch.sum(vir_t, dim=0)
 
     return f, pe, vir
+
+
+def compute_spatial(state: SimState, params: BondedParams, rows: dict,
+                    nloc):
+    """(f, pe, virial) of the bonded terms on one rank of the spatial
+    drivers (JAX ``bonded.compute_spatial``).  The topology is replicated
+    on every rank; ``rows`` holds this rank's row of each term member,
+    ``{"bond": (i, j), "angle": (a1, a2, a3), "dihedral": (d1..d4),
+    "improper": (i1..i4)}``, with ``n_rows`` where the member is absent,
+    and rows below ``nloc`` are owned.  The driver maps the tags once per
+    block and raises its overflow flag when a term with an owned member
+    misses one (bonds are shorter than the halo).
+
+    Newton-off bookkeeping, as the pair pass: each owned member takes only
+    its own share of the force, and pe and the virial are tallied 1/2 per
+    owned bond member, 1/3 per owned angle member and 1/4 per owned
+    dihedral or improper member, so the sum over the ranks counts each
+    term once.  Terms with an absent member add nothing."""
+    x, box = state.x, state.box
+    n = x.shape[0]
+    dt = x.dtype
+    dev = x.device
+    f = torch.zeros((n + 1, 3), dtype=dt, device=dev)   # row n: dropped
+    pe = torch.zeros((), dtype=dt, device=dev)
+    vir = torch.zeros(6, dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+
+    def members(key):
+        rs = rows[key]
+        pres = functools.reduce(torch.logical_and, [r < n for r in rs])
+        owned = [pres & (r < nloc) for r in rs]
+        return (pres, [torch.where(o, r, n) for r, o in zip(rs, owned)],
+                [o.to(dt) for o in owned], [torch.clamp(r, max=n - 1)
+                                            for r in rs])
+
+    if params.n_bonds:
+        pres, (si, sj), (wi, wj), (ic, jc) = members("bond")
+        k, r0 = params.bond_k.to(dt), params.bond_r0.to(dt)
+        d = box.min_image(x[ic] - x[jc])
+        r = torch.sqrt(torch.sum(d * d, dim=1))
+        dr = r - r0
+        fbond = torch.where(pres & (r > 0), -2.0 * k * dr / r, zero)
+        fb = fbond[:, None] * d
+        f.index_add_(0, si, fb)
+        f.index_add_(0, sj, -fb)
+        w2 = 0.5 * (wi + wj)
+        pe = pe + torch.sum(torch.where(pres, w2 * k * dr * dr, zero))
+        vir = vir + _vtally(w2 * fbond, d)
+
+    if params.n_angles:
+        pres, (s1, s2, s3), (w1, w2, w3), (i1, i2, i3) = members("angle")
+        k, t0 = params.angle_k.to(dt), params.angle_t0.to(dt)
+        d1 = box.min_image(x[i1] - x[i2])
+        d2 = box.min_image(x[i3] - x[i2])
+        r1 = torch.sqrt(torch.sum(d1 * d1, dim=1))
+        r2 = torch.sqrt(torch.sum(d2 * d2, dim=1))
+        c = torch.clamp(torch.sum(d1 * d2, dim=1)
+                        / torch.clamp(r1 * r2, min=1e-30), -1.0, 1.0)
+        s = torch.clamp(torch.sqrt(1.0 - c * c), min=ANGLE_SIN_FLOOR)
+        dtheta = torch.arccos(c) - t0
+        a = torch.where(pres, -2.0 * k * dtheta / s, zero)
+        a11 = a * c / torch.clamp(r1 * r1, min=1e-30)
+        a12 = -a / torch.clamp(r1 * r2, min=1e-30)
+        a22 = a * c / torch.clamp(r2 * r2, min=1e-30)
+        f1 = a11[:, None] * d1 + a12[:, None] * d2
+        f3 = a22[:, None] * d2 + a12[:, None] * d1
+        f.index_add_(0, s1, f1)
+        f.index_add_(0, s3, f3)
+        f.index_add_(0, s2, -(f1 + f3))
+        wf = (w1 + w2 + w3) / 3.0
+        pe = pe + torch.sum(torch.where(pres, wf * k * dtheta * dtheta,
+                                        zero))
+        vir = vir + torch.stack([
+            torch.sum(wf * (d1[:, p] * f1[:, q] + d2[:, p] * f3[:, q]))
+            for p, q in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))])
+
+    for key, n_terms, e_of_c in (
+            ("dihedral", params.n_dihedrals,
+             lambda: _dihedral_e_of_c(params.dihedral_k.to(dt),
+                                      params.dihedral_d.to(dt),
+                                      params.dihedral_wsel.to(dt))),
+            ("improper", params.n_impropers,
+             lambda: _improper_e_of_c(params.improper_k.to(dt),
+                                      params.improper_x0.to(dt)))):
+        if n_terms:
+            pres, scat, ws, cl = members(key)
+            pe_t, fs, vir_t = _torsion_terms(x, box, *cl, e_of_c())
+            for r, fm in zip(scat, fs):
+                f.index_add_(0, r, torch.where(pres[:, None], fm, zero))
+            wf = sum(ws) / 4.0
+            pe = pe + torch.sum(torch.where(pres, wf * pe_t, zero))
+            vir = vir + torch.sum(torch.where(pres[:, None],
+                                              wf[:, None] * vir_t, zero),
+                                  dim=0)
+
+    return f[:n], pe, vir
 
 
 def potential_energy(x: torch.Tensor, state: SimState,

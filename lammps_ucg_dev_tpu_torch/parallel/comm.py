@@ -12,7 +12,9 @@ operations are the JAX driver's collectives:
   gets one from each, in ONE ``all_to_all_single`` whose splits are
   non-zero only for the two neighbours.  Buffers are fixed-capacity and
   counts travel inside them, so nothing is read on the host;
-* :meth:`Ring.all_reduce` (sum or max) is ``psum``/``pmax``;
+* :meth:`Ring.all_reduce` (sum, max or min) is ``psum``/``pmax``/``pmin``
+  (the min merges ``fix cluster_switch``'s labels, the reference's
+  ``MPI_Allreduce(MIN)``, ``fix_cluster_switch.cpp:682-683``);
 * :meth:`Ring.all_gather` gathers one fixed block from every rank.
 
 The backend is the caller's (``nccl`` with one rank per card, or ``gloo``);
@@ -99,9 +101,11 @@ class Ring:
         return (a, b) if first_lo else (b, a)
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """The elementwise sum (``op`` "sum") or maximum ("max") of ``t``
-        over every rank, as a new tensor on ``t``'s device."""
-        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        """The elementwise sum (``op`` "sum"), maximum ("max") or minimum
+        ("min") of ``t`` over every rank, as a new tensor on ``t``'s
+        device."""
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}[op]
         h = self._host(t).clone()
         dist.all_reduce(h, op=red, group=self.group)
         return h.to(t.device)

@@ -40,37 +40,64 @@ A block is a rebuild (wrap, migrate, park the non-owned rows, establish
 the halos, build) and ``reneigh_every`` Verlet steps with a halo refresh
 before every force pass; interior steps run the pair style's fast variant,
 slot-major on the column path in float32 for the styles without a halo
-hook (K1, K2), and the block's last step the full one.  The overflow and
-danger flags, the migration count, pe, the virial and the out-of-table
-counts are summed over the ranks once per block, in one ``all_reduce``.
+hook (K1, K2) and without topology, and the block's last step the full
+one.  The overflow and danger flags, the migration count, pe, the virial
+and the out-of-table counts are summed over the ranks once per block, in
+one ``all_reduce``.
+
+Topology (``bonded``, ``excl_tags``) is replicated: every rank holds the
+tag tables, and once per block, after the halos, maps each special list
+and each term member through its own tag→row map (bonds are shorter than
+the halo, so a term with an owned member has every member here; one that
+does not raises the overflow flag).  Only owned rows keep their special
+lists: the reference path leaves them out of its cell list, the kernel
+path subtracts the style's ``excl_delta`` (the density styles theirs
+pass by pass, ρ corrected on the owned rows before the exchange that
+sends it to the ghosts).  The bonded terms take each owned member's share
+(``bonded.compute_spatial``).  Under r-RESPA the ghosts' positions are
+refreshed before every inner bonded evaluation (ghost rows carry no
+velocities), fully before the outer pair pass, and the bonded pe and
+virial join the block's sums, as thermo adds them on one device.
+
+``fix cluster_switch`` (``cluster_switch=(params, freq)``): the event
+rides the first block whose start step is a positive multiple of
+``freq`` (``run``; ``run_fused(do_cswitch=True)`` its first block), after
+the rebuild: the contact list of the owned rows (the pair list on the
+reference path; on the kernel path a cell list at the contact cutoff over
+the virtual box), ``fix cluster_switch``'s distributed labelling with the
+labels min-merged over the ranks each sweep, the flips drawn from the
+replicated generator, and a full force pass at the new types.  Rank 0
+writes the logs.
 
 Requirements: at least 3 cuts per decomposed axis, subdomain widths of at
-least cutoff + skin.  Not on this path yet (ROADMAP M14b): topology
-(bonded terms, special exclusions), r-RESPA, ``fix cluster_switch``, a
-continued run's force carry; nor triclinic boxes or ``extra_post_force``.
+least cutoff + skin, a contact cutoff within cutoff + skin; orthogonal
+boxes (``parallel/domain.py`` takes the rest), no ``extra_post_force``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 
 from lammps_ucg_dev_tpu_torch.core.state import Box, ForceOut, SimState
+from lammps_ucg_dev_tpu_torch.fixes import cluster_switch as fcs
 from lammps_ucg_dev_tpu_torch.fixes import integrate as fi
+from lammps_ucg_dev_tpu_torch.models import bonded as bd
 from lammps_ucg_dev_tpu_torch.ops import colpack
 from lammps_ucg_dev_tpu_torch.ops import neighbor as nbrmod
 from lammps_ucg_dev_tpu_torch.parallel.comm import Ring
-from lammps_ucg_dev_tpu_torch.runtime.sim import Simulation
+from lammps_ucg_dev_tpu_torch.runtime.sim import CS_CHUNK, Simulation
 
 # packed per-atom columns (24)
 _MIG_F = ("x0", "x1", "x2", "v0", "v1", "v2", "i0", "i1", "i2", "tag", "typ",
           "mol", "q", "ucgstate", "ucgl", "ucgvl", "ucgml", "ucgp",
           "f0", "f1", "f2", "ucgforce", "s0", "s1")
 _NMIG = len(_MIG_F)
-M14B = "not on the spatial drivers yet (ROADMAP M14b)"
+_TERMS = ("bond", "angle", "dihedral", "improper")
 
 
 def _r8(v: float) -> int:
@@ -388,7 +415,9 @@ class SpatialSimulation(Simulation):
     ``slab.dims``).  Every rank passes the same global ``state``.
 
     ``state`` after :meth:`run` and :meth:`gather` is the whole system in
-    tag order, on every rank; :meth:`thermo` reduces on the devices."""
+    tag order, on every rank; :meth:`thermo` reduces on the devices.
+    ``bonded``, ``excl_tags``, ``cluster_switch``, ``log_dir`` and
+    ``cfg.respa_inner`` as ``Simulation`` takes them (module docstring)."""
 
     def __init__(self, system, state: SimState, pair_compute, pair_params,
                  slab: SlabSpec, cfg, ring: Ring, seed: int = 0,
@@ -396,19 +425,22 @@ class SpatialSimulation(Simulation):
                  mc_generator: torch.Generator | None = None,
                  cluster_switch=None, bonded=None, excl_tags=None,
                  extra_post_force=None, log_dir: str | None = None):
-        if cluster_switch is not None:
-            raise NotImplementedError(f"fix cluster_switch is {M14B}")
-        if bonded is not None or (excl_tags is not None
-                                  and np.any(excl_tags)):
-            raise NotImplementedError(f"topology (bonded terms, special "
-                                      f"exclusions) is {M14B}")
-        if cfg.respa_inner != 1:
-            raise NotImplementedError(f"r-RESPA is {M14B}")
         if extra_post_force is not None:
             raise ValueError("extra_post_force reads the whole system; run "
-                             "it on one device")
+                             "it on one device or parallel.domain")
         if state.box.is_triclinic:
-            raise NotImplementedError(f"a tilted box is {M14B}")
+            raise ValueError("a tilted box does not decompose into slabs "
+                             "or pencils: use parallel.domain")
+        if cfg.respa_inner != 1 and bonded is None:
+            raise ValueError("respa_inner > 1 requires bonded terms (the "
+                             "fast level)")
+        if cluster_switch is not None:
+            cut_cs = float(np.sqrt(float(cluster_switch[0].cutsq)))
+            if cut_cs > slab.rc:
+                raise ValueError(
+                    f"cluster_switch contact cutoff {cut_cs:.3f} exceeds "
+                    f"the halo width (cutoff + skin = {slab.rc:.3f}): "
+                    "contacts across a face would be invisible")
         if tuple(ring.dims) != slab.dims:
             raise ValueError(f"the ring's grid {ring.dims} is not the "
                              f"decomposition's {slab.dims}")
@@ -416,12 +448,30 @@ class SpatialSimulation(Simulation):
             cfg = dataclasses.replace(cfg, sort_atoms=False)
         super().__init__(system, state, pair_compute, pair_params, slab.nbr,
                          cfg, seed=seed, generator=generator,
-                         mc_generator=mc_generator, log_dir=log_dir)
+                         mc_generator=mc_generator,
+                         cluster_switch=cluster_switch,
+                         log_dir=log_dir if ring.rank == 0 else None,
+                         bonded=bonded, excl_tags=excl_tags)
         self.slab = slab
         self.ring = ring
         self.n_global = state.n_atoms
         self._column = isinstance(slab.nbr, colpack.ColumnSpec)
+        # the rows permute under migration: the special rows are mapped
+        # per block (_topology), never from the global state
+        self._excl_rows_static = None
+        if cluster_switch is not None and self._column:
+            # the event's contact list over the virtual box (one device's
+            # _cs_spec is sized for the global box)
+            L = state.box.lengths.double().cpu().numpy()
+            virt = [L[0] / slab.n_devices + 2 * slab.rc, L[1], L[2]]
+            if slab.is_2d:
+                virt[1] = L[1] / slab.n_dev_y + 2 * slab.rc
+            self._cs_spec = nbrmod.make_spec(
+                slab.cap_tot, virt, float(np.sqrt(float(
+                    cluster_switch[0].cutsq))), 0.0, method="cell",
+                chunk=CS_CHUNK)
         self.migrations = 0
+        self.cswitch_sweeps: list[int] = []
         self._dist(state)
 
     # ---- distribution and gathering ---------------------------------------
@@ -531,9 +581,47 @@ class SpatialSimulation(Simulation):
                       pe=self._pe, virial=self._virial)
         return _unpack_mig(F, proto, fz)
 
-    def _block(self, nsteps: int, run_window):
-        """One rebuild and ``nsteps`` Verlet steps (none: the setup's force
-        pass) on this rank; returns the per-block flags, summed."""
+    def _topology(self, state: SimState, valid, i_owned, nloc):
+        """This block's topology on this rank's rows: ``{"nloc", "rows"}``
+        (``rows`` with bonded terms), the (cap_tot, S) special rows of the
+        owned rows (cap_tot elsewhere; None without special lists) and the
+        overflow flag of a term with an owned member and an absent one."""
+        ng, cap = self.n_global, state.n_atoms
+        dev = state.device
+        tag = state.tag.long()
+        inv = torch.full((ng + 1,), cap, dtype=torch.int64, device=dev)
+        inv[torch.where(valid, tag - 1, ng)] = torch.arange(cap, device=dev)
+
+        def look(t):
+            return inv[torch.clamp(t - 1, 0, ng - 1)]
+
+        topo, excl = {"nloc": nloc}, None
+        overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        if self.excl_tags is not None:
+            et = self.excl_tags[torch.clamp(tag - 1, 0, ng - 1)]
+            # parked rows carry garbage tags: only owned rows keep theirs
+            excl = torch.where(i_owned[:, None] & (et > 0), look(et), cap)
+        if self.bonded is not None:
+            bp = self.bonded
+            rows = {}
+            for key in _TERMS:
+                tags = getattr(bp, f"{key}_tags")
+                rs = tuple(look(tags[:, m]) for m in range(tags.shape[1]))
+                rows[key] = rs
+                if tags.shape[0]:
+                    owned = functools.reduce(torch.logical_or,
+                                             [r < nloc for r in rs])
+                    miss = functools.reduce(torch.logical_or,
+                                            [r >= cap for r in rs])
+                    overflow = overflow | torch.any(owned & miss)
+            topo["rows"] = rows
+        return topo, excl, overflow
+
+    def _block(self, nsteps: int, run_window, cswitch: bool = False):
+        """One rebuild and ``nsteps`` Verlet (or r-RESPA) steps (none: the
+        setup's force pass) on this rank, with the cluster_switch event
+        after the rebuild when ``cswitch``; returns the per-block flags,
+        summed, with the event's (stats, info) under "cswitch"."""
         sl = self.slab
         ring = self.ring
         Dx, Dy = sl.dims
@@ -664,20 +752,26 @@ class SpatialSimulation(Simulation):
             valid = torch.cat([valid, *hval_y])
             stages.append((1, src_y, hval_y, seam_y, y_base, cap_hy))
 
-        # ---- 3. the local list ---------------------------------------------
+        # ---- 3. the topology and the local list --------------------------
         # ghosts are candidates but tally nothing: pe and the virial summed
         # over the ranks count each pair twice, as on one device
         i_owned = torch.cat([owned[:cap_local],
                              torch.zeros(2 * cap_halo + 2 * cap_hy,
                                          dtype=torch.bool, device=dev)])
         state, fout = self._sim_of(F, bin_box if self._column else pair_box)
+        topo = excl = None
+        if self.bonded is not None or self.excl_tags is not None:
+            topo, excl, ovf = self._topology(state, valid, i_owned, nloc)
+            overflow = overflow | ovf
         if self._column:
             nbr = colpack.restrict_i(
                 colpack.build(state.x, bin_box, self.nbr_spec, valid=valid),
                 i_owned)
+            if excl is not None:
+                topo["excl_rows"] = excl     # subtracted (runtime/sim.py)
         else:
             nbr = nbrmod.build(state.x, bin_box, self.nbr_spec, valid=valid,
-                               i_valid=i_owned)
+                               i_valid=i_owned, excl=excl)
         overflow = overflow | nbr.overflow
 
         # ---- 4. Verlet with a halo refresh before every force pass --------
@@ -766,26 +860,71 @@ class SpatialSimulation(Simulation):
                 ucgforce=torch.where(valid, fout.ucgforce, 0.0),
                 scores=torch.where(valid[:, None], fout.scores, 0.0))
 
+        def forces(s, pair_fn=None, scores_valid=True):
+            return self._forces(s, nbr, run_window, wrap_pair(pair_fn),
+                                scores_valid, topo=topo)
+
         mass_all = self._masses_by_type
+        cfg = self.cfg
 
         def step(s, fout, pair_fn, scores_valid, refresh_fn, rows_valid=True):
             mass = mass_all[s.typ]
-            cfg = self.cfg
             s = fi.initial_integrate(s, fout.f, fout.ucgforce, mass, cfg.dt,
                                      cfg.u.ftm2v, cfg.integrator)
             s = refresh_fn(s)
-            s, fout = self._forces(s, nbr, run_window, wrap_pair(pair_fn),
-                                   scores_valid)
+            s, fout = forces(s, pair_fn, scores_valid)
             fout = clean(fout, rows_valid)
             s = fi.final_integrate(s, fout.f, fout.ucgforce, mass, cfg.dt,
                                    cfg.u.ftm2v, cfg.integrator)
             return dataclasses.replace(s, step=s.step + 1), fout
 
-        if nsteps == 0:
-            state, fout = self._forces(state, nbr, run_window,
-                                       wrap_pair(None))
+        def bonded_f(s):
+            # the inner level's force at the owners' positions: ghost rows
+            # carry no velocity, so they stand still between refreshes
+            return bd.compute_spatial(refresh(s), self.bonded, topo["rows"],
+                                      nloc)[0]
+
+        def respa_step(s, fout, fbond):
+            mass = mass_all[s.typ]
+            integ, ftm2v = cfg.integrator, cfg.u.ftm2v
+            s = fi.respa_outer_initial(s, fout.f, fout.ucgforce, mass, cfg.dt,
+                                       ftm2v, integ)
+            for _ in range(cfg.respa_inner):
+                s, fbond = fi.respa_inner_step(
+                    s, fbond, mass, cfg.dt / cfg.respa_inner, ftm2v, integ,
+                    bonded_f)
+            s, fout = forces(refresh(s))
             fout = clean(fout)
-        else:
+            s = fi.respa_outer_final(s, fout.f, fout.ucgforce, mass, cfg.dt,
+                                     ftm2v, integ)
+            return dataclasses.replace(s, step=s.step + 1), fout, fbond
+
+        event = None
+        if cswitch:
+            # the event after the rebuild (PRE_EXCHANGE), then the forces
+            # at the new types (Simulation.run's setup after an event)
+            params_cs, _ = self.cswitch
+            if self._column:
+                nbr_cs = nbrmod.build(state.x, bin_box, self._cs_spec,
+                                      valid=valid, i_valid=i_owned)
+                overflow = overflow | nbr_cs.overflow
+            else:
+                nbr_cs = nbr
+            flipped, stats, info = fcs.apply(
+                self._cs_draws(params_cs), state, nbr_cs, params_cs,
+                self.cswitch_stats, ring=ring, valid=valid)
+            state = dataclasses.replace(state, typ=flipped.typ)
+            event = (stats, info)
+
+        respa = cfg.respa_inner > 1
+        if nsteps == 0 or cswitch:
+            state, fout = forces(state)
+            fout = clean(fout)
+        if nsteps and respa:
+            fbond = bonded_f(state)
+            for _ in range(nsteps):
+                state, fout, fbond = respa_step(state, fout, fbond)
+        elif nsteps:
             fast_fn = getattr(self.pair_compute, "fast_variant", None)
             fast_scores = True
             if fast_fn is not None and self._scores_inert:
@@ -825,6 +964,14 @@ class SpatialSimulation(Simulation):
             else:
                 for _ in range(nsteps):
                     state, fout = step(state, fout, None, True, refresh)
+        if respa:
+            # the pair pass holds no bonded terms under r-RESPA: their pe
+            # and virial join the block's sums (one device's thermo)
+            _, bpe, bvir = bd.compute_spatial(state, self.bonded,
+                                              topo["rows"], nloc)
+            pe_vir = (fout.pe + bpe, fout.virial + bvir)
+        else:
+            pe_vir = (fout.pe, fout.virial)
         danger = nbrmod.displacement_check(nbr, state.x, pair_box,
                                            self.nbr_spec.skin)
         self._last = (state, nbr, valid, i_owned)
@@ -838,7 +985,7 @@ class SpatialSimulation(Simulation):
         oob = [zero if c is None else c.double()
                for c in (fout.oob_low, fout.oob_high)]
         tot = ring.all_reduce(torch.cat([
-            fout.pe.double().reshape(1), fout.virial.double(),
+            pe_vir[0].double().reshape(1), pe_vir[1].double(),
             torch.stack(oob), torch.stack([
                 overflow.double(), danger.double(), migrated.double()])]))
         host = tot[7:].cpu().tolist()
@@ -851,6 +998,8 @@ class SpatialSimulation(Simulation):
         if flags["overflow"]:
             occ = nbr.max_occupancy.to(torch.float64).reshape(1)
             flags["max_occ"] = int(ring.all_reduce(occ, "max")[0])
+        if event is not None:
+            flags["cswitch"] = event
         return flags
 
     def last_list(self):
@@ -869,7 +1018,8 @@ class SpatialSimulation(Simulation):
         if flags["overflow"]:
             raise RuntimeError(
                 f"spatial capacity exceeded {where} (migration, halo or "
-                f"local-list overflow, or a hop past a neighbour; max "
+                f"local-list overflow, a hop past a neighbour, or a bonded "
+                f"term with a member out of reach; max "
                 f"occupancy {flags['max_occ']})")
 
     def setup(self, run_window=(0, 0)):
@@ -880,18 +1030,35 @@ class SpatialSimulation(Simulation):
         self.migrations += flags["migrated"]
         self._check(flags, "at setup")
 
-    def _run_block(self, nsteps: int, run_window):
-        flags = self._block(nsteps, run_window)
+    def _run_block(self, nsteps: int, run_window, cswitch: bool = False):
+        step = self._step
+        flags = self._block(nsteps, run_window, cswitch)
         self.migrations += flags["migrated"]
         if self.cfg.check_safety:
             self._check(flags, f"at step {self._step}")
             self.dangerous_builds += flags["danger"]
+        if cswitch:
+            # the stats and labels are the same on every rank, so is the
+            # convergence error
+            self.cswitch_stats, info = flags["cswitch"]
+            self.cswitch_sweeps.append(int(info["sweeps"]))
+            self._finish_event(info, step)
         return flags
+
+
+    def event_due(self) -> bool:
+        """Whether the cluster_switch event opens the next block: its start
+        step is a positive multiple of the switch frequency."""
+        if self.cswitch is None:
+            return False
+        freq = self.cswitch[1]
+        return self._step > 0 and self._step % freq == 0
 
     def run(self, nsteps: int, thermo_every: int = 0,
             thermo_callback=None):
         """Advance ``nsteps`` in blocks of ``reneigh_every`` (the last may
-        be short), with thermo rows as ``Simulation.run`` takes them; then
+        be short), the cluster_switch event opening each block it is due
+        at, with thermo rows as ``Simulation.run`` takes them; then
         ``state`` is the gathered system."""
         begin = self._step
         window = (begin, begin + nsteps)
@@ -900,7 +1067,7 @@ class SpatialSimulation(Simulation):
         done = 0
         while done < nsteps:
             todo = min(self.cfg.reneigh_every, nsteps - done)
-            self._run_block(todo, window)
+            self._run_block(todo, window, self.event_due())
             done += todo
             if thermo_every and (done % thermo_every == 0 or done == nsteps):
                 row = self.thermo()
@@ -910,24 +1077,53 @@ class SpatialSimulation(Simulation):
         self.state, self._fcarry = self.gather()
         return self.state
 
-    def run_fused(self, nblocks: int, run_window=None):
+    def run_fused(self, nblocks: int, run_window=None,
+                  do_cswitch: bool = False):
         """Advance ``nblocks`` × ``reneigh_every`` steps: no thermo, no
-        gather; the flags are read once per block."""
+        gather; the flags are read once per block.  ``do_cswitch``: the
+        cluster_switch event rides the first block (one device's
+        ``run_fused`` fires none, as in the JAX package)."""
         step = self._step
         if run_window is None:
             run_window = (step, step + nblocks * self.cfg.reneigh_every)
         run_window = tuple(int(v) for v in run_window)
         if not self._setup_done:
             self.setup(run_window)
-        for _ in range(nblocks):
-            self._run_block(self.cfg.reneigh_every, run_window)
+        for k in range(nblocks):
+            self._run_block(self.cfg.reneigh_every, run_window,
+                            do_cswitch and k == 0)
 
     def carry(self) -> dict:
-        raise NotImplementedError(f"a spatial run's force carry is {M14B}: "
-                                  "a continued run re-runs setup")
+        """What a continuation on the same ranks needs to resume this run
+        exactly: this rank's packed rows and live count, the summed pe,
+        virial and out-of-table counts, the step and the decomposition
+        (every block rebuilds, so no list is kept)."""
+        if not self._setup_done:
+            raise RuntimeError("no run to carry: call setup or run first")
+        rec = {"F": self._F, "nloc": self._nloc, "pe": self._pe,
+               "virial": self._virial, "step": self._step,
+               "slab": self.slab}
+        if self._oob is not None:
+            rec["oob"] = self._oob
+        return rec
 
     def resume(self, record: dict):
-        raise NotImplementedError(f"a spatial run's force carry is {M14B}")
+        """Continue from :meth:`carry` of this rank's run that reached this
+        state: its rows replace the distribution, and the next block goes
+        on as if the run had never stopped.  Nothing is drawn."""
+        if record["slab"] != self.slab or record["F"].shape != self._F.shape:
+            raise ValueError("the carry record is of another decomposition")
+        self._F = record["F"].to(self._dev)
+        self._nloc = record["nloc"].to(self._dev)
+        self._pe, self._virial = record["pe"], record["virial"]
+        self._oob = record.get("oob")
+        self._step = int(record["step"])
+        self._setup_done = True
+
+    def set_state(self, state: SimState):
+        """Distribute ``state`` anew (the next force pass is a setup)."""
+        self.state = state
+        self._dist(state)
 
     def thermo(self) -> dict:
         """The thermo row of ``Simulation.thermo`` from one device-side sum
@@ -987,7 +1183,7 @@ def from_simulation(sim: Simulation, ring: Ring, **caps) -> SpatialSimulation:
     slab = spec_for(sim, ring.dims, **caps)
     return SpatialSimulation(sim.system, sim.state, sim.pair_compute,
                              sim.pair_params, slab, sim.cfg, ring,
-                             seed=sim.seed, extra_post_force=None,
-                             cluster_switch=sim.cswitch, bonded=sim.bonded,
+                             seed=sim.seed, cluster_switch=sim.cswitch,
+                             log_dir=sim.log_dir, bonded=sim.bonded,
                              excl_tags=(None if sim.excl_tags is None
                                         else sim.excl_tags.cpu().numpy()))

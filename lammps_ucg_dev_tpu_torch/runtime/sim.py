@@ -297,7 +297,13 @@ class Simulation:
         return torch.where(et > 0, inv[torch.clamp(et - 1, 0, n - 1)], n)
 
     def _forces(self, state: SimState, nbr, run_window, pair_fn=None,
-                scores_valid: bool = True):
+                scores_valid: bool = True, topo: dict | None = None):
+        """The pair pass, the topology and the post-force fixes.  ``topo``:
+        a spatial driver's per-block topology of this rank's rows,
+        ``{"excl_rows", "rows", "nloc"}`` (``excl_rows`` on the kernel path
+        only; ``parallel/spatial.py``); None on one device, where the
+        special rows are static and the bonded terms map their tags
+        themselves."""
         cfg = self.cfg
         u = cfg.u
         kw = {}
@@ -305,26 +311,17 @@ class Simulation:
                    None) == "chemical_potential_noise":
             # table_ucg_bethe's noisy first-step priors, drawn by tag
             kw["prior_u"] = self._uniforms(state)
-        excl = self._excl_rows_static
-        in_pass = self._excl_route == "rows"
-        pkw = dict(kw, excl_rows=excl) if excl is not None and in_pass else kw
-        fout = (pair_fn or self.pair_compute)(state, nbr, self.pair_params,
-                                              **pkw)
-        if excl is not None and not in_pass:
-            # the kernel computed every in-cutoff pair, the special
-            # partners too: subtract them, in the kernel's own functional
-            d = self.pair_compute.excl_delta(state, self._excl_rows_static,
-                                             self.pair_params, **kw)
-            fout = dataclasses.replace(
-                fout, f=fout.f - d.f, ucgforce=fout.ucgforce - d.ucgforce,
-                scores=fout.scores - d.scores, pe=fout.pe - d.pe,
-                virial=fout.virial - d.virial,
-                oob_low=(None if fout.oob_low is None
-                         else fout.oob_low - d.oob_low))
+        excl = (self._excl_rows_static if topo is None
+                else topo.get("excl_rows"))
+        fout = self._pair_pass(state, nbr, pair_fn or self.pair_compute, kw,
+                               excl)
         if self.bonded is not None and cfg.respa_inner == 1:
             # Verlet: the bonded terms fold into the pair pass (under
             # r-RESPA they live at the inner level, _block)
-            bf, bpe, bvir = bd.compute(state, self.bonded)
+            bf, bpe, bvir = (
+                bd.compute(state, self.bonded) if topo is None
+                else bd.compute_spatial(state, self.bonded, topo["rows"],
+                                        topo["nloc"]))
             fout = dataclasses.replace(fout, f=fout.f + bf, pe=fout.pe + bpe,
                                        virial=fout.virial + bvir)
         ucgforce = fout.ucgforce
@@ -361,6 +358,27 @@ class Simulation:
             # a style's own in-pass posterior (table_ucg_bethe_density)
             state = dataclasses.replace(state, ucgp=fout.ucgp)
         return state, dataclasses.replace(fout, ucgforce=ucgforce)
+
+    def _pair_pass(self, state: SimState, nbr, pair_fn, kw: dict,
+                   excl: torch.Tensor | None) -> ForceOut:
+        """The pair entry ``pair_fn`` with the special partners ``excl``
+        ((N, S) rows, N where empty; None without exclusions on the kernel
+        path) left out, by the entry's own route (``excl_route``)."""
+        in_pass = self._excl_route == "rows"
+        pkw = dict(kw, excl_rows=excl) if excl is not None and in_pass else kw
+        fout = pair_fn(state, nbr, self.pair_params, **pkw)
+        if excl is not None and not in_pass:
+            # the kernel computed every in-cutoff pair, the special
+            # partners too: subtract them, in the kernel's own functional
+            d = self.pair_compute.excl_delta(state, excl, self.pair_params,
+                                             **kw)
+            fout = dataclasses.replace(
+                fout, f=fout.f - d.f, ucgforce=fout.ucgforce - d.ucgforce,
+                scores=fout.scores - d.scores, pe=fout.pe - d.pe,
+                virial=fout.virial - d.virial,
+                oob_low=(None if fout.oob_low is None
+                         else fout.oob_low - d.oob_low))
+        return fout
 
     def _step(self, state: SimState, fout_prev: ForceOut, nbr, run_window,
               pair_fn=None, scores_valid: bool = True):
@@ -588,6 +606,13 @@ class Simulation:
         state, stats, info = fcs.apply(u, state, nbr, params_cs, stats)
         return state, stats, dict(info, nbr_overflow=nbr.overflow)
 
+    def _cs_draws(self, params_cs) -> torch.Tensor:
+        """An event's accept uniforms, one per molecule slot, from the
+        replicated generator."""
+        return torch.rand(params_cs.maxmol + 1, generator=self.generator,
+                          dtype=params_cs.probON.dtype,
+                          device=self.state.device)
+
     def _maybe_cluster_switch(self):
         if self.cswitch is None:
             return
@@ -595,19 +620,21 @@ class Simulation:
         step = self.state.step
         if step == 0 or step % freq != 0:
             return
-        u = torch.rand(params_cs.maxmol + 1, generator=self.generator,
-                       dtype=params_cs.probON.dtype, device=self.state.device)
         self.state, self.cswitch_stats, info = self._cswitch_event(
-            self.state, self.cswitch_stats, u)
+            self.state, self.cswitch_stats, self._cs_draws(params_cs))
         if self.cfg.check_safety and bool(info["nbr_overflow"]):
             raise RuntimeError("cluster_switch contact-list capacity exceeded")
+        self._finish_event(info, step)
+        self._fcarry = None           # the types changed: recompute forces
+
+    def _finish_event(self, info: dict, step: int):
+        """The event's epilogue: the convergence error, then the event logs
+        (fix_cluster_switch.cpp:704-725) when ``log_dir`` is set."""
         if not info["converged"]:
             raise RuntimeError(
                 "cluster_switch label propagation hit max_sweeps without "
                 "converging: cluster labels may be wrong (raise max_sweeps)")
-        self._fcarry = None           # the types changed: recompute forces
         if self.log_dir is not None:
-            # the event logs (fix_cluster_switch.cpp:704-725)
             for name, v in (("cluster_assignment", info["in_cluster"]),
                             ("state_assignment", info["mol_state"])):
                 with open(f"{self.log_dir}/{name}.log", "a") as fh:

@@ -19,8 +19,8 @@ its reference pair paths run).
 * Continuity: ``run 20`` against ``run 10`` + ``write_restart`` + a new
   runner's ``read_restart`` + ``run 10``, and against two ``run 10``, bit
   for bit with the Langevin noise on.
-* The refusals: ``processors 2 1 1`` raises NotImplementedError; without
-  a GPU the default device raises.
+* The refusals: ``processors 2 1 1`` without a process group of 2 ranks
+  raises ValueError; without a GPU the default device raises.
 * Table styles: decks with ``lookup``, ``spline`` and ``bitmap`` tables
   at step 0 (cases of ``test_deck_step0_matches_jax``), and a tilted box
   (``xy xz yz`` in the data file): the runner switches to the nsq list,

@@ -39,7 +39,7 @@ NEW_MODULES = ("models.pair_bethe", "ops.hopper_bethe", "ops.kernel_select",
                "io.restart", "runtime.native", "models.pair_single",
                "models.registry", "utils.profiling", "tools.make_deck",
                "tools.deckgap", "parallel.comm", "parallel.launch",
-               "parallel.spatial", "tools.spatial_check")
+               "parallel.spatial", "parallel.domain", "tools.spatial_check")
 
 
 def test_port_imports_without_jax_and_builds_nothing():

@@ -25,10 +25,17 @@ the legs of ``tools/spatial_check.py``), float64 on the reference path.
 * a fluid streaming at +10 in x that migrates hundreds of atoms in 8
   blocks (tags stay a permutation, trajectory at 1e-10), a halo capacity that
   overflows (every rank raises), and a ``processors 3 1 1`` deck against
-  the same deck on one process.
+  the same deck on one process;
+* the drivers' refusals (a contact cutoff past the halo, r-RESPA without
+  bonded terms, ``extra_post_force``).
 
-Each group of ranks runs under its own join limit (120 s); the references
-on one process run meanwhile in the test process."""
+Topology, r-RESPA, ``fix cluster_switch`` and the atom decomposition on
+ranks: ``test_torch_spatial_topology.py``.
+
+Each group of ranks runs under its own join limit (300 s, a guard
+against a hung rank: under ``pytest -n 6`` the groups share the CPU with
+other files' ranks); the references on one process run meanwhile in the
+test process."""
 
 import dataclasses
 
@@ -63,7 +70,7 @@ from test_torch_density import jax_p3_bank
 
 N, EVERY, STEPS = 2048, 2, 4
 STYLES = ("ucgld", "bethe", "p3", "p4")
-JOIN_S = 120.0
+JOIN_S = 300.0
 RC, SKIN = flagship.RC, 0.4
 COL_TOL = {"x": 1e-4, "v": 1e-5, "ucgl": 1e-6, "ucgp": 1e-5}
 ROW_KEYS = ("temp", "pe", "ke", "ke_lambda", "lambda_temp", "etotal",
@@ -474,20 +481,32 @@ def test_processors_deck_matches_one_process(runs):
     rows_near(got["rows"], runs["deck_single"], 1e-6)
 
 
-def test_refusals_name_m14b():
-    """Topology, r-RESPA and cluster_switch are not on the spatial drivers
-    yet: the driver refuses them before it touches a process group."""
-    sim = flagship.build_sim(n=N, dtype=torch.float64, device="cpu",
-                             kernel=False)
+@pytest.mark.parametrize("case", ["contact_cutoff", "respa_unbonded",
+                                  "extra_post_force"])
+def test_spatial_refusals(case):
+    """What the slab and pencil drivers cannot run, they refuse before they
+    touch a process group: a cluster_switch contact cutoff past the halo
+    width (cross-face contacts would be invisible), r-RESPA without bonded
+    terms (JAX's error), and an ``extra_post_force`` that reads the whole
+    system."""
+    sim = flagship.build_density_sim(n=N, dtype=torch.float64, device="cpu",
+                                     kernel=False, cluster_switch=True)
     slab = tsp.spec_for(sim, (3, 1))
     args = (sim.system, sim.state, sim.pair_compute, sim.pair_params, slab)
-    excl = np.zeros((N, 1), np.int64)
-    excl[0, 0], excl[1, 0] = 2, 1
-    for kw, cfg in ((dict(excl_tags=excl), sim.cfg),
-                    (dict(cluster_switch=(None, 20)), sim.cfg),
-                    ({}, dataclasses.replace(sim.cfg, respa_inner=2))):
-        with pytest.raises(NotImplementedError, match="M14b"):
-            tsp.SpatialSimulation(*args, cfg, None, **kw)
+    params, freq = sim.cswitch
+    cfg, kw, match = sim.cfg, {}, None
+    if case == "contact_cutoff":
+        rc = slab.rc + 0.1
+        kw["cluster_switch"] = (dataclasses.replace(
+            params, cutsq=torch.tensor(rc * rc, dtype=torch.float64)), freq)
+        match = "halo width"
+    elif case == "respa_unbonded":
+        cfg, match = dataclasses.replace(cfg, respa_inner=2), "bonded terms"
+    else:
+        kw["extra_post_force"] = lambda s, u, f: (s, u)
+        match = "extra_post_force"
+    with pytest.raises(ValueError, match=match):
+        tsp.SpatialSimulation(*args, cfg, None, **kw)
 
 
 def test_a_failing_rank_fails_the_run():
